@@ -1,0 +1,212 @@
+"""Output-space tile calculus (paper Eq. 5) and the CUDA kernel's resources.
+
+The reverse-loop algorithm tiles the *output* space into disjoint
+``T_OH x T_OW`` blocks (no overlapping-sum problem), and the input tile
+required per output tile has the *constant* extent of Eq. 5:
+
+    T_IH = ceil(T_OH / S) + ceil(K / S)                       (Eq. 5)
+
+independent of the tile position.  In the CUDA kernel (``csrc/deconv2d.cu``)
+one thread block owns one output tile and stages exactly that window in
+shared memory.
+
+The geometry half mirrors ``repro.core.tiling``; ``kernel_smem_bytes`` and
+``block_threads`` describe what the Hopper kernel allocates and launches,
+in place of the TPU VMEM model.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from .offsets import PhasePlan, make_phase_plan
+
+# The kernel's launch limits, as `csrc/deconv2d.cu` defines them (kMaxStride,
+# kMaxTaps, kMaxThreads, kMaxDynamicSmem); the launcher checks that the two
+# agree when it loads the library.
+KERNEL_MAX_STRIDE = 4
+KERNEL_MAX_TAPS = 8              # taps per output phase and dimension
+KERNEL_MAX_THREADS = 512         # the kernel's __launch_bounds__
+KERNEL_MAX_SMEM = 232448 - 4096  # 227 KB of opt-in shared memory less the static tables
+
+
+def out_size(in_size: int, kernel: int, stride: int, padding: int) -> int:
+    """Transposed-conv output extent (PyTorch ConvTranspose2d convention)."""
+    return (in_size - 1) * stride + kernel - 2 * padding
+
+
+def exact_input_extent(
+    t_oh: int, kernel: int, stride: int, padding: int
+) -> int:
+    """Exact max-over-tiles input extent max(i)-min(i)+1 for an S-aligned tile
+    of T_OH output pixels (never above Eq. 5's bound)."""
+    plan = make_phase_plan(kernel, stride, padding)
+    lo = plan.delta_min
+    hi = (t_oh - 1) // stride + plan.delta_max
+    return hi - lo + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloTile:
+    """Eq. 5 input-tile geometry for one spatial dim of the kernel.
+
+    An S-aligned output tile of ``t_out`` pixels starting at output row
+    ``j * t_out`` reads the *constant-extent* input window
+
+        rows [ j * (t_out // S) + base,  j * (t_out // S) + base + extent )
+
+    of the host-padded input; ``base >= 0`` because the host pads
+    ``left_halo`` rows on the left.  Tap displacement ``d`` lives at local
+    row ``d - delta_min`` of the window.
+    """
+
+    t_out: int       # output tile extent (multiple of S)
+    stride: int
+    extent: int      # input window extent T_I (rows staged per tile)
+    base: int        # element offset of tile j's window: j*(t_out/S) + base
+    local_zero: int  # local row of displacement delta=0 == -delta_min
+
+    @property
+    def step(self) -> int:
+        """Window start advance per output tile (t_out / S input rows)."""
+        return self.t_out // self.stride
+
+    @property
+    def overlap(self) -> int:
+        """Halo rows shared by consecutive windows."""
+        return self.extent - self.step
+
+    def local_offset(self, delta: int) -> int:
+        """In-window row of a tap with input displacement ``delta``."""
+        return delta + self.local_zero
+
+    def min_padded_extent(self, n_tiles: int) -> int:
+        """Smallest padded input extent covering all n_tiles windows."""
+        return (n_tiles - 1) * self.step + self.base + self.extent
+
+
+def halo_tile(t_out: int, kernel: int, stride: int, padding: int) -> HaloTile:
+    """Input-window geometry for an S-aligned output tile (paper Eq. 5)."""
+    if t_out % stride:
+        raise ValueError(f"tile {t_out} is not a multiple of stride {stride}")
+    plan = make_phase_plan(kernel, stride, padding)
+    step = t_out // stride
+    return HaloTile(
+        t_out=t_out,
+        stride=stride,
+        extent=step + plan.delta_max - plan.delta_min,
+        # host pads left_halo = max(0, -delta_min) rows; window j then
+        # starts at j*step + max(0, delta_min) >= 0
+        base=plan.left_halo + plan.delta_min,
+        local_zero=-plan.delta_min,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DeconvGeometry:
+    """Static geometry of one deconv layer."""
+
+    in_h: int
+    in_w: int
+    c_in: int
+    c_out: int
+    kernel: int
+    stride: int
+    padding: int
+
+    @property
+    def out_h(self) -> int:
+        return out_size(self.in_h, self.kernel, self.stride, self.padding)
+
+    @property
+    def out_w(self) -> int:
+        return out_size(self.in_w, self.kernel, self.stride, self.padding)
+
+    @property
+    def macs(self) -> int:
+        """Multiply-accumulates for the full layer (per batch element).
+        Every (input pixel, tap, c_in, c_out) combination is one MAC."""
+        return self.in_h * self.in_w * self.kernel * self.kernel * self.c_in * self.c_out
+
+    @property
+    def ops(self) -> int:
+        """GOps convention of the paper: 2 ops per MAC."""
+        return 2 * self.macs
+
+    @property
+    def output_macs(self) -> int:
+        """Multiply-accumulates whose products land in the output (per batch
+        element): `macs` less the contributions to the ``padding`` border
+        that the transposed convolution crops away.  The work a layer needs."""
+        return (_contributions(self.in_h, self.kernel, self.stride, self.padding)
+                * _contributions(self.in_w, self.kernel, self.stride, self.padding)
+                * self.c_in * self.c_out)
+
+    def phase_plan(self) -> PhasePlan:
+        return make_phase_plan(self.kernel, self.stride, self.padding)
+
+    def halo_padding(self) -> Tuple[int, int]:
+        """(pad_left, pad_right) applied to the input spatial dims so that
+        every tap access of every S-aligned output tile is in bounds."""
+        plan = self.phase_plan()
+        pad_l = plan.left_halo
+        i_max = (self.out_h - 1) // self.stride + plan.delta_max
+        pad_r = max(0, i_max - (self.in_h - 1))
+        return pad_l, pad_r
+
+
+def _contributions(in_size: int, kernel: int, stride: int,
+                   padding: int) -> int:
+    """(input index, tap) pairs of one dimension whose output index
+    ``i*stride + k - padding`` lies inside the output."""
+    out = out_size(in_size, kernel, stride, padding)
+    return sum(1 for i in range(in_size) for k in range(kernel)
+               if 0 <= i * stride + k - padding < out)
+
+
+def register_tile(t_co: int) -> Tuple[int, int]:
+    """(RP, RC): output pixels of one phase times output channels that one
+    kernel thread accumulates.  Wide channel tiles (a multiple of 8) take
+    4 x 8 with the 8 channels contiguous, so a thread's weights come in
+    two 16-byte shared loads; the kernel has an instance for each pair
+    returned here."""
+    if t_co >= 32 and t_co % 8 == 0:
+        return 4, 8
+    if t_co >= 8:
+        return 4, 2
+    return 4, 1
+
+
+def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int,
+                  t_n: int) -> int:
+    """Threads of one kernel block: every output phase (S*S of them) gets
+    ceil(pixels/RP) x ceil(t_co/RC) threads, so a thread walks only the
+    taps of its own phase."""
+    pix = t_n * (t_oh // stride) * (t_ow // stride)
+    rp, rc = register_tile(t_co)
+    return stride * stride * (-(-pix // rp)) * (-(-t_co // rc))
+
+
+def launch_threads(stride: int, t_oh: int, t_ow: int, t_co: int,
+                   t_n: int) -> int:
+    """Threads a block is launched with: `block_threads`, but at least 128
+    and a whole number of warps; the threads past the last phase only
+    stage (a small tile's CI chunks are not staged by one warp)."""
+    return -(-max(block_threads(stride, t_oh, t_ow, t_co, t_n), 128) // 32) * 32
+
+
+def kernel_smem_bytes(geom: DeconvGeometry, t_oh: int, t_ow: int, t_ci: int,
+                      t_co: int, t_n: int = 1) -> int:
+    """Dynamic shared memory of one kernel block, in bytes.
+
+    Per CI chunk the block stages the halo windows of its ``t_n`` images,
+    ``(t_n, T_IH, T_IW, t_ci)`` with the channel stride padded by one word
+    against bank conflicts (rounded up to 16 bytes), and the weight slab
+    ``(K, K, t_ci, t_co)``.
+    Both are held as f32 whatever the input dtype (the kernel converts
+    bf16 on staging), so the footprint does not depend on the dtype."""
+    ht_h = halo_tile(t_oh, geom.kernel, geom.stride, geom.padding)
+    ht_w = halo_tile(t_ow, geom.kernel, geom.stride, geom.padding)
+    x_words = -(-t_n * ht_h.extent * ht_w.extent * (t_ci + 1) // 4) * 4
+    w_words = geom.kernel * geom.kernel * t_ci * t_co
+    return 4 * (x_words + w_words)

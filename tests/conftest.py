@@ -12,3 +12,8 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")

@@ -1,0 +1,120 @@
+"""The PyTorch port's geometry core equals the JAX package's, exactly.
+
+Phase plans, halo tiles, output extents, the host padding and the layer
+geometry are integer arithmetic: every case must be equal, no tolerance."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro.core import offsets as j_offsets
+from repro.core import tiling as j_tiling
+from repro.kernels.deconv2d.ops import halo_pad_geometry as j_halo_pad_geometry
+from repro_torch.core import offsets as t_offsets
+from repro_torch.core import tiling as t_tiling
+from repro_torch.kernels.deconv2d.ops import halo_pad_geometry
+
+KS = [(1, 1), (3, 1), (3, 2), (4, 1), (4, 2), (5, 2), (5, 3), (7, 1), (4, 3)]
+
+
+def _tiles(s):
+    return [s * m for m in (1, 2, 3, 4, 8)]
+
+
+@pytest.mark.parametrize("k,s", KS)
+def test_phase_plan_matches_reference(k, s):
+    for p in range(k):
+        a = j_offsets.make_phase_plan(k, s, p)
+        b = t_offsets.make_phase_plan(k, s, p)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert (a.left_halo, a.right_halo) == (b.left_halo, b.right_halo)
+        np.testing.assert_array_equal(j_offsets.offset_table(k, s, p),
+                                      t_offsets.offset_table(k, s, p))
+
+
+@pytest.mark.parametrize("k,s", KS)
+def test_halo_tile_and_extents_match_reference(k, s):
+    for p in range(k):
+        for t in _tiles(s):
+            a = j_tiling.halo_tile(t, k, s, p)
+            b = t_tiling.halo_tile(t, k, s, p)
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            assert (a.step, a.overlap, a.min_padded_extent(3)) == \
+                (b.step, b.overlap, b.min_padded_extent(3))
+            assert j_tiling.exact_input_extent(t, k, s, p) == \
+                t_tiling.exact_input_extent(t, k, s, p)
+        for i in range(1, 9):
+            assert j_tiling.out_size(i, k, s, p) == t_tiling.out_size(i, k, s, p)
+
+
+@pytest.mark.parametrize("k,s", KS)
+def test_halo_pad_geometry_matches_reference(k, s):
+    for p in range(k):
+        jp = j_offsets.make_phase_plan(k, s, p)
+        tp = t_offsets.make_phase_plan(k, s, p)
+        for ih, iw in ((1, 1), (4, 5), (7, 7)):
+            if t_tiling.out_size(min(ih, iw), k, s, p) < 1:
+                continue
+            for t in _tiles(s)[:3]:
+                for n, t_n in ((1, 1), (5, 2), (64, 8)):
+                    args = (n, ih, iw, 6, 5, None, t, t, 4, 4, t_n)
+                    want = j_halo_pad_geometry(*args[:5], jp, *args[6:])
+                    got = halo_pad_geometry(*args[:5], tp, *args[6:])
+                    assert got == want
+
+
+@pytest.mark.parametrize("k,s", KS)
+def test_deconv_geometry_matches_reference(k, s):
+    for p in range(k):
+        for ih, iw in ((1, 1), (4, 6), (16, 16)):
+            if t_tiling.out_size(min(ih, iw), k, s, p) < 1:
+                continue
+            a = j_tiling.DeconvGeometry(ih, iw, 8, 3, k, s, p)
+            b = t_tiling.DeconvGeometry(ih, iw, 8, 3, k, s, p)
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            assert (a.out_h, a.out_w, a.macs, a.ops, a.halo_padding()) == \
+                (b.out_h, b.out_w, b.macs, b.ops, b.halo_padding())
+
+
+@pytest.mark.parametrize("k,s", KS)
+def test_output_macs_count_the_products_that_reach_the_output(k, s):
+    """A transposed conv of ones by ones (one channel each way) puts at
+    every output pixel the number of products that land there; their sum
+    times C_in x C_out is the work the layer needs, below ``macs`` by the
+    contributions the padding crops."""
+    for p in range(k):
+        for ih, iw in ((1, 1), (4, 6), (7, 7)):
+            g = t_tiling.DeconvGeometry(ih, iw, 8, 3, k, s, p)
+            if min(g.out_h, g.out_w) < 1:
+                continue
+            hits = F.conv_transpose2d(torch.ones(1, 1, ih, iw, dtype=torch.float64),
+                                      torch.ones(1, 1, k, k, dtype=torch.float64),
+                                      stride=s, padding=p)
+            assert g.output_macs == int(hits.sum()) * 8 * 3
+            assert g.output_macs <= g.macs
+            if p == 0:
+                assert g.output_macs == g.macs
+
+
+def test_kernel_smem_bytes_counts_padded_window_and_slab():
+    """The shared-memory model: t_n halo windows with a channel stride of
+    t_ci + 1 words, plus the K x K x t_ci x t_co weight slab, in f32."""
+    g = t_tiling.DeconvGeometry(8, 8, 512, 256, 4, 2, 1)
+    ht = t_tiling.halo_tile(8, 4, 2, 1)
+    assert t_tiling.kernel_smem_bytes(g, 8, 8, 16, 64, t_n=2) == \
+        4 * (2 * ht.extent * ht.extent * 17 + 16 * 16 * 64)
+    # the window's words round up to 16 bytes: 13 * 13 * 6 = 1014 -> 1016
+    root = t_tiling.DeconvGeometry(1, 1, 100, 256, 7, 1, 0)
+    assert t_tiling.kernel_smem_bytes(root, 7, 7, 5, 64) == \
+        4 * (1016 + 49 * 5 * 64)
+
+
+def test_block_threads_cover_every_phase():
+    # S=2, wide: 4 phases x ceil(16 pixels / 4) x ceil(64 channels / 8)
+    assert t_tiling.block_threads(2, 8, 8, 64, 1) == 4 * 4 * 8
+    # middle: 4 x 2 register tiles
+    assert t_tiling.block_threads(3, 9, 9, 8, 1) == 9 * 3 * 4
+    # thin tanh layer: one channel per thread
+    assert t_tiling.block_threads(2, 16, 16, 1, 1) == 4 * 16 * 1

@@ -1,0 +1,47 @@
+"""The port imports neither JAX nor the JAX package."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    assert len(PORT_FILES) > 15
+    bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
+           for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
+                                  .with_suffix("").parts)
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
