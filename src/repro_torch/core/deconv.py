@@ -99,26 +99,28 @@ def deconv2d_algorithm1_numpy(
 # Phase-decomposed reverse loop (plain torch)
 # ---------------------------------------------------------------------------
 def phase_products(xp: torch.Tensor, w: torch.Tensor, plan: PhasePlan,
-                   n_h: int, n_w: int, init: torch.Tensor) -> torch.Tensor:
-    """The reverse loop over a halo-padded input, in f32.
+                   n_h: int, n_w: int, init: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The reverse loop over a halo-padded input, accumulated in ``dtype``
+    (f32; float64 sums int8 products exactly, below 2**53).
 
     ``xp`` is padded by ``plan.left_halo`` rows/cols on the top/left and far
     enough on the bottom/right that every phase grid of ``n_h x n_w`` pixels
     is in bounds.  Output phase-row ``t`` of tap displacement ``d`` reads
     input row ``t + left_halo + d``.  Every phase accumulator starts at
     ``init`` (broadcast over ``(N, n_h, n_w, C_out)``).  Returns the pixel
-    shuffled ``(N, n_h*S, n_w*S, C_out)`` f32 result."""
+    shuffled ``(N, n_h*S, n_w*S, C_out)`` result in ``dtype``."""
     n = xp.shape[0]
     s = plan.stride
     co = w.shape[3]
-    x32 = xp.float()
-    w32 = w.float()
+    x32 = xp.to(dtype)
+    w32 = w.to(dtype)
     base = plan.left_halo
     rows = []
     for ph in range(s):
         cols = []
         for pw in range(s):
-            acc = init.float().expand(n, n_h, n_w, co).clone()
+            acc = init.to(dtype).expand(n, n_h, n_w, co).clone()
             for kh, dh in plan.taps[ph]:
                 for kw, dw in plan.taps[pw]:
                     xs = x32[:, base + dh:base + dh + n_h,

@@ -34,7 +34,7 @@ from ...core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_STRIDE,
 
 ACTIVATIONS = (None, "none", "relu", "tanh")
 _ACT_CODE = {None: 0, "none": 0, "relu": 1, "tanh": 2}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # In step with `enum Param` in csrc/deconv2d.cu; the tap table follows.
 _PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
@@ -132,45 +132,65 @@ def deconv2d_launch(
               t_ci=t_ci, t_co=t_co, t_n=t_n, activation=activation)
     if xp.device.type == "cpu":
         return deconv2d_launch_plain(xp, wp, bp, **kw)
-    if xp.device.type != "cuda":
-        raise ValueError(f"deconv2d kernel: no kernel for device {xp.device}")
     return _launch_cuda(xp, wp, bp, **kw)
 
 
 def _launch_cuda(xp, wp, bp, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co,
                  t_n, activation):
     global LAUNCHES
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unsupported fused activation {activation!r}")
-    if xp.dtype not in _DTYPE_CODE:
+    if xp.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"deconv2d kernel takes float32 or bfloat16, got "
                         f"{xp.dtype}")
-    for name, t in (("w", wp), ("b", bp)):
-        if t.device != xp.device or t.dtype != xp.dtype:
-            raise ValueError(f"{name} is {t.dtype} on {t.device}; x is "
-                             f"{xp.dtype} on {xp.device}")
-    if not (xp.is_contiguous() and wp.is_contiguous() and bp.is_contiguous()):
-        raise ValueError("deconv2d kernel takes contiguous tensors")
-    if bp.numel() != wp.shape[3]:
-        raise ValueError(f"bias has {bp.numel()} values for {wp.shape[3]} "
-                         "output channels")
-    params = _launch_params(tuple(xp.shape), tuple(wp.shape), plan.kernel_size,
-                            plan.stride, plan.padding, ih, iw, ohp, owp, t_oh,
-                            t_ow, t_ci, t_co, t_n, _ACT_CODE[activation],
-                            _DTYPE_CODE[xp.dtype])
-    n, _, _, _ = xp.shape
-    cop = wp.shape[3]
-    y = torch.empty((n, ohp, owp, cop), dtype=xp.dtype, device=xp.device)
+    params = launch_params(xp, wp, [("b", bp, xp.dtype)], plan=plan, ih=ih,
+                           iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
+                           t_ci=t_ci, t_co=t_co, t_n=t_n,
+                           activation=activation)
+    y = torch.empty((xp.shape[0], ohp, owp, wp.shape[3]), dtype=xp.dtype,
+                    device=xp.device)
     with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().deconv2d_forward(
+        rc = library().deconv2d_forward(
             xp.data_ptr(), wp.data_ptr(), bp.data_ptr(), y.data_ptr(),
-            params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), stream)
-    if rc != 0:
-        why = _ARG_ERRORS.get(rc, f"CUDA error {rc}")
-        raise RuntimeError(f"deconv2d kernel launch failed: {why}")
+            params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            torch.cuda.current_stream().cuda_stream)
+    check_rc("deconv2d", rc)
     LAUNCHES += 1
     return y
+
+
+def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
+                  t_co, t_n, activation) -> np.ndarray:
+    """Check one launch's tensors and return its int32 parameter array.
+
+    ``others`` lists ``(name, tensor, dtype)`` of the per-channel vectors
+    (bias, scale) that must hold one value per padded output channel.
+    Shared by the three kernels of ``csrc/deconv2d.cu``."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unsupported fused activation {activation!r}")
+    if xp.device.type != "cuda":
+        raise ValueError(f"deconv2d kernels: no kernel for device {xp.device}")
+    if wp.device != xp.device or wp.dtype != xp.dtype:
+        raise ValueError(f"w is {wp.dtype} on {wp.device}; x is {xp.dtype} "
+                         f"on {xp.device}")
+    if not (xp.is_contiguous() and wp.is_contiguous()):
+        raise ValueError("deconv2d kernels take contiguous tensors")
+    for name, t, dtype in others:
+        if t.device != xp.device or t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; the kernel "
+                             f"takes {dtype} on {xp.device}")
+        if not t.is_contiguous() or t.numel() != wp.shape[3]:
+            raise ValueError(f"{name} has {t.numel()} values for "
+                             f"{wp.shape[3]} output channels")
+    return _launch_params(tuple(xp.shape), tuple(wp.shape), plan.kernel_size,
+                          plan.stride, plan.padding, ih, iw, ohp, owp, t_oh,
+                          t_ow, t_ci, t_co, t_n, _ACT_CODE[activation],
+                          _DTYPE_CODE[xp.dtype])
+
+
+def check_rc(name: str, rc: int) -> None:
+    """Raise on a launch the C function refused or CUDA reported."""
+    if rc != 0:
+        why = _ARG_ERRORS.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
 @functools.lru_cache(maxsize=256)
@@ -199,7 +219,7 @@ def _launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
                       dtype=np.int32)
     want = kernel_smem_bytes(DeconvGeometry(1, 1, cip, cop, k, s, p), t_oh,
                              t_ow, t_ci, t_co, t_n)
-    got = _library().deconv2d_smem_bytes(
+    got = library().deconv2d_smem_bytes(
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     if got != want:
         raise RuntimeError(f"deconv2d kernel: shared-memory model says {want}"
@@ -211,19 +231,28 @@ def _launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
+    """The library of ``csrc/deconv2d.cu`` (the dense, int8 and zero-skip
+    kernels), built at first use; its launch limits are checked against
+    ``core.tiling``'s."""
     global _lib
     if _lib is None:
         from .._build import load
 
         lib = load("deconv2d")
-        ptr = ctypes.c_void_p
-        lib.deconv2d_forward.argtypes = [ptr, ptr, ptr, ptr,
-                                         ctypes.POINTER(ctypes.c_int), ptr]
-        lib.deconv2d_forward.restype = ctypes.c_int
-        lib.deconv2d_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        params = ctypes.POINTER(ctypes.c_int)
+        lib.deconv2d_forward.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
+        lib.deconv2d_int8_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, params,
+                                              f32, i32, ptr]
+        lib.deconv2d_sparse_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                                ptr, i32, params, ptr]
+        for fn in (lib.deconv2d_forward, lib.deconv2d_int8_forward,
+                   lib.deconv2d_sparse_forward):
+            fn.restype = ctypes.c_int
+        lib.deconv2d_smem_bytes.argtypes = [params]
         lib.deconv2d_smem_bytes.restype = ctypes.c_longlong
-        lib.deconv2d_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.deconv2d_limits.argtypes = [params]
         lib.deconv2d_limits.restype = None
         got = (ctypes.c_int * 4)()
         lib.deconv2d_limits(got)
@@ -238,4 +267,4 @@ def _library() -> ctypes.CDLL:
 
 def build() -> None:
     """Build and load the kernel library now (``chip_smoke.py`` times it)."""
-    _library()
+    library()

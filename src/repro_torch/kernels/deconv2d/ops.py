@@ -69,9 +69,11 @@ def halo_pad_geometry(n: int, ih: int, iw: int, ci: int, co: int,
 
 
 def launch_args(x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co, t_n,
-                activation):
+                activation, bias_dtype=None):
     """The host padding of one launch: ``(xp, wp, bp, kwargs, crop)`` where
-    ``deconv2d_launch(xp, wp, bp, **kwargs)[crop]`` is the layer's output."""
+    ``deconv2d_launch(xp, wp, bp, **kwargs)[crop]`` is the layer's output.
+    The bias is cast to ``bias_dtype`` (default: x's dtype; the int8 kernel
+    takes an f32 bias)."""
     n, ih, iw, ci = x.shape
     k, _, _, co = w.shape
     plan = make_phase_plan(k, stride, padding)
@@ -83,10 +85,10 @@ def launch_args(x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co, t_n,
     x_pad = (0, cip - ci, pad_l, pad_rw, pad_l, pad_rh, 0, np_ - n)
     xp = F.pad(x, x_pad) if any(x_pad) else x
     wp = F.pad(w, (0, cop - co, 0, cip - ci)) if (cip, cop) != (ci, co) else w
-    bb = b if b is not None else torch.zeros((co,), dtype=x.dtype,
-                                             device=x.device)
-    bp = F.pad(bb, (0, cop - co)) if cop != co else bb
-    bp = bp.to(x.dtype).reshape(1, cop)
+    bias_dtype = x.dtype if bias_dtype is None else bias_dtype
+    bp = (b if b is not None else torch.zeros((co,), device=x.device)).to(
+        bias_dtype)
+    bp = pad_channels(bp, cop)
     kwargs = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh,
                   t_ow=t_ow, t_ci=t_ci, t_co=t_co, t_n=t_n,
                   activation=activation)
@@ -94,11 +96,36 @@ def launch_args(x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co, t_n,
     return (xp.contiguous(), wp.contiguous(), bp.contiguous(), kwargs, crop)
 
 
-def _deconv2d_padded(x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co, t_n,
-                     activation):
-    xp, wp, bp, kwargs, crop = launch_args(x, w, b, stride, padding, t_oh,
-                                           t_ow, t_ci, t_co, t_n, activation)
-    return deconv2d_launch(xp, wp, bp, **kwargs)[crop]
+def pad_channels(v: torch.Tensor, cop: int) -> torch.Tensor:
+    """A per-channel vector zero-padded to ``cop`` channels, as ``(1, cop)``."""
+    v = F.pad(v, (0, cop - v.shape[0])) if v.shape[0] != cop else v
+    return v.reshape(1, cop)
+
+
+def resolve_call(plan, x, w, backend, fn_name, stride, padding, activation,
+                 tiles):
+    """``(stride, padding, (t_oh, t_ow, t_ci, t_co, t_n), activation)`` of
+    one call: all from ``plan`` (an explicit ``activation`` overrides the
+    plan's), or ``stride``/``padding`` as given with the tiles left out
+    filled by `autotune.hopper_tiles` at this batch."""
+    if plan is not None:
+        check_layer_plan(plan, x, w, backend, fn_name)
+        t = plan.tiles
+        return (plan.geometry.stride, plan.geometry.padding,
+                (t.t_oh, t.t_ow, t.t_ci, t.t_co, t.t_n),
+                plan.activation if activation is None else activation)
+    if stride is None or padding is None:
+        raise TypeError(f"{fn_name} needs stride and padding (or a plan=)")
+    if None in tiles:
+        from ..autotune import fill_tiles
+
+        n, ih, iw, ci = x.shape
+        k, _, _, co = w.shape
+        c = fill_tiles(DeconvGeometry(ih, iw, ci, co, k, stride, padding), n,
+                       **dict(zip(("t_oh", "t_ow", "t_ci", "t_co", "t_n"),
+                                  tiles)))
+        tiles = (c.t_oh, c.t_ow, c.t_ci, c.t_co, c.t_n)
+    return stride, padding, tiles, activation
 
 
 def deconv2d(
@@ -128,23 +155,9 @@ def deconv2d(
     ``padding`` are required and unspecified tiles come from
     `autotune.hopper_tiles` at this batch.
     """
-    if plan is not None:
-        check_layer_plan(plan, x, w, "cuda", "deconv2d")
-        t = plan.tiles
-        if activation is None:
-            activation = plan.activation
-        return _deconv2d_padded(x, w, b, plan.geometry.stride,
-                                plan.geometry.padding, t.t_oh, t.t_ow,
-                                t.t_ci, t.t_co, t.t_n, activation)
-    if stride is None or padding is None:
-        raise TypeError("deconv2d needs stride and padding (or a plan=)")
-    if None in (t_oh, t_ow, t_ci, t_co, t_n):
-        from ..autotune import fill_tiles
-
-        n, ih, iw, ci = x.shape
-        k, _, _, co = w.shape
-        c = fill_tiles(DeconvGeometry(ih, iw, ci, co, k, stride, padding), n,
-                       t_oh=t_oh, t_ow=t_ow, t_ci=t_ci, t_co=t_co, t_n=t_n)
-        t_oh, t_ow, t_ci, t_co, t_n = c.t_oh, c.t_ow, c.t_ci, c.t_co, c.t_n
-    return _deconv2d_padded(x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co,
-                            t_n, activation)
+    stride, padding, tiles, activation = resolve_call(
+        plan, x, w, "cuda", "deconv2d", stride, padding, activation,
+        (t_oh, t_ow, t_ci, t_co, t_n))
+    xp, wp, bp, kwargs, crop = launch_args(x, w, b, stride, padding, *tiles,
+                                           activation)
+    return deconv2d_launch(xp, wp, bp, **kwargs)[crop]

@@ -5,6 +5,8 @@ The generator's deconvolution layers run through a selectable backend:
   * "cuda"         — the hand-written CUDA kernel (the JAX package's
                      "pallas"); the plain version of that kernel on CPU
                      tensors,
+  * "cuda_sparse"  — the hand-written zero-skip kernel on pruned weights
+                     (the JAX package's "pallas_sparse"; inference only),
   * "cudnn"        — conventional zero-insertion ``F.conv_transpose2d``
                      (the JAX package's "xla"; the GPU baseline of Table II).
 
@@ -23,7 +25,8 @@ import torch
 from ..core.deconv import deconv2d_reverse_loop, deconv2d_zero_insertion
 from ..core.tiling import DeconvGeometry
 
-BACKENDS = ("reverse_loop", "cuda", "cudnn")
+BACKENDS = ("reverse_loop", "cuda", "cuda_sparse", "cudnn")
+_FUSED = ("cuda", "cuda_sparse")   # bias and activation in the kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,17 +183,27 @@ def generator_apply(
     p, cfg: DcnnConfig, z: torch.Tensor, backend: str = "reverse_loop",
     return_intermediates: bool = False,
     plan=None,
+    sparse_plans=None,
 ):
     """z: (B, z_dim) latents -> images (B, H, W, C) in [-1, 1], on the
     device of ``z`` (the params must be on the same device).
 
-    ``plan`` is a `repro_torch.plan.NetworkPlan`: its backend and per-layer
-    tiles and epilogues are used.  On "cuda" each layer's bias and
-    activation run fused in the kernel; the other backends apply the
-    activation afterwards.  ``return_intermediates=True`` also returns the
-    per-layer *inputs*: ``(images, [x_0, ..., x_{L-1}])``.
+    ``plan`` is an fp32 `repro_torch.plan.NetworkPlan`: its backend and
+    per-layer tiles, epilogues and zero-skip schedules are used.  On
+    "cuda" and "cuda_sparse" each layer's bias and activation run fused in
+    the kernel; the other backends apply the activation afterwards.
+    ``sparse_plans`` maps layer index -> ``make_sparse_plan`` tables for
+    "cuda_sparse" (int32 tensors already on z's device are used without a
+    copy; a serving engine keeps them there).  ``return_intermediates=True``
+    also returns the per-layer *inputs*: ``(images, [x_0, ..., x_{L-1}])``.
+    Nothing on "cuda_sparse" takes a gradient: its schedule is built from
+    frozen weights.
     """
     if plan is not None:
+        if plan.precision != "fp32":
+            raise ValueError(
+                f"generator_apply executes fp32 plans; a {plan.precision!r} "
+                "plan runs through quant.infer.quantized_generator_apply")
         plan.validate_for(cfg)
         backend = plan.backend
     if backend not in BACKENDS:
@@ -206,6 +219,18 @@ def generator_apply(
             x = deconv2d_reverse_loop(x, w, b, l.stride, l.padding)
         elif backend == "cudnn":
             x = deconv2d_zero_insertion(x, w, b, l.stride, l.padding)
+        elif backend == "cuda_sparse":
+            from ..kernels.deconv2d_sparse import deconv2d_sparse
+
+            schedule = (sparse_plans or {}).get(i)
+            with torch.no_grad():
+                if plan is not None:
+                    x = deconv2d_sparse(x, w, b, plan=plan.layers[i],
+                                        schedule=schedule)
+                else:
+                    x = deconv2d_sparse(x, w, b, l.stride, l.padding,
+                                        activation=l.activation,
+                                        schedule=schedule)
         else:
             from ..kernels.deconv2d import deconv2d
 
@@ -214,7 +239,7 @@ def generator_apply(
             else:
                 x = deconv2d(x, w, b, l.stride, l.padding,
                              activation=l.activation)
-        if backend != "cuda":
+        if backend not in _FUSED:
             x = torch.tanh(x) if l.activation == "tanh" else torch.relu(x)
     if return_intermediates:
         return x, inters

@@ -5,18 +5,17 @@ fitted to, the dtype, the backend, the fused epilogue and the resolved
 tiles: everything the kernel wrapper needs to dispatch without re-deciding
 anything per call.
 
-This slice carries the fp32 fields.  `request_dict` and `stable_hash` are
-byte-for-byte those of ``repro.plan.DeconvPlan``: the int8/sparse keys
-(``out_scale``, ``quant``, ``sparse_digest``) are written as null, so a port
-plan and a JAX plan with the same fields hash the same, and a JAX-pinned
-plan document verifies here.
+`request_dict`, `stable_hash` and `_sparse_digest` are byte-for-byte
+those of ``repro.plan``, int8 scales and zero-skip digest included, so a
+port plan and a JAX plan with the same fields hash the same, and a
+JAX-pinned plan document verifies here.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -27,11 +26,21 @@ from ..kernels.autotune import TileChoice, hopper_tiles
 # version as the JAX package's, whose documents this package loads).
 PLAN_SCHEMA_VERSION = 1
 
-TILED_BACKENDS = ("cuda",)
+TILED_BACKENDS = ("cuda", "cuda_sparse")
 
 
 class PlanSchemaError(ValueError):
     """A serialized plan carries a schema this code cannot execute."""
+
+
+def _sparse_digest(tables: Tuple[np.ndarray, np.ndarray, np.ndarray]) -> str:
+    """Content hash of a zero-skip schedule (make_sparse_plan output)."""
+    h = hashlib.sha256()
+    for a in tables:
+        a = np.ascontiguousarray(a)
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,10 +48,16 @@ class DeconvPlan:
     """One layer's pinned execution configuration.
 
     Planning inputs: ``geometry``, ``batch`` (the batch the tiles are
-    fitted to: a serving bucket), ``dtype`` ("float32"), ``backend``
-    ("cuda" is tiled; "reverse_loop"/"cudnn" leave ``tiles`` None),
-    ``activation`` and ``out_dtype_bytes`` (the fused epilogue).  Resolved
-    state: ``tiles``, the `TileChoice` the kernel grid runs at.
+    fitted to: a serving bucket), ``dtype`` ("float32" or "int8"),
+    ``backend`` ("cuda"/"cuda_sparse" are tiled; "reverse_loop"/"cudnn"
+    leave ``tiles`` None), the fused epilogue (``activation``; for int8
+    ``out_scale``, the requant scale of the next layer's input, and
+    ``out_dtype_bytes``, 4 where the last int8 layer emits f32), ``quant``
+    (the layer's calibrated `quant.calibrate.LayerQuant`) and
+    ``sparse_digest`` (content hash of the zero-skip schedule).  Resolved
+    state: ``tiles``, the `TileChoice` the kernel grid runs at, and
+    ``sparse_tables``, the host-built ``(ci_idx, valid, tap_mask)``
+    schedule (left out of equality and hash; its digest stands in).
     """
 
     geometry: DeconvGeometry
@@ -50,8 +65,13 @@ class DeconvPlan:
     dtype: str = "float32"
     backend: str = "cuda"
     activation: Optional[str] = None
+    out_scale: Optional[float] = None
     out_dtype_bytes: Optional[int] = None
+    quant: Optional[Any] = None            # quant.calibrate.LayerQuant
+    sparse_digest: Optional[str] = None
     tiles: Optional[TileChoice] = None
+    sparse_tables: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = \
+        dataclasses.field(default=None, compare=False, repr=False)
 
     # -- hashing --------------------------------------------------------
     def request_dict(self, scope: str = "full") -> Dict[str, Any]:
@@ -68,9 +88,10 @@ class DeconvPlan:
             return d
         d.update({
             "activation": self.activation,
-            "out_scale": None,
-            "quant": None,
-            "sparse_digest": None,
+            "out_scale": self.out_scale,
+            "quant": (dataclasses.asdict(self.quant)
+                      if self.quant is not None else None),
+            "sparse_digest": self.sparse_digest,
             "tiles": (self.tiles.as_kwargs()
                       if self.tiles is not None else None),
         })
@@ -86,6 +107,9 @@ class DeconvPlan:
     # -- (de)serialization ---------------------------------------------
     def to_json_dict(self) -> Dict[str, Any]:
         d = self.request_dict("full")
+        if self.sparse_tables is not None:
+            d["sparse_tables"] = [np.asarray(a).tolist()
+                                  for a in self.sparse_tables]
         if self.tiles is not None:
             d["tiles"] = dataclasses.asdict(self.tiles)
         return d
@@ -96,23 +120,39 @@ class DeconvPlan:
             raise PlanSchemaError(
                 f"DeconvPlan schema {d.get('schema')!r} is not the "
                 f"supported v{PLAN_SCHEMA_VERSION}")
-        for key in ("out_scale", "quant", "sparse_digest", "sparse_tables"):
-            if d.get(key) is not None:
-                raise PlanSchemaError(
-                    f"plan field {key!r} belongs to the int8/zero-skip "
-                    "paths, which this package does not run yet")
+        from ..quant.calibrate import LayerQuant
+
+        quant = d.get("quant")
         tiles = d.get("tiles")
-        return cls(
+        tables = d.get("sparse_tables")
+        if tables is not None:
+            tables = tuple(np.asarray(a, np.int32) for a in tables)
+        plan = cls(
             geometry=DeconvGeometry(**d["geometry"]),
             batch=int(d["batch"]),
             dtype=str(d["dtype"]),
             backend=str(d["backend"]),
             activation=d.get("activation"),
+            out_scale=d.get("out_scale"),
             out_dtype_bytes=d.get("out_dtype_bytes"),
+            quant=(LayerQuant(x_scale=float(quant["x_scale"]),
+                              w_scale=tuple(float(v)
+                                            for v in quant["w_scale"]))
+                   if quant is not None else None),
+            sparse_digest=d.get("sparse_digest"),
             tiles=(TileChoice(**{k: v for k, v in tiles.items()
                                  if k in TileChoice.__dataclass_fields__})
                    if tiles is not None else None),
+            sparse_tables=tables,
         )
+        if tables is not None and plan.sparse_digest is not None:
+            got = _sparse_digest(tables)
+            if got != plan.sparse_digest:
+                raise PlanSchemaError(
+                    f"sparse schedule content hash mismatch ({got} != "
+                    f"{plan.sparse_digest}): the serialized zero-skip tables "
+                    "do not match the plan that was pinned")
+        return plan
 
 
 def build_layer_plan(
@@ -122,14 +162,45 @@ def build_layer_plan(
     dtype="float32",
     backend: str = "cuda",
     activation: Optional[str] = None,
+    out_scale: Optional[float] = None,
+    out_dtype_bytes: Optional[int] = None,
+    quant=None,
+    weights=None,
+    sparse_table_cache: Optional[Dict] = None,
+    sparse_cache_key=None,
 ) -> DeconvPlan:
     """Resolve one layer's `DeconvPlan`; tiles come from the Hopper
     heuristic.  Non-tiled backends ("reverse_loop", "cudnn") get
-    ``tiles=None``."""
+    ``tiles=None``.
+
+    ``weights`` (the pruned static weights) build the zero-skip schedule
+    for backend "cuda_sparse"; ``sparse_table_cache`` memoises the tables
+    across plans that share (``sparse_cache_key``, t_ci, t_co), e.g. a
+    serving engine's buckets, which key by layer index.  The memo is used
+    only when the caller names a ``sparse_cache_key``."""
     dtype_name = np.dtype(dtype).name
     if backend not in TILED_BACKENDS:
         return DeconvPlan(geometry=geom, batch=batch, dtype=dtype_name,
                           backend=backend, activation=activation)
-    return DeconvPlan(geometry=geom, batch=batch, dtype=dtype_name,
-                      backend=backend, activation=activation,
-                      tiles=hopper_tiles(geom, batch=batch))
+    tiles = hopper_tiles(geom, batch=batch)
+    sparse_tables = digest = None
+    if backend == "cuda_sparse" and weights is not None:
+        from ..kernels.deconv2d_sparse import make_sparse_plan
+
+        memo_key = (sparse_cache_key, tiles.t_ci, tiles.t_co)
+        use_memo = (sparse_table_cache is not None
+                    and sparse_cache_key is not None)
+        if use_memo and memo_key in sparse_table_cache:
+            sparse_tables = sparse_table_cache[memo_key]
+        else:
+            sparse_tables = make_sparse_plan(weights, geom.stride,
+                                             geom.padding, tiles.t_ci,
+                                             tiles.t_co)
+            if use_memo:
+                sparse_table_cache[memo_key] = sparse_tables
+        digest = _sparse_digest(sparse_tables)
+    return DeconvPlan(
+        geometry=geom, batch=batch, dtype=dtype_name, backend=backend,
+        activation=activation, out_scale=out_scale,
+        out_dtype_bytes=out_dtype_bytes, quant=quant, sparse_digest=digest,
+        tiles=tiles, sparse_tables=sparse_tables)

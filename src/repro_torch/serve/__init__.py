@@ -1,4 +1,4 @@
-"""Bucketed fp32 DCNN serving on one device."""
+"""Bucketed DCNN serving (fp32, int8, zero-skip) on one device."""
 from .config import EngineConfig
 from .engine import DcnnServeEngine, pow2_buckets
 from .errors import (AdmissionRejected, DeadlineExceeded, EngineDegraded,

@@ -18,8 +18,13 @@ class EngineConfig:
                       ("mnist", "celeba"); unknown names raise a typed
                       `UnknownWorkloadError`.
     * ``backend``   — deconv formulation: "cuda" (the hand-written kernel),
-                      "cudnn" or "reverse_loop".
-    * ``precision`` — "fp32" (int8 arrives with its kernel).
+                      "cuda_sparse" (the zero-skip kernel on pruned
+                      params; fp32), "cudnn" or "reverse_loop".
+    * ``precision`` — "fp32", or "int8" on "cuda" (the int8 kernel chain).
+    * ``quant_cfg`` — a pre-computed `quant.QuantConfig` for int8; None
+                      self-calibrates with the ``calib_*`` knobs on
+                      `workloads.calibration_input` (or takes the
+                      calibration pinned in a provided int8 plan).
     * ``buckets``/``max_batch`` — explicit bucket set, or power-of-two
                       buckets up to ``max_batch``.
     * ``warmup``    — run every bucket once at construction.
@@ -34,6 +39,10 @@ class EngineConfig:
     model: Any
     backend: str = "cuda"
     precision: str = "fp32"
+    quant_cfg: Any = None
+    calib_batch: int = 64
+    calib_seed: int = 0
+    calib_strategy: str = "mean_ksigma"
     max_batch: int = 64
     buckets: Optional[Tuple[int, ...]] = None
     warmup: bool = False
@@ -42,12 +51,16 @@ class EngineConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.precision != "fp32":
-            raise ValueError(f"precision {self.precision!r} is not served by "
-                             "this package yet; only 'fp32' is")
+        if self.precision not in ("fp32", "int8"):
+            raise ValueError(f"unknown precision {self.precision!r}; "
+                             "expected 'fp32' or 'int8'")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected "
                              f"one of {BACKENDS}")
+        if self.precision == "int8" and self.backend != "cuda":
+            raise ValueError("precision='int8' runs the dense int8 kernel; "
+                             f"backend={self.backend!r} has no quantized "
+                             "variant")
 
     def torch_device(self) -> torch.device:
         """The engine's device; raises if it is a CUDA device and no card

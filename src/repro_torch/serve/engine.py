@@ -7,8 +7,14 @@ pinned `plan.NetworkPlan` whose tiles (including the batch tile ``t_n``)
 were resolved for that bucket's batch, and a ``submit``/``collect`` queue
 coalesces small requests into the largest fitting buckets.
 
-``launch_counts`` maps bucket -> CUDA kernel launches made by that bucket's
-dispatches, so a run can show that serving went through the kernel.
+Three kernel paths: fp32 on "cuda" (the dense kernel), int8 on "cuda"
+(the int8 kernel chain: params calibrated and quantized once at
+construction and kept on the device) and fp32 on "cuda_sparse" (the
+zero-skip kernel on pruned params; schedules built on the host once per
+layer and channel tiles, and copied to the device once per plan).
+``launch_counts`` maps bucket -> launches of the kernel the engine's path
+uses, made by that bucket's dispatches, so a run can show that serving
+went through it.
 """
 from __future__ import annotations
 
@@ -19,7 +25,9 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ..kernels.deconv2d import int8 as int8_kernel
 from ..kernels.deconv2d import kernel as deconv_kernel
+from ..kernels.deconv2d_sparse import kernel as sparse_kernel
 from ..models.dcnn import generator_apply
 from ..workloads import resolve_model, workload_name_for
 from .config import EngineConfig
@@ -57,10 +65,13 @@ class DcnnServeEngine:
     @classmethod
     def from_config(cls, cfg: EngineConfig, params,
                     plan=None) -> "DcnnServeEngine":
-        """``params`` is a ``{"l{i}": {"w", "b"}}`` tree of tensors (moved to
-        the engine's device); ``plan`` an optional pinned `NetworkPlan`
-        (for example a JAX-pinned document after `for_hopper`) for the
-        bucket whose batch matches ``plan.batch``."""
+        """``params`` is a ``{"l{i}": {"w", "b"}}`` tree of fp32 tensors
+        (moved to the engine's device; pruned for "cuda_sparse"); ``plan``
+        an optional pinned `NetworkPlan` (for example a JAX-pinned document
+        after `for_hopper`) for the bucket whose batch matches
+        ``plan.batch``.  An int8 plan also supplies the calibration when
+        ``cfg.quant_cfg`` is None, so a pinned deployment never
+        re-calibrates."""
         self = cls.__new__(cls)
         self._setup(cfg, params, plan)
         return self
@@ -73,9 +84,10 @@ class DcnnServeEngine:
         self.backend = config.backend
         self.precision = config.precision
         self.call_overhead_rows = config.call_overhead_rows
+        self.quant_cfg = config.quant_cfg
         dtype = self.cfg.torch_dtype
-        self.params = {k: {n: t.to(device=self.device, dtype=dtype)
-                           for n, t in v.items()} for k, v in params.items()}
+        params = {k: {n: t.to(device=self.device, dtype=dtype)
+                      for n, t in v.items()} for k, v in params.items()}
         self.buckets = tuple(sorted(set(
             int(b) for b in (config.buckets if config.buckets
                              else pow2_buckets(config.max_batch)))))
@@ -84,6 +96,14 @@ class DcnnServeEngine:
         self.max_bucket = self.buckets[-1]
         self.plans: Dict[int, object] = {}
         self.launch_counts: Dict[int, int] = {}
+        self._kernel = {("cuda", "fp32"): deconv_kernel,
+                        ("cuda", "int8"): int8_kernel,
+                        ("cuda_sparse", "fp32"): sparse_kernel}.get(
+                            (self.backend, self.precision))
+        # host schedules memoised under (layer, t_ci, t_co) across buckets;
+        # their device copies once per bucket plan
+        self._sparse_tables: Dict[tuple, tuple] = {}
+        self._sparse_device: Dict[int, Dict[int, tuple]] = {}
         self._warm: Set[int] = set()
         self.plan_stats = {"builds": 0, "build_seconds": 0.0}
         if plan is not None:
@@ -97,7 +117,30 @@ class DcnnServeEngine:
             if plan.batch not in self.buckets:
                 raise ValueError(f"plan.batch={plan.batch} matches no bucket "
                                  f"(buckets={self.buckets})")
+            # a stale zero-skip schedule would skip now-nonzero slabs
+            plan.verify_sparse_tables(params)
+            if self.precision == "int8":
+                if self.quant_cfg is None:
+                    self.quant_cfg = plan.quant_config()
+                elif plan.quant_config() != self.quant_cfg:
+                    raise ValueError(
+                        "EngineConfig.quant_cfg and the pinned plan carry "
+                        "different calibrations; drop one of them (the "
+                        "plan's scales are the ones its epilogues use)")
             self.plans[plan.batch] = plan
+        if self.precision == "int8":
+            from ..quant.calibrate import calibrate, quantize_params
+            from ..workloads import calibration_input
+
+            if self.quant_cfg is None:
+                z_cal = calibration_input(self.cfg, seed=config.calib_seed,
+                                          batch=config.calib_batch)
+                self.quant_cfg = calibrate(params, self.cfg,
+                                           z_cal.to(self.device),
+                                           strategy=config.calib_strategy)
+            params = quantize_params(params, self.cfg, self.quant_cfg,
+                                     device=self.device)
+        self.params = params
         # queue entries are (ticket, rows, absolute deadline or None).
         # _qlock guards the queue state; _drain_lock serializes drains;
         # _inflight names tickets a drain has taken off the queue but not
@@ -125,10 +168,32 @@ class DcnnServeEngine:
             t0 = time.perf_counter()
             self.plans[bucket] = build_network_plan(
                 self.cfg, batch=bucket, backend=self.backend,
-                precision=self.precision)
+                precision=self.precision, quant_cfg=self.quant_cfg,
+                params=(self.params if self.backend == "cuda_sparse"
+                        else None),
+                sparse_table_cache=self._sparse_tables)
             self.plan_stats["builds"] += 1
             self.plan_stats["build_seconds"] += time.perf_counter() - t0
         return self.plans[bucket]
+
+    def _apply(self, bucket: int, plan, z: torch.Tensor) -> torch.Tensor:
+        """The generator of the engine's path on one padded bucket."""
+        if self.precision == "int8":
+            from ..quant.infer import quantized_generator_apply
+
+            return quantized_generator_apply(self.params, self.cfg,
+                                             self.quant_cfg, z, plan=plan)
+        sparse = None
+        if self.backend == "cuda_sparse":
+            from ..kernels.deconv2d_sparse import schedule_tensors
+
+            sparse = self._sparse_device.get(bucket)
+            if sparse is None:
+                sparse = self._sparse_device[bucket] = {
+                    i: schedule_tensors(t, self.device)
+                    for i, t in plan.sparse_plans().items()}
+        return generator_apply(self.params, self.cfg, z, plan=plan,
+                               sparse_plans=sparse)
 
     def _warmup_bucket(self, bucket: int) -> None:
         z = np.zeros((bucket,) + self.cfg.input_shape, self.cfg.dtype)
@@ -147,7 +212,7 @@ class DcnnServeEngine:
         and stays out of the timing stats."""
         plan = self._plan_for(bucket)
         take = rows.shape[0]
-        launches0 = deconv_kernel.LAUNCHES
+        launches0 = self._launches()
         self._sync()
         t0 = time.perf_counter()
         if take < bucket:
@@ -155,14 +220,19 @@ class DcnnServeEngine:
                 [rows, np.zeros((bucket - take,) + rows.shape[1:], rows.dtype)],
                 axis=0)
         z = torch.from_numpy(rows).to(self.device)
-        y = generator_apply(self.params, self.cfg, z, plan=plan)
+        y = self._apply(bucket, plan, z)
         images = y[:take].cpu().numpy()   # returns once the copy is done
         dt = time.perf_counter() - t0
         self.launch_counts[bucket] = (self.launch_counts.get(bucket, 0)
-                                      + deconv_kernel.LAUNCHES - launches0)
+                                      + self._launches() - launches0)
         steady = bucket in self._warm
         self._warm.add(bucket)
         return images, dt, steady
+
+    def _launches(self) -> int:
+        """Launches so far of the kernel of the engine's path (0 on the
+        backends without one)."""
+        return self._kernel.LAUNCHES if self._kernel is not None else 0
 
     def bucket_for(self, n: int) -> int:
         """Smallest bucket covering n requests (largest bucket if n exceeds

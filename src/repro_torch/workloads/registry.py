@@ -11,10 +11,12 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import torch
+
 from ..models.dcnn import CELEBA_DCNN, MNIST_DCNN, DcnnConfig
 
-__all__ = ["WorkloadError", "UnknownWorkloadError", "get", "names",
-           "resolve_model", "workload_name_for"]
+__all__ = ["WorkloadError", "UnknownWorkloadError", "calibration_input",
+           "get", "names", "resolve_model", "workload_name_for"]
 
 
 class WorkloadError(ValueError):
@@ -69,3 +71,18 @@ def resolve_model(model) -> DcnnConfig:
     raise WorkloadError(
         f"model must be a DcnnConfig or a registered workload name, "
         f"got {type(model).__name__}")
+
+
+def calibration_input(cfg: DcnnConfig, *, seed: int = 0,
+                      batch: int = 64) -> torch.Tensor:
+    """A deterministic f32 calibration batch for ``cfg``'s input root, on
+    the CPU: z ~ N(0, 1) of shape ``(batch,) + cfg.input_shape``, drawn from
+    ``torch.Generator().manual_seed(seed)``.
+
+    The plan builder and the serving engine both calibrate on it with the
+    same (seed, batch), so their scales agree.  It cannot reproduce the
+    JAX package's draw (``jax.random``), so a port that self-calibrates
+    gets other scales than the reference; to compute with the reference's
+    scales, hand the port its ``QuantConfig`` (or a plan pinned by it)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((batch,) + cfg.input_shape, generator=gen)

@@ -22,7 +22,7 @@ def _imported_modules(path):
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
-    assert len(PORT_FILES) > 15
+    assert len(PORT_FILES) > 30
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]

@@ -131,3 +131,139 @@ def test_fill_tiles_keeps_given_tiles_and_fills_the_rest():
         (4, auto.t_ow, 8, auto.t_co, auto.t_n)
     with pytest.raises(TypeError):
         fill_tiles(g, 64, t_x=2)
+
+
+# -- int8 and zero-skip plans ---------------------------------------------
+@pytest.fixture(scope="module")
+def mnist_params():
+    import jax
+    import numpy as np
+
+    from repro.core.sparsity import prune_tree as j_prune_tree
+
+    p, _ = jdcnn.generator_init(jax.random.PRNGKey(0), jdcnn.MNIST_DCNN)
+    pp = j_prune_tree(p, 0.9)
+    to_port = lambda tree: dcnn.generator_params_from_numpy(  # noqa: E731
+        jax.tree_util.tree_map(np.asarray, tree), dcnn.MNIST_DCNN, "cpu")
+    return p, pp, to_port(p), to_port(pp)
+
+
+def test_reference_pinned_int8_plan_loads_and_verifies(mnist_params):
+    from repro_torch.quant import QuantConfig
+
+    p, _, _, _ = mnist_params
+    ref = j_build_network_plan(jdcnn.MNIST_DCNN, batch=4, backend="pallas",
+                               precision="int8", params=p, autotune=False)
+    plan = NetworkPlan.from_json(ref.to_json())
+    assert plan.stable_hash() == ref.stable_hash()
+    assert plan.quant_strategy == ref.quant_strategy
+    qcfg = plan.quant_config()
+    assert qcfg.to_dict() == dataclasses.asdict(ref.quant_config())
+    hop = plan.for_hopper()
+    assert (hop.backend, hop.precision, hop.quant_strategy) == \
+        ("cuda", "int8", plan.quant_strategy)
+    for a, b in zip(plan.layers, hop.layers):
+        assert (a.quant, a.out_scale, a.out_dtype_bytes, a.dtype) == \
+            (b.quant, b.out_scale, b.out_dtype_bytes, b.dtype)
+        assert b.tiles == hopper_tiles(b.geometry, batch=4)
+    assert hop.layers[-1].out_dtype_bytes == 4 and hop.layers[0].dtype == "int8"
+    # the port plans the same bucket from the same calibration identically
+    assert hop == build_network_plan(
+        dcnn.MNIST_DCNN, batch=4, precision="int8",
+        quant_cfg=QuantConfig.from_dict(qcfg.to_dict()))
+    assert NetworkPlan.from_json(hop.to_json()) == hop
+
+
+def test_reference_pinned_sparse_plan_rebuilds_for_hopper(mnist_params):
+    import numpy as np
+
+    from repro.core.sparsity import prune_tree as j_prune_tree
+    from repro_torch.kernels.deconv2d_sparse import make_sparse_plan
+    from repro_torch.plan.deconv_plan import _sparse_digest
+
+    p, pp, _, tpp = mnist_params
+    ref = j_build_network_plan(jdcnn.MNIST_DCNN, batch=4,
+                               backend="pallas_sparse", params=pp,
+                               autotune=False)
+    plan = NetworkPlan.from_json(ref.to_json())
+    assert plan.stable_hash() == ref.stable_hash()
+    for got, want in zip(plan.sparse_plans().values(),
+                         ref.sparse_plans().values()):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="params"):
+        plan.for_hopper()
+    hop = plan.for_hopper(params=tpp)
+    assert hop.backend == "cuda_sparse"
+    for i, l in enumerate(hop.layers):
+        assert l.tiles == hopper_tiles(l.geometry, batch=4)
+        want = make_sparse_plan(tpp[f"l{i}"]["w"], l.geometry.stride,
+                                l.geometry.padding, l.tiles.t_ci,
+                                l.tiles.t_co)
+        for g, w in zip(l.sparse_tables, want):
+            np.testing.assert_array_equal(g, w)
+        assert l.sparse_digest == _sparse_digest(want)
+    assert hop == build_network_plan(dcnn.MNIST_DCNN, batch=4,
+                                     backend="cuda_sparse", params=tpp)
+    hop.verify_sparse_tables(tpp)
+    plan.verify_sparse_tables(tpp)
+    repruned = dcnn.generator_params_from_numpy(
+        {k: {n: np.asarray(v) for n, v in d.items()}
+         for k, d in j_prune_tree(p, 0.97).items()}, dcnn.MNIST_DCNN, "cpu")
+    with pytest.raises(ValueError, match="stale"):
+        hop.verify_sparse_tables(repruned)
+    back = NetworkPlan.from_json(hop.to_json())
+    assert back == hop and back.sparse_plans() is not None
+
+
+def test_tampered_sparse_tables_are_refused(mnist_params):
+    _, _, _, tpp = mnist_params
+    plan = build_network_plan(dcnn.MNIST_DCNN, batch=2, backend="cuda_sparse",
+                              params=tpp)
+    d = json.loads(plan.to_json())
+    d["layers"][1]["sparse_tables"][1][0][0] = 0
+    with pytest.raises(PlanSchemaError, match="sparse schedule"):
+        NetworkPlan.from_json(json.dumps(d))
+
+
+def test_int8_and_sparse_layer_hash_is_the_reference_algorithm():
+    """The int8 epilogue fields, the calibration and the schedule digest
+    enter the hash byte for byte as in the JAX package."""
+    import numpy as np
+
+    from repro.plan.deconv_plan import _sparse_digest as j_digest
+    from repro.quant import LayerQuant as JLayerQuant
+    from repro_torch.plan.deconv_plan import _sparse_digest
+    from repro_torch.quant import LayerQuant
+
+    jg = JGeometry(7, 7, 256, 128, 4, 2, 1)
+    g = DeconvGeometry(7, 7, 256, 128, 4, 2, 1)
+    tables = tuple(np.arange(n, dtype=np.int32).reshape(s)
+                   for n, s in ((6, (2, 3)), (6, (2, 3)), (96, (2, 3, 16))))
+    assert _sparse_digest(tables) == j_digest(tables)
+    ws = tuple(0.001 * (i + 1) for i in range(4))
+    jp = JDeconvPlan(geometry=jg, batch=8, dtype="int8", backend="pallas",
+                     activation="relu", out_scale=0.0123, out_dtype_bytes=4,
+                     quant=JLayerQuant(x_scale=0.05, w_scale=ws),
+                     sparse_digest=j_digest(tables),
+                     tiles=JTileChoice(8, 8, 16, 64, 2, source="x"))
+    tp = DeconvPlan(geometry=g, batch=8, dtype="int8", backend="pallas",
+                    activation="relu", out_scale=0.0123, out_dtype_bytes=4,
+                    quant=LayerQuant(x_scale=0.05, w_scale=ws),
+                    sparse_digest=_sparse_digest(tables),
+                    tiles=TileChoice(8, 8, 16, 64, 2))
+    assert tp.request_dict() == jp.request_dict()
+    assert tp.stable_hash() == jp.stable_hash()
+
+
+def test_build_network_plan_refuses_what_it_cannot_plan(mnist_params):
+    _, _, tp, _ = mnist_params
+    with pytest.raises(ValueError, match="no quantized variant"):
+        build_network_plan(dcnn.MNIST_DCNN, backend="cudnn", precision="int8",
+                           params=tp)
+    with pytest.raises(ValueError, match="needs params"):
+        build_network_plan(dcnn.MNIST_DCNN, backend="cuda_sparse")
+    with pytest.raises(ValueError, match="quant_cfg or params"):
+        build_network_plan(dcnn.MNIST_DCNN, precision="int8")
+    with pytest.raises(ValueError, match="precision"):
+        build_network_plan(dcnn.MNIST_DCNN, precision="fp16")

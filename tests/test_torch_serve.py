@@ -119,7 +119,13 @@ def test_config_rejects_what_this_slice_does_not_serve(mnist):
         DcnnServeEngine.from_config(EngineConfig(model="mnits", device="cpu"),
                                     tp)
     with pytest.raises(ValueError, match="precision"):
-        EngineConfig(model="mnist", precision="int8", device="cpu")
+        EngineConfig(model="mnist", precision="fp16", device="cpu")
+    with pytest.raises(ValueError, match="no quantized variant"):
+        EngineConfig(model="mnist", precision="int8", backend="cudnn",
+                     device="cpu")
+    with pytest.raises(ValueError, match="no quantized variant"):
+        EngineConfig(model="mnist", precision="int8", backend="cuda_sparse",
+                     device="cpu")
     with pytest.raises(ValueError, match="backend"):
         EngineConfig(model="mnist", backend="pallas", device="cpu")
 
@@ -158,3 +164,124 @@ def test_engine_serves_a_reference_pinned_plan(mnist):
         DcnnServeEngine.from_config(
             EngineConfig(model="mnist", device="cpu", backend="cudnn",
                          max_batch=4), tp, plan=plan)
+
+
+# -- int8 and zero-skip engines ---------------------------------------------
+def _reqs(seed=6):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(n, 100).astype(np.float32) for n in (3, 1, 5)]
+
+
+def test_int8_engine_matches_reference_chain(mnist):
+    """Given the reference's calibration, the int8 engine's images equal the
+    JAX package's int8 oracle chain within 1e-5 (see test_torch_quant)."""
+    import dataclasses
+
+    from repro.quant import calibrate as j_calibrate
+    from repro.quant import quantize_params as j_quantize_params
+    from repro.quant import quantized_generator_ref as j_chain_ref
+    from repro_torch.quant import QuantConfig
+
+    p, _, tp = mnist
+    reqs = _reqs()
+    z = np.concatenate(reqs)
+    jq = j_calibrate(p, jdcnn.MNIST_DCNN, z)
+    want = np.asarray(j_chain_ref(j_quantize_params(p, jdcnn.MNIST_DCNN, jq),
+                                  jdcnn.MNIST_DCNN, jq, z))
+    eng = _engine(tp, precision="int8", max_batch=4,
+                  quant_cfg=QuantConfig.from_dict(dataclasses.asdict(jq)))
+    outs = [eng.collect(t) for t in [eng.submit(r) for r in reqs]]
+    np.testing.assert_allclose(np.concatenate(outs), want, rtol=0, atol=1e-5)
+    assert eng.params["l0"]["w_q"].dtype == torch.int8
+    assert all(pl.precision == "int8" for pl in eng.plans.values())
+    assert sum(eng.launch_counts.values()) == 0   # plain version on the CPU
+
+
+def test_int8_engine_self_calibrates_on_its_calibration_input(mnist):
+    from repro_torch.quant import (calibrate, quantize_params,
+                                   quantized_generator_ref)
+    from repro_torch.workloads import calibration_input
+
+    _, _, tp = mnist
+    eng = _engine(tp, precision="int8", max_batch=4, calib_batch=16,
+                  calib_seed=3, calib_strategy="percentile")
+    want_q = calibrate(tp, dcnn.MNIST_DCNN, calibration_input(
+        dcnn.MNIST_DCNN, seed=3, batch=16), strategy="percentile")
+    assert eng.quant_cfg == want_q
+    z = _reqs()[2]
+    want = quantized_generator_ref(quantize_params(tp, dcnn.MNIST_DCNN,
+                                                   want_q),
+                                   dcnn.MNIST_DCNN, want_q, torch.from_numpy(z))
+    np.testing.assert_array_equal(eng.generate(z), want.numpy())
+
+
+def test_int8_engine_serves_a_pinned_plan_and_refuses_a_conflict(mnist):
+    from repro.plan import build_network_plan as j_build_network_plan
+    from repro_torch.plan import NetworkPlan
+    from repro_torch.quant import QuantConfig
+
+    p, _, tp = mnist
+    ref = j_build_network_plan(jdcnn.MNIST_DCNN, batch=4, backend="pallas",
+                               precision="int8", params=p, autotune=False)
+    plan = NetworkPlan.from_json(ref.to_json()).for_hopper()
+    eng = DcnnServeEngine.from_config(EngineConfig(
+        model="mnist", device="cpu", precision="int8", max_batch=4), tp,
+        plan=plan)
+    assert eng.quant_cfg == plan.quant_config() and eng.plans[4] is plan
+    assert eng.generate(_reqs()[2][:4]).shape == (4, 28, 28, 1)
+    other = QuantConfig.from_dict({**plan.quant_config().to_dict(),
+                                   "strategy": "minmax"})
+    with pytest.raises(ValueError, match="different calibrations"):
+        DcnnServeEngine.from_config(EngineConfig(
+            model="mnist", device="cpu", precision="int8", max_batch=4,
+            quant_cfg=other), tp, plan=plan)
+
+
+@pytest.fixture(scope="module")
+def pruned(mnist):
+    from repro.core.sparsity import prune_tree as j_prune_tree
+
+    p, _, _ = mnist
+    pp = j_prune_tree(p, 0.9)
+    pn = jax.tree_util.tree_map(np.asarray, pp)
+    return pp, dcnn.generator_params_from_numpy(pn, dcnn.MNIST_DCNN, "cpu")
+
+
+def test_sparse_engine_matches_reference_generator(pruned, monkeypatch):
+    """cuda_sparse against the JAX reverse loop on the same pruned params;
+    the schedules go to the engine's device once per bucket plan."""
+    from repro_torch.kernels import deconv2d_sparse
+
+    pp, tpp = pruned
+    copies = []
+    real = deconv2d_sparse.schedule_tensors
+    monkeypatch.setattr(deconv2d_sparse, "schedule_tensors",
+                        lambda t, d: copies.append(1) or real(t, d))
+    eng = _engine(tpp, backend="cuda_sparse", max_batch=4)
+    reqs = _reqs()
+    for _ in range(2):
+        outs = [eng.collect(t) for t in [eng.submit(r) for r in reqs]]
+    want = np.asarray(jdcnn.generator_apply(pp, jdcnn.MNIST_DCNN,
+                                            np.concatenate(reqs),
+                                            backend="reverse_loop"))
+    np.testing.assert_allclose(np.concatenate(outs), want, rtol=TOL, atol=TOL)
+    buckets = {b for _, b in eng.plan_chunks(9)}
+    assert len(copies) == len(buckets) * 3
+    assert all(pl.sparse_plans() is not None for pl in eng.plans.values())
+
+
+def test_sparse_engine_refuses_a_stale_pinned_plan(pruned, mnist):
+    from repro_torch.plan import build_network_plan
+
+    _, tpp = pruned
+    _, _, tp = mnist
+    plan = build_network_plan(dcnn.MNIST_DCNN, batch=4, backend="cuda_sparse",
+                              params=tpp)
+    eng = DcnnServeEngine.from_config(EngineConfig(
+        model="mnist", device="cpu", backend="cuda_sparse", max_batch=4), tpp,
+        plan=plan)
+    assert eng.plans[4] is plan
+    with pytest.raises(ValueError, match="stale"):
+        DcnnServeEngine.from_config(EngineConfig(
+            model="mnist", device="cpu", backend="cuda_sparse", max_batch=4),
+            tp, plan=plan)
