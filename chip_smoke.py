@@ -5,17 +5,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Three kernels, one per TPU kernel of the JAX package: B1 the dense
 reverse-loop deconv (fp32/bf16), B2 the int8 one with its requant epilogue,
-B3 the zero-skip one.  All three live in src/repro_torch/csrc/deconv2d.cu.
+B3 the zero-skip one.  fp32 B1 and B3 run on the tensor cores (3xTF32 mma,
+bulk-copy staging, cluster split of the CI reduction) in
+src/repro_torch/csrc/deconv2d_tc.cu; bf16 B1/B3 and B2 on the FMA kernel of
+src/repro_torch/csrc/deconv2d.cu.
 
 Phases (any failure raises and the exit code is non-zero):
  1. device: the card's name and power limit (nvidia-smi), torch's name;
- 2. build: nvcc builds the kernel library from src/repro_torch/csrc;
+ 2. build: nvcc builds the two kernel libraries from src/repro_torch/csrc,
+    one process each, started together, and ptxas's registers and spills
+    of every kernel instance are printed;
  3. each kernel vs its plain version, on the card: the JAX package's kernel
     sweep, ragged and batch-tiled shapes, several CI chunks, and every
     layer of both generators at buckets 1 and 64.  B1 fp32 tol 1e-4, bf16
     8e-2; B2 int8 outputs bit-equal, f32 outputs 1e-6, with real requant
     scales on the generator layers; B3 as B1, under magnitude pruning at
     0.5 / 0.9 / 0.97 and hand-zeroed slabs, and some case must skip slabs;
+    then B1 and B3 launched twice on the same inputs at every generator
+    layer at bucket 1 must give bit-identical outputs (the cluster split
+    sums its partials in rank order, with no atomics);
  4. serving, both generators at full width through DcnnServeEngine with
     mixed-size requests, on three paths, each driven with every kernel
     count at 0 just before and read just after: fp32 on "cuda" (held
@@ -25,10 +33,12 @@ Phases (any failure raises and the exit code is non-zero):
     launches == layers x dispatches, the others' 0;
  5. times: per kernel, layer and bucket, device time (CUDA events, median
     of 25, launches queued behind a sleep, with a check that the sleep
-    outlasted the host's enqueue) and per-call time against its bound, the
-    plain version's per-call time and the library call's device time where
-    there is one; per net and path, images/s and run-to-run CV from the
-    engine;
+    outlasted the host's enqueue) and per-call time against its bound (B1
+    and B3: the 3xTF32 rate, a third of the TF32 tensor-core peak, with the
+    bound at the fp32 FMA peak beside it), the plain version's per-call
+    time and the library call's device time where there is one, and each
+    row's cluster split; per net and path, images/s and run-to-run CV from
+    the engine;
  6. the kernels line; 7. the result line.
 
 Imports nothing of JAX: only torch, numpy and the port (src/repro_torch).
@@ -66,13 +76,14 @@ from repro_torch.serve import DcnnServeEngine, EngineConfig  # noqa: E402
 from repro_torch.workloads import calibration_input  # noqa: E402
 
 # Published peaks (NVIDIA data sheets, dense): fp32 outside the tensor
-# cores, int8 on the tensor cores, and device-memory bandwidth.  Keyed by a
-# substring of the card's name.
+# cores, int8 and TF32 on the tensor cores (the data sheets' figures with
+# sparsity, halved), and device-memory bandwidth.  Keyed by a substring of
+# the card's name.
 PEAKS = (
-    ("H100 PCIe", 51e12, 1513e12, 2.0e12),
-    ("H100 NVL", 60e12, 1671e12, 3.9e12),
-    ("H100", 67e12, 1979e12, 3.35e12),      # SXM5, HBM3
-    ("H200", 67e12, 1979e12, 4.8e12),
+    ("H100 PCIe", 51e12, 1513e12, 378e12, 2.0e12),
+    ("H100 NVL", 60e12, 1671e12, 418e12, 3.9e12),
+    ("H100", 67e12, 1979e12, 495e12, 3.35e12),      # SXM5, HBM3
+    ("H200", 67e12, 1979e12, 495e12, 4.8e12),
 )
 # (name, module, source, the TPU kernel it replaces)
 KERNELS = (
@@ -81,7 +92,9 @@ KERNELS = (
     ("deconv2d_sparse_kernel", sparse_kernel,
      "src/repro/kernels/deconv2d_sparse/kernel.py:57"),
 )
-SOURCE = "src/repro_torch/csrc/deconv2d.cu"
+SOURCES = {"deconv2d_kernel": "src/repro_torch/csrc/deconv2d_tc.cu",
+           "deconv2d_int8_kernel": "src/repro_torch/csrc/deconv2d.cu",
+           "deconv2d_sparse_kernel": "src/repro_torch/csrc/deconv2d_tc.cu"}
 
 # (ih, iw, ci, co, k, s, p, t_oh): the JAX package's kernel sweep
 SWEEP = [
@@ -118,6 +131,17 @@ BACKLOG_CYCLES = 400_000_000   # ~0.2 s of queued sleep at the H100's clocks
 BACKLOG_TRIES = 3              # the sleep doubles after each try that did not hold
 
 
+def demangle(name):
+    """A kernel's C++ name (its mangled one where c++filt is missing),
+    without its argument list."""
+    try:
+        name = subprocess.run(["c++filt", name], capture_output=True,
+                              text=True, check=True).stdout.strip() or name
+    except (OSError, subprocess.CalledProcessError):
+        return name
+    return name.replace("(anonymous namespace)::", "").split("(", 1)[0]
+
+
 def device_info():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
@@ -125,9 +149,10 @@ def device_info():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    for key, fp32, int8, bw in PEAKS:
+    for key, fp32, int8, tf32, bw in PEAKS:
         if key in name:
-            return smi, name, {"fp32": fp32, "int8": int8, "bw": bw}
+            return smi, name, {"fp32": fp32, "int8": int8, "tf32": tf32,
+                               "bw": bw}
     raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
@@ -143,28 +168,30 @@ def layer_inputs(rng, batch, ih, iw, ci, co, k, dtype):
     return x, w, b
 
 
-def check_cases():
+def check_cases(dtype):
     """``(label, geometry, batch, tiles, activation)`` of every kernel
-    check: the JAX package's sweep, ragged and batch-tiled shapes, several
-    CI chunks, and every generator layer at buckets 1 and 64."""
+    check, at the tiles of the kernel that runs ``dtype``: the JAX
+    package's sweep, ragged and batch-tiled shapes, several CI chunks, and
+    every generator layer at buckets 1 and 64."""
     out = []
     for (ih, iw, ci, co, k, s, p, t) in SWEEP:
         g = DeconvGeometry(ih, iw, ci, co, k, s, p)
         out.append((f"sweep {(ih, iw, ci, co, k, s, p, t)}", g, 2,
-                    fill_tiles(g, 2, t_oh=t, t_ow=t), "relu"))
+                    fill_tiles(g, 2, dtype, t_oh=t, t_ow=t), "relu"))
     for (ih, iw, ci, co, k, s, p, t) in ALG1_GEOMS:
         g = DeconvGeometry(ih, iw, ci, co, k, s, p)
         for batch, t_n in ((2, 1), (5, 2)):
             out.append((f"ragged {(ih, iw, ci, co, k, s, p, t)} n={batch} "
                         f"t_n={t_n}", g, batch,
-                        fill_tiles(g, batch, t_oh=t, t_ow=t, t_n=t_n), "tanh"))
+                        fill_tiles(g, batch, dtype, t_oh=t, t_ow=t, t_n=t_n),
+                        "tanh"))
     g = DeconvGeometry(6, 6, 24, 40, 4, 2, 1)
     out.append(("ci-chunks t_ci=8 t_co=16", g, 3,
-                fill_tiles(g, 3, t_ci=8, t_co=16), None))
+                fill_tiles(g, 3, dtype, t_ci=8, t_co=16), None))
     for cfg in NETS:
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             for batch in (1, 64):
-                t = hopper_tiles(g, batch)
+                t = hopper_tiles(g, batch, dtype)
                 out.append((f"{cfg.name} l{i} bucket {batch} {t.as_kwargs()}",
                             g, batch, t, l.activation))
     return out
@@ -273,17 +300,18 @@ def int8_layer_inputs(cfg, net, batch, rng):
 def phase_kernel_checks(int8_nets):
     """Every kernel against its plain version; returns the largest errors."""
     rng = np.random.default_rng(0)
-    cases = check_cases()
+    cases = {dtype: check_cases(dtype)
+             for dtype in (torch.float32, torch.bfloat16, torch.int8)}
     dense, int8, sparse = {}, [], {}
     for dtype in (torch.float32, torch.bfloat16):
-        for label, g, batch, t, act in cases:
+        for label, g, batch, t, act in cases[dtype]:
             x, w, b = layer_inputs(rng, batch, g.in_h, g.in_w, g.c_in,
                                    g.c_out, g.kernel, dtype)
             check_dense(label, x, w, b, g.stride, g.padding, t, act, dense)
     # B2: random int8 data on the synthetic cases, scaled so that the
     # epilogue lands on O(1) values and requant rounds at every step;
     # the generator layers get their real inputs and calibrated scales
-    for label, g, batch, t, act in cases:
+    for label, g, batch, t, act in cases[torch.int8]:
         if label.startswith("dcnn-"):
             continue
         x = torch.from_numpy(rng.integers(-127, 128, (batch, g.in_h, g.in_w,
@@ -303,13 +331,13 @@ def phase_kernel_checks(int8_nets):
             for i, (x, lq, out_scale) in enumerate(
                     int8_layer_inputs(cfg, int8_nets[cfg.name], batch, rng)):
                 g, l = cfg.geometries()[i], cfg.layers[i]
-                t = hopper_tiles(g, batch)
+                t = hopper_tiles(g, batch, "int8")
                 check_int8(f"{cfg.name} l{i} bucket {batch} {t.as_kwargs()}",
                            x, lq["w_q"], lq["scale"], lq["b"], g.stride,
                            g.padding, t, l.activation, out_scale, int8)
     skipped = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for label, g, batch, t, act in cases:
+        for label, g, batch, t, act in cases[dtype]:
             x, w, b = layer_inputs(rng, batch, g.in_h, g.in_w, g.c_in,
                                    g.c_out, g.kernel, torch.float32)
             for level in SPARSITY_LEVELS:
@@ -468,7 +496,8 @@ def time_row(kernel, cfg, i, batch, tiles, launch, plain, library, ops, peak,
              nbytes, mem_bw, smi, **extra):
     """One layer's row: device and per-call time of ``launch``, the plain
     version's and the library call's (None: there is none), and the
-    bound."""
+    bound: the larger of ``ops`` at ``peak`` and ``nbytes`` at
+    ``mem_bw``."""
     ms, held = time_ms(launch)
     call_ms, _ = time_ms(launch, backlog=False)
     # the plain version is no yardstick of speed and enqueues more work
@@ -511,15 +540,60 @@ def kept_work(g, tables, t_ci, t_co):
     return macs, weights
 
 
+def phase_bit_identity():
+    """B1 and B3 launched twice on the same inputs at every generator layer
+    at bucket 1 (where the grid splits the CI reduction over clusters)
+    must agree bit for bit."""
+    rng = np.random.default_rng(4)
+    for cfg in NETS:
+        for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
+            t = hopper_tiles(g, 1)
+            x, w, b = layer_inputs(rng, 1, g.in_h, g.in_w, g.c_in, g.c_out,
+                                   g.kernel, torch.float32)
+            wq = prune(w, SERVE_SPARSITY)
+            sched = schedule_tensors(make_sparse_plan(wq, g.stride, g.padding,
+                                                      t.t_ci, t.t_co), "cuda")
+            dense = launch_args(x, w, b, g.stride, g.padding,
+                                *t.as_kwargs().values(), l.activation)
+            sparse = launch_args(x, wq, b, g.stride, g.padding,
+                                 *t.as_kwargs().values(), l.activation)
+            runs = {
+                "B1": lambda: deconv_kernel.deconv2d_launch(*dense[:3],
+                                                            **dense[3]),
+                "B3": lambda: sparse_kernel.deconv2d_sparse_launch(
+                    *sparse[:3], *sched, **sparse[3])}
+            for name, fn in runs.items():
+                y0 = fn()
+                y1 = fn()
+                torch.cuda.synchronize()
+                if not torch.equal(y0, y1):
+                    raise AssertionError(f"{name} {cfg.name} l{i} bucket 1: two "
+                                         "launches on the same inputs differ")
+            print(f"  B1, B3 {cfg.name} l{i} bucket 1 {t.as_kwargs()} split "
+                  f"{split_of(dense)}: repeated launches bit-identical",
+                  flush=True)
+
+
+def split_of(args):
+    """The fp32 kernel's cluster split for ``launch_args`` output."""
+    xp, wp, _, kw, _ = args
+    return deconv_kernel.launch_split(
+        xp.shape[0], xp.shape[3], wp.shape[3], kw["ohp"], kw["owp"],
+        kw["t_oh"], kw["t_ow"], kw["t_ci"], kw["t_co"], kw["t_n"])
+
+
 def phase_times(smi, peaks, int8_nets):
     rng = np.random.default_rng(2)
     rows = []
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # B1 and B3 compute 3xTF32: three tensor-core products per product
+    tf32x3 = peaks["tf32"] / 3
     for cfg in NETS:
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             for batch in (1, 64):
                 t = hopper_tiles(g, batch)
+                t8 = hopper_tiles(g, batch, "int8")
                 n_out = batch * g.out_h * g.out_w * g.c_out
                 n_in = batch * g.in_h * g.in_w * g.c_in
                 n_w = g.kernel ** 2 * g.c_in * g.c_out
@@ -527,10 +601,11 @@ def phase_times(smi, peaks, int8_nets):
                 # B1: fp32, every product that lands in the output
                 x, w, b = layer_inputs(rng, batch, g.in_h, g.in_w, g.c_in,
                                        g.c_out, g.kernel, torch.float32)
-                xp, wp, bp, kw, _ = launch_args(x, w, b, g.stride, g.padding,
-                                                *t.as_kwargs().values(),
-                                                l.activation)
+                dense = launch_args(x, w, b, g.stride, g.padding,
+                                    *t.as_kwargs().values(), l.activation)
+                xp, wp, bp, kw, _ = dense
                 x_nchw = x.permute(0, 3, 1, 2).contiguous()
+                nbytes = 4 * (n_in + n_w + g.c_out + n_out)
                 rows.append(time_row(
                     "deconv2d_kernel", cfg, i, batch, t,
                     lambda: deconv_kernel.deconv2d_launch(xp, wp, bp, **kw),
@@ -539,24 +614,26 @@ def phase_times(smi, peaks, int8_nets):
                     lambda: F.conv_transpose2d(
                         x_nchw, w.permute(2, 3, 0, 1).contiguous(), b,
                         stride=g.stride, padding=g.padding),
-                    ops, peaks["fp32"], 4 * (n_in + n_w + g.c_out + n_out),
-                    peaks["bw"], smi))
+                    ops, tf32x3, nbytes, peaks["bw"], smi,
+                    split=split_of(dense),
+                    bound_fp32_fma_ms=max(ops / peaks["fp32"],
+                                          nbytes / peaks["bw"]) * 1e3))
                 # B2: int8 in and weights, f32 scale and bias, int8 out (f32
                 # on the last layer); no PyTorch call computes this
                 xq, lq, out_scale = int8_layer_inputs(
                     cfg, int8_nets[cfg.name], batch, rng)[i]
                 qa = int8_kernel.launch_args_int8(
                     xq, lq["w_q"], lq["scale"], lq["b"], g.stride, g.padding,
-                    *t.as_kwargs().values(), l.activation, out_scale)
+                    *t8.as_kwargs().values(), l.activation, out_scale)
                 rows.append(time_row(
-                    "deconv2d_int8_kernel", cfg, i, batch, t,
+                    "deconv2d_int8_kernel", cfg, i, batch, t8,
                     lambda: int8_kernel.deconv2d_int8_launch(*qa[:4], **qa[4]),
                     lambda: int8_kernel.deconv2d_int8_launch_plain(*qa[:4],
                                                                    **qa[4]),
                     None, ops, peaks["int8"],
                     n_in + n_w + 8 * g.c_out
                     + n_out * (1 if out_scale is not None else 4),
-                    peaks["bw"], smi,
+                    peaks["bw"], smi, split=1,
                     library_note="no PyTorch call computes an int8 "
                                  "transposed convolution on CUDA"))
                 # B3: fp32 on weights pruned at the serving level; the bound
@@ -568,6 +645,7 @@ def phase_times(smi, peaks, int8_nets):
                 macs, kept_w = kept_work(g, tables, t.t_ci, t.t_co)
                 sp = launch_args(x, wq, b, g.stride, g.padding,
                                  *t.as_kwargs().values(), l.activation)
+                kept_bytes = 4 * (n_in + kept_w + g.c_out + n_out)
                 wq_lib = wq.permute(2, 3, 0, 1).contiguous()
                 skipped, slabs, _, _ = schedule_stats(
                     tables, sp[1].shape[2] // t.t_ci, g.kernel)
@@ -580,8 +658,10 @@ def phase_times(smi, peaks, int8_nets):
                     lambda: F.conv_transpose2d(x_nchw, wq_lib, b,
                                                stride=g.stride,
                                                padding=g.padding),
-                    2 * macs * batch, peaks["fp32"],
-                    4 * (n_in + kept_w + g.c_out + n_out), peaks["bw"], smi,
+                    2 * macs * batch, tf32x3, kept_bytes, peaks["bw"], smi,
+                    split=split_of(sp),
+                    bound_fp32_fma_ms=max(2 * macs * batch / peaks["fp32"],
+                                          kept_bytes / peaks["bw"]) * 1e3,
                     sparsity=SERVE_SPARSITY, slabs_skipped=f"{skipped}/{slabs}",
                     kept_mac_share=macs / g.output_macs))
     return rows
@@ -611,14 +691,22 @@ def main() -> int:
           f"TOP/s, memory {peaks['bw'] / 1e12} TB/s", flush=True)
 
     t0 = time.perf_counter()
-    deconv_kernel.build()
-    print(f"[2] build: {time.perf_counter() - t0:.2f} s ({SOURCE}: "
+    report = deconv_kernel.build()
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(sorted(set(SOURCES.values())))}: "
           f"{', '.join(k for k, _, _ in KERNELS)})", flush=True)
+    for lib, rows in report.items():
+        for r in rows:
+            print(f"  {lib}: {demangle(r['kernel'])}: {r['registers']} "
+                  f"registers, spill stores {r['spill_stores']} B, spill "
+                  f"loads {r['spill_loads']} B", flush=True)
 
     print(f"[3] each kernel vs its plain version on the card (at "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     int8_nets = {cfg.name: int8_net(cfg) for cfg in NETS}
     dense, int8, sparse = phase_kernel_checks(int8_nets)
+
+    phase_bit_identity()
 
     print(f"[4] serving (at {time.perf_counter() - t0:.1f} s)", flush=True)
     engines, launches = phase_serving()
@@ -645,13 +733,16 @@ def main() -> int:
             raise AssertionError(f"the main path launched no {kname}")
         lib = [r["library_ms"] for r in b64]
         entries.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": launched,
             "max_abs_err": errs[kname][0], **errs[kname][1],
             "ms": sum(r["ms"] for r in b64),
             "plain_ms": sum(r["plain_call_ms"] for r in b64),
             "bound_ms": sum(r["bound_ms"] for r in b64),
             "bound_by": max(by, key=by.get),
+            **({"bound_fp32_fma_ms": sum(r["bound_fp32_fma_ms"] for r in b64)}
+               if "bound_fp32_fma_ms" in b64[0] else {}),
+            "splits": [r["split"] for r in rows if r["kernel"] == kname],
             "library_ms": None if None in lib else sum(lib),
             **({"library_note": b64[0]["library_note"]} if None in lib else {}),
             "times_are": "sum over every layer of both generators at bucket 64",

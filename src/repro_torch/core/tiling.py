@@ -164,12 +164,36 @@ def _contributions(in_size: int, kernel: int, stride: int,
                if 0 <= i * stride + k - padding < out)
 
 
+
+
+# ---------------------------------------------------------------------------
+# The kernels' resources.  "tc" is the fp32 tensor-core kernel
+# (`csrc/deconv2d_tc.cu`: dense and zero-skip), "simt" the FMA kernel of
+# `csrc/deconv2d.cu` (bf16 dense and zero-skip, int8).  Each function here
+# mirrors the C code that launches the kernel; the launcher checks that the
+# two agree on the shared memory of every launch shape.
+# ---------------------------------------------------------------------------
+KERNELS = ("tc", "simt")
+
+
+def kernel_for(dtype) -> str:
+    """The kernel that runs a layer of ``dtype`` (a torch or numpy dtype, or
+    its name): fp32 on the tensor cores, bf16 and int8 on the FMA kernel."""
+    name = str(dtype).replace("torch.", "")
+    return "tc" if name in ("float32", "fp32") else "simt"
+
+
+def _check_kernel(kernel: str) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
+
+
 def register_tile(t_co: int) -> Tuple[int, int]:
-    """(RP, RC): output pixels of one phase times output channels that one
-    kernel thread accumulates.  Wide channel tiles (a multiple of 8) take
-    4 x 8 with the 8 channels contiguous, so a thread's weights come in
-    two 16-byte shared loads; the kernel has an instance for each pair
-    returned here."""
+    """(RP, RC) of the "simt" kernel: output pixels of one phase times
+    output channels that one thread accumulates.  Wide channel tiles (a
+    multiple of 8) take 4 x 8 with the 8 channels contiguous, so a thread's
+    weights come in two 16-byte shared loads; the kernel has an instance
+    for each pair returned here."""
     if t_co >= 32 and t_co % 8 == 0:
         return 4, 8
     if t_co >= 8:
@@ -177,34 +201,119 @@ def register_tile(t_co: int) -> Tuple[int, int]:
     return 4, 1
 
 
-def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int,
-                  t_n: int) -> int:
-    """Threads of one kernel block: every output phase (S*S of them) gets
-    ceil(pixels/RP) x ceil(t_co/RC) threads, so a thread walks only the
-    taps of its own phase."""
+def tc_warp_tile(pix: int, t_co: int) -> Tuple[int, int]:
+    """(WM, WN) of the "tc" kernel: the m16 row tiles and n8 column tiles
+    of one warp's share of a phase (the kernel has an instance for each
+    pair).  Rows are a phase's output pixels, columns output channels."""
+    mt, nt = -(-pix // 16), -(-t_co // 8)
+    return (2 if mt >= 2 else 1), (4 if nt >= 4 else 2 if nt >= 2 else 1)
+
+
+def tc_weight_stride(t_co: int) -> int:
+    """Words per staged weight row of the "tc" kernel: the channels the
+    warps cover (zero-padded past ``t_co``), then padded so that the row
+    stride is 8 mod 16 words and the four k-rows of a B fragment land on
+    different banks."""
+    wn = tc_warp_tile(1, t_co)[1]
+    cols = -(-(-(-t_co // 8)) // wn) * wn * 8
+    return cols + 8 if cols % 16 == 0 else cols
+
+
+def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
+                  kernel: str = "tc") -> int:
+    """Threads of one block that compute.
+
+    "tc": one warp per (phase, WM*16 rows, WN*8 columns) of the tile, over
+    all S*S output phases.  "simt": every phase gets ceil(pixels/RP) x
+    ceil(t_co/RC) threads, so a thread walks only the taps of its phase."""
+    _check_kernel(kernel)
     pix = t_n * (t_oh // stride) * (t_ow // stride)
+    if kernel == "tc":
+        wm, wn = tc_warp_tile(pix, t_co)
+        return 32 * stride * stride * (-(-(-(-pix // 16)) // wm)
+                                       * -(-(-(-t_co // 8)) // wn))
     rp, rc = register_tile(t_co)
     return stride * stride * (-(-pix // rp)) * (-(-t_co // rc))
 
 
-def launch_threads(stride: int, t_oh: int, t_ow: int, t_co: int,
-                   t_n: int) -> int:
+def launch_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
+                   kernel: str = "tc") -> int:
     """Threads a block is launched with: `block_threads`, but at least 128
     and a whole number of warps; the threads past the last phase only
     stage (a small tile's CI chunks are not staged by one warp)."""
-    return -(-max(block_threads(stride, t_oh, t_ow, t_co, t_n), 128) // 32) * 32
+    return -(-max(block_threads(stride, t_oh, t_ow, t_co, t_n, kernel),
+                  128) // 32) * 32
+
+
+def staged_window(in_size: int, out_padded: int, t_out: int, kernel: int,
+                  stride: int, padding: int) -> Tuple[int, int]:
+    """(rows, taps) of one spatial dim of the "tc" kernel: the most input
+    rows any block stages and the most kernel taps whose rows read real
+    input in any block.
+
+    A block stages only the rows its valid taps read, so a 1x1 root stages
+    one row and one tap of K per S-pixel tile, and the shared window and
+    weight slab are sized by these maxima, not by Eq. 5's extent and K."""
+    plan = make_phase_plan(kernel, stride, padding)
+    step = t_out // stride
+    base = plan.left_halo + plan.delta_min
+    lo_real, hi_real = plan.left_halo, plan.left_halo + in_size
+    rows = taps = 0
+    for j in range(out_padded // t_out):
+        o0 = j * step + base
+        ds = [d - plan.delta_min for ph in range(stride)
+              for _, d in plan.taps[ph]
+              if o0 + d - plan.delta_min < hi_real
+              and o0 + d - plan.delta_min + step > lo_real]
+        if ds:
+            rows = max(rows, max(ds) + step - min(ds))
+            taps = max(taps, len(ds))
+    return rows, taps
+
+
+TC_STAGE_BUDGET = 100 * 1024   # the ring holds as many stages (2..4) as fit
+
+
+def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
+                   padding: int, ohp: int, owp: int, t_oh: int, t_ow: int,
+                   t_ci: int, t_co: int, t_n: int,
+                   split: int = 1) -> Tuple[int, int]:
+    """(stages, bytes) of the "tc" kernel's dynamic shared memory.
+
+    One stage holds a CI chunk: the staged windows of the ``t_n`` images,
+    ``(t_n, rows_h, rows_w, t_ci + 4)`` words (channel stride t_ci + 4, so
+    the eight rows of an A fragment hit different banks), rounded to 16
+    bytes, then the weight rows of the block's valid taps, ``(taps_h *
+    taps_w, t_ci, tc_weight_stride(t_co))``.  Under a cluster split the
+    same memory then holds the block's partial tile, S*S*pixels*t_co f32."""
+    rows_h, taps_h = staged_window(in_h, ohp, t_oh, kernel, stride, padding)
+    rows_w, taps_w = staged_window(in_w, owp, t_ow, kernel, stride, padding)
+    x_words = -(-t_n * rows_h * rows_w * (t_ci + 4) // 4) * 4
+    stage = 4 * (x_words + taps_h * taps_w * t_ci * tc_weight_stride(t_co))
+    stages = max([n for n in (2, 3, 4) if n * stage <= TC_STAGE_BUDGET],
+                 default=2)
+    pix = t_n * (t_oh // stride) * (t_ow // stride)
+    partial = 4 * stride * stride * pix * t_co if split > 1 else 0
+    return stages, max(stages * stage, partial)
 
 
 def kernel_smem_bytes(geom: DeconvGeometry, t_oh: int, t_ow: int, t_ci: int,
-                      t_co: int, t_n: int = 1) -> int:
+                      t_co: int, t_n: int = 1, kernel: str = "tc",
+                      split: int = 1) -> int:
     """Dynamic shared memory of one kernel block, in bytes.
 
-    Per CI chunk the block stages the halo windows of its ``t_n`` images,
-    ``(t_n, T_IH, T_IW, t_ci)`` with the channel stride padded by one word
-    against bank conflicts (rounded up to 16 bytes), and the weight slab
-    ``(K, K, t_ci, t_co)``.
-    Both are held as f32 whatever the input dtype (the kernel converts
-    bf16 on staging), so the footprint does not depend on the dtype."""
+    "tc": `tc_smem_layout` at the layer's tile-padded output.  "simt": per
+    CI chunk the halo windows of the ``t_n`` images, ``(t_n, T_IH, T_IW,
+    t_ci)`` with the channel stride padded by one word against bank
+    conflicts (rounded up to 16 bytes), and the weight slab ``(K, K, t_ci,
+    t_co)``, both as 4-byte words whatever the input dtype (bf16 is
+    converted and int8 widened on staging)."""
+    _check_kernel(kernel)
+    if kernel == "tc":
+        return tc_smem_layout(
+            geom.in_h, geom.in_w, geom.kernel, geom.stride, geom.padding,
+            -(-geom.out_h // t_oh) * t_oh, -(-geom.out_w // t_ow) * t_ow,
+            t_oh, t_ow, t_ci, t_co, t_n, split)[1]
     ht_h = halo_tile(t_oh, geom.kernel, geom.stride, geom.padding)
     ht_w = halo_tile(t_ow, geom.kernel, geom.stride, geom.padding)
     x_words = -(-t_n * ht_h.extent * ht_w.extent * (t_ci + 1) // 4) * 4

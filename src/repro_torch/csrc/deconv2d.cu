@@ -1,15 +1,16 @@
-// Halo-tiled, phase-decomposed transposed convolution for Hopper (sm_90a):
-// three kernels, instances of one template.
+// Halo-tiled, phase-decomposed transposed convolution for Hopper (sm_90a)
+// on the FMA units: the bf16 and int8 kernels, instances of one template.
+// fp32 layers run on the tensor cores (csrc/deconv2d_tc.cu).
 //
-// Replaces the three Pallas TPU kernels of the JAX package, each computing
-// the same function on the same host-padded inputs:
+// Replaces the three Pallas TPU kernels of the JAX package in bf16 and
+// int8, each computing the same function on the same host-padded inputs:
 //
 //  * dense (`deconv2d_forward`): `_deconv2d_kernel`,
 //    src/repro/kernels/deconv2d/kernel.py (launched by `deconv2d_pallas_call`)
 //
 //      y = act(conv_transpose(x, w) + b)   x (N, IHp, IWp, CIp), w (K, K, CIp, COp),
 //                                          b (COp), y (N, OHp, OWp, COp), NHWC,
-//                                          f32 or bf16
+//                                          bf16
 //
 //  * int8 (`deconv2d_int8_forward`): `_deconv2d_int8_kernel`,
 //    src/repro/kernels/deconv2d/int8.py (launched by `deconv2d_int8_pallas_call`).
@@ -25,13 +26,13 @@
 //  * zero-skip (`deconv2d_sparse_forward`): `_sparse_kernel`,
 //    src/repro/kernels/deconv2d_sparse/kernel.py (launched by
 //    `deconv2d_sparse_pallas_call`).  The dense function on pruned weights;
-//    for each CO tile the CI loop walks only the slabs a host-built schedule
-//    lists (ci_idx[co_tile][l] where valid[co_tile][l] = 1), and each tap is
-//    skipped where tap_mask[co_tile][l][kh*K + kw] = 0 (the slab is all
-//    zero there), intersected with the block's taps that read real input.
-//    A skipped slab stages nothing and costs no FMA.
+//    for each CO tile the CI loop walks only the count[co_tile] slabs of a
+//    packed host-built schedule (CI tile ci[co_tile][l]), and each tap is
+//    skipped where its bit kh*K + kw of bits[co_tile][l] is 0 (the slab is
+//    all zero there), intersected with the block's taps that read real
+//    input.  A skipped slab stages nothing and costs no FMA.
 //
-// What bounds the dense kernel on an H100: fp32 FMA throughput on the wide CelebA layers
+// What bounds the dense kernel on an H100: FMA throughput on the wide CelebA layers
 // (1024->512, 512->256, 256->128 channels: ~134M MACs per image each, with a
 // 4x4 kernel reused over every output pixel), and device-memory bytes on the
 // 1x1 root layers (every weight is read once and used by one pixel per image)
@@ -45,8 +46,7 @@
 //  * Per t_ci chunk the block stages the Eq. 5 halo windows of its t_n images
 //    (t_n, T_IH, T_IW, t_ci) and the weight slab (K, K, t_ci, t_co) in shared
 //    memory, as f32 (bf16 is converted on staging).  Each thread keeps 8
-//    independent global loads in flight (4 of 16 bytes for fp32 weights)
-//    before it stores them, so staging is not one memory latency per
+//    independent global loads in flight before it stores them, so staging is not one memory latency per
 //    element.  Every staged value is
 //    then reused by all the output pixels and channels of the tile: a weight
 //    by t_n*T_OH*T_OW/S^2 pixels, an input by t_co channels and K^2/S^2 taps.
@@ -66,8 +66,8 @@
 //  * The epilogue applies relu/tanh in f32 and casts to x's dtype; writes are
 //    disjoint (each output element has exactly one owner thread) and
 //    consecutive threads store consecutive channels.
-//  * Plain fp32 FMA: no TF32 and no tensor cores, which keeps the reference's
-//    1e-4 tolerance.  wgmma/TMA/warp specialisation are for later work.
+//  * Plain FMA in f32: no tensor cores.  bf16 on the tensor cores
+//    (mma/wgmma), TMA and warp specialisation are for later work.
 //  * int8 reuses all of the above with int32 words: x and w are widened to
 //    int32 on staging (so the shared-memory layout and `kernel_smem_bytes`
 //    are those of f32) and each product is one integer multiply-add, about
@@ -85,6 +85,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -94,7 +95,6 @@ constexpr int kMaxTaps = 8;
 constexpr int kTapWords = kMaxStride + 2 * kMaxStride * kMaxTaps;
 constexpr int kMaxThreads = 512;   // with __launch_bounds__: up to 128 registers
 constexpr int kStageBatch = 8;     // independent scalar loads per thread in flight
-constexpr int kStageBatch4 = 4;    // independent 16-byte loads per thread in flight
 constexpr int kStaticSmem = 4096;  // bound on the kernel's static shared tables
 constexpr int kMaxDynamicSmem = 232448 - kStaticSmem;
 
@@ -121,14 +121,15 @@ struct TapTable {
   int words[kTapWords];  // counts[S] | tap k[S][kMaxTaps] | local row[S][kMaxTaps]
 };
 
-// The zero-skip schedule (device int32 arrays): for CO tile t and step l < len,
-// slab ci_idx[t*len + l] is computed iff valid[t*len + l], at the taps whose
-// bit tap_mask[(t*len + l)*K*K + kh*K + kw] is set.  Unused by the others.
+// The packed zero-skip schedule (device int32 arrays): for CO tile t and
+// step l < count[t], slab ci[t*len + l] is computed at the taps whose bit
+// kh*K + kw is set in the nbw words bits[(t*len + l)*nbw ...].  Unused by
+// the others.
 struct Schedule {
-  const int* ci_idx;
-  const int* valid;
-  const int* tap_mask;
-  int len;
+  const int* count;
+  const int* ci;
+  const unsigned* bits;
+  int len, nbw;
 };
 
 // Staged values are 4-byte words: f32 for f32/bf16 inputs, int32 for int8.
@@ -284,20 +285,18 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_kernel(
 
   const int kk = g.k;
   const int n_ci = g.cip / g.t_ci;
-  // 16-byte weight loads: fp32, whole float4s per row, a 16-byte aligned base
-  const bool w_vec4 = std::is_same_v<T, float> && g.t_co % 4 == 0 && g.cop % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  for (int step = 0; step < (kSparse ? sched.len : n_ci); ++step) {
+  const int steps = kSparse ? sched.count[co_t] : n_ci;
+  for (int step = 0; step < steps; ++step) {
     int c0 = step * g.t_ci;
     if constexpr (kSparse) {
       // uniform over the block: the entry depends on the CO tile and step only
       const int e = co_t * sched.len + step;
-      const int ci_t = sched.ci_idx[e];
-      if (!sched.valid[e] || ci_t < 0 || ci_t >= n_ci) continue;
+      const int ci_t = sched.ci[e];
+      if (ci_t < 0 || ci_t >= n_ci) continue;
       c0 = ci_t * g.t_ci;
       __syncthreads();  // the previous chunk's readers are done
       for (int t = tid; t < kk * kk; t += blockDim.x)
-        s_tmask[t] = sched.tap_mask[(size_t)e * kk * kk + t] != 0;
+        s_tmask[t] = (sched.bits[(size_t)e * sched.nbw + (t >> 5)] >> (t & 31)) & 1u;
       __syncthreads();
       // the taps to stage: the block's valid taps whose slab is nonzero
       if (tid == 0) {
@@ -348,54 +347,26 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_kernel(
     // weight slab, layout [tap][ci][co]: rows of t_co channels, only the
     // rows of the block's valid taps
     const int w_rows = s_n_wtaps * g.t_ci;
-    if (w_vec4) {
-      const int q = g.t_co / 4;
-      const int n4 = w_rows * q;
-      for (int base = tid; base < n4; base += blockDim.x * kStageBatch4) {
-        float4 v[kStageBatch4];
-        int dst[kStageBatch4];
+    const int n1 = w_rows * g.t_co;
+    for (int base = tid; base < n1; base += blockDim.x * kStageBatch) {
+      Acc v[kStageBatch];
+      int dst[kStageBatch];
 #pragma unroll
-        for (int u = 0; u < kStageBatch4; ++u) {
-          const int e = base + u * blockDim.x;
-          if (e < n4) {
-            const int r = e / q;
-            const int slot = r / g.t_ci;
-            const int ci = r - slot * g.t_ci;
-            const int tap = s_wtaps[slot];
-            const int c4 = e - r * q;
-            v[u] = *reinterpret_cast<const float4*>(
-                reinterpret_cast<const float*>(w) +
-                ((size_t)tap * g.cip + c0 + ci) * g.cop + co0 + 4 * c4);
-            dst[u] = (tap * g.t_ci + ci) * q + c4;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kStageBatch4; ++u) {
-          if (base + u * blockDim.x < n4) reinterpret_cast<float4*>(ws)[dst[u]] = v[u];
+      for (int u = 0; u < kStageBatch; ++u) {
+        const int e = base + u * blockDim.x;
+        if (e < n1) {
+          const int r = e / g.t_co;
+          const int co = e - r * g.t_co;
+          const int slot = r / g.t_ci;
+          const int ci = r - slot * g.t_ci;
+          const int tap = s_wtaps[slot];
+          v[u] = load_val(w + ((size_t)tap * g.cip + c0 + ci) * g.cop + co0 + co);
+          dst[u] = (tap * g.t_ci + ci) * g.t_co + co;
         }
       }
-    } else {
-      const int n1 = w_rows * g.t_co;
-      for (int base = tid; base < n1; base += blockDim.x * kStageBatch) {
-        Acc v[kStageBatch];
-        int dst[kStageBatch];
 #pragma unroll
-        for (int u = 0; u < kStageBatch; ++u) {
-          const int e = base + u * blockDim.x;
-          if (e < n1) {
-            const int r = e / g.t_co;
-            const int co = e - r * g.t_co;
-            const int slot = r / g.t_ci;
-            const int ci = r - slot * g.t_ci;
-            const int tap = s_wtaps[slot];
-            v[u] = load_val(w + ((size_t)tap * g.cip + c0 + ci) * g.cop + co0 + co);
-            dst[u] = (tap * g.t_ci + ci) * g.t_co + co;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kStageBatch; ++u) {
-          if (base + u * blockDim.x < n1) ws[dst[u]] = v[u];
-        }
+      for (int u = 0; u < kStageBatch; ++u) {
+        if (base + u * blockDim.x < n1) ws[dst[u]] = v[u];
       }
     }
     __syncthreads();
@@ -508,10 +479,16 @@ template <typename T, typename TB, typename TO, bool kSparse, int RP, int RC>
 int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads,
            size_t smem, cudaStream_t stream) {
   auto kern = deconv2d_kernel<T, TB, TO, kSparse, RP, RC>;
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the opt-in shared-memory limit, set once per instance and device
+  static std::atomic<unsigned> allowed{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned bit = 1u << (dev & 31);
+  if (!(allowed.load() & bit)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
     if (e != cudaSuccess) return (int)e;
+    allowed.fetch_or(bit);
   }
   dim3 grid(g.tiles_h * g.tiles_w * g.tiles_co, g.n / g.t_n);
   kern<<<grid, threads, smem, stream>>>(
@@ -615,11 +592,9 @@ int deconv2d_forward(const void* x, const void* w, const void* b, void* y, const
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  const Launch a{x, w, nullptr, b, y, Schedule{nullptr, nullptr, nullptr, 0}, 1.0f};
+  const Launch a{x, w, nullptr, b, y, Schedule{nullptr, nullptr, nullptr, 0, 0}, 1.0f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rp = p[P_RP], rc = p[P_RC];
-  if (p[P_DTYPE] == 0)
-    return dispatch<float, float, float, false>(rp, rc, a, g, taps, threads, (size_t)smem, st);
   if (p[P_DTYPE] == 1)
     return dispatch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false>(
         rp, rc, a, g, taps, threads, (size_t)smem, st);
@@ -637,7 +612,7 @@ int deconv2d_int8_forward(const void* x, const void* w, const void* scale, const
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
   if (p[P_DTYPE] != 2 || (requant && !(out_scale > 0.0f))) return E_ARGS;
   const Launch a{x, w, static_cast<const float*>(scale), b, y,
-                 Schedule{nullptr, nullptr, nullptr, 0}, out_scale};
+                 Schedule{nullptr, nullptr, nullptr, 0, 0}, out_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rp = p[P_RP], rc = p[P_RC];
   if (requant)
@@ -645,26 +620,25 @@ int deconv2d_int8_forward(const void* x, const void* w, const void* scale, const
   return dispatch<int8_t, float, float, false>(rp, rc, a, g, taps, threads, (size_t)smem, st);
 }
 
-// The dense kernel's arguments plus the zero-skip schedule: ci_idx, valid
-// (len entries per CO tile) and tap_mask (K*K per entry), device int32.
-// Entries whose CI tile is out of range are skipped.  0 on success.
+// The dense kernel's arguments plus the packed zero-skip schedule: count
+// (one per CO tile), ci (len per CO tile) and bits (nbw words per entry),
+// device int32.  Entries whose CI tile is out of range are skipped.
+// 0 on success.
 int deconv2d_sparse_forward(const void* x, const void* w, const void* b, void* y,
-                            const void* ci_idx, const void* valid, const void* tap_mask,
-                            int len, const int* p, void* stream) {
+                            const void* count, const void* ci, const void* bits, int len,
+                            int nbw, const int* p, void* stream) {
   Geometry g;
   TapTable taps;
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  if (len < 1 || !ci_idx || !valid || !tap_mask) return E_ARGS;
+  if (len < 1 || nbw != (g.k * g.k + 31) / 32 || !count || !ci || !bits) return E_ARGS;
   const Launch a{x, w, nullptr, b, y,
-                 Schedule{static_cast<const int*>(ci_idx), static_cast<const int*>(valid),
-                          static_cast<const int*>(tap_mask), len},
+                 Schedule{static_cast<const int*>(count), static_cast<const int*>(ci),
+                          static_cast<const unsigned*>(bits), len, nbw},
                  1.0f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rp = p[P_RP], rc = p[P_RC];
-  if (p[P_DTYPE] == 0)
-    return dispatch<float, float, float, true>(rp, rc, a, g, taps, threads, (size_t)smem, st);
   if (p[P_DTYPE] == 1)
     return dispatch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true>(
         rp, rc, a, g, taps, threads, (size_t)smem, st);

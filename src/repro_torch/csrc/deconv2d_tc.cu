@@ -1,0 +1,883 @@
+// Halo-tiled, phase-decomposed transposed convolution in fp32 on Hopper's
+// tensor cores (sm_90a): the dense and the zero-skip kernel, instances of
+// one template.
+//
+// Replaces two Pallas TPU kernels of the JAX package in fp32, each
+// computing the same function on the same host-padded inputs:
+//
+//  * dense (`deconv2d_tc_forward`): `_deconv2d_kernel`,
+//    src/repro/kernels/deconv2d/kernel.py (launched by `deconv2d_pallas_call`)
+//
+//      y = act(conv_transpose(x, w) + b)   x (N, IHp, IWp, CIp), w (K, K, CIp, COp),
+//                                          b (COp), y (N, OHp, OWp, COp), NHWC, f32
+//
+//  * zero-skip (`deconv2d_tc_sparse_forward`): `_sparse_kernel`,
+//    src/repro/kernels/deconv2d_sparse/kernel.py.  The dense function on
+//    pruned weights, walking a packed schedule: per CO tile t, count[t]
+//    entries, entry l naming CI tile ci[t*len + l] and its tap bits
+//    bits[(t*len + l)*nbw + j] (bit kh*K + kw of the flat tap index set
+//    where the slab is not all zero).  Tap bits are ANDed with the block's
+//    valid taps; a dead tap stages nothing and costs no product.
+//
+// bf16 and int8 layers run on the FMA kernel of csrc/deconv2d.cu.
+//
+// What bounds the kernel on an H100: tensor-core throughput on the wide
+// CelebA layers (1024->512, 512->256, 256->128 channels: ~134M MACs per
+// image each, a 4x4 kernel reused over every output pixel), device-memory
+// bytes on the 1x1 roots (each weight read once and used by one pixel per
+// image) and on the thin tanh layers (1 or 3 output channels), and at
+// batch 1 the handful of blocks a layer's output makes.
+//
+// The design:
+//  1. Implicit GEMM per output phase.  A block owns one (t_n, t_oh, t_ow,
+//     t_co) output tile.  For each of its S*S phases the GEMM rows are the
+//     phase's output pixels (t_n * t_oh/S * t_ow/S), the columns t_co
+//     output channels, and the reduction runs over the phase's taps that
+//     read real input in this block times the CI chunk.  A warp owns WM
+//     m16 row tiles by WN n8 column tiles of one phase.  A fragments are
+//     gathered from the staged input window at the tap's (dh, dw) offset
+//     (from the host's tap table); B fragments from the staged weight rows.
+//     Products are mma.sync m16n8k8 TF32 in the 3xTF32 split: hi = v cut
+//     to TF32, lo = v - hi, and acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi,
+//     three mma per fragment pair into f32.  One TF32 product keeps ~3
+//     decimal digits, which fails the 1e-4 parity at CelebA's reduction
+//     lengths (4 x 1024 terms); the split keeps the error near fp32's.
+//     The mma sums of one CI chunk go to a fresh partial that is then added
+//     to the accumulators, which start at the bias: the tensor cores round
+//     each mma's sum toward zero, and one chain of 1536 mma into one
+//     accumulator drifted by 3.6e-5 on CelebA's widest layer.
+//     wgmma is later work: TF32 wgmma reads K-major core matrices from
+//     shared memory, and the per-tap gather of A breaks that layout except
+//     for phase tiles exactly 8 pixels wide.
+//  2. Asynchronous staging.  A ring of 2..4 stages of (input window, weight
+//     rows), filled by the copy engine: one cp.async.bulk per staged row (a
+//     pixel's t_ci channels, a tap's and channel's t_co weights), counted
+//     on the stage's mbarrier; thin layers' weight rows (C_out 1 or 3, not
+//     whole 16-byte pieces) go by 4-byte cp.async.ca.  Window pixels outside
+//     the real input are zero-filled in shared memory instead of copied.
+//     Chunk c+stages-1 is in flight while chunk c runs its mma: one barrier
+//     per chunk.  Per-thread 16-byte cp.async, the first design, spent more
+//     issue slots on address arithmetic than the mma took (CelebA's wide
+//     layers at batch 64 ran 1.0 ms); bulk copies of whole rows cost one
+//     instruction per row.  The input window's channel stride is t_ci + 4
+//     words, so the eight rows of an A fragment hit different banks where
+//     they are consecutive pixels; a weight row is padded to 8 mod 16
+//     words, so the four k-rows of a B fragment do.  A block stages only
+//     the input rows and the weight taps that its valid taps read: a 1x1
+//     root stages one input pixel and one tap of K*K.
+//  3. Cluster split of the CI reduction.  Where a layer's grid would not
+//     fill the 132 SMs (batch 1 above all), `split` blocks of one
+//     thread-block cluster share an output tile, rank r walking the r-th
+//     contiguous range of the CI chunks (zero-skip: of the CO tile's
+//     entries).  Each leaves its partial tile in its own shared memory;
+//     after cluster.sync() rank r sums slice r of the tile over ranks
+//     0..split-1 in rank order through distributed shared memory, adds the
+//     bias once, applies the activation and stores; a last cluster.sync()
+//     keeps every block's memory alive until its readers are done.  One
+//     launch per layer, no atomics: repeated launches give bit-identical
+//     outputs.
+//  4. Zero-skip without per-slab barriers: the packed schedule is built on
+//     the host once per plan; each entry's tap bits are read when its chunk
+//     is issued (and kept per stage in shared memory for the mma loop), the
+//     block's valid taps are two bitmasks in registers, and a dead tap's
+//     rows are neither copied nor counted on the stage's mbarrier.
+//  5. Thin layers: the n8 column tile is padded with zero weight columns in
+//     shared memory (zeroed once per launch) and the stores are masked to
+//     the real channels, so C_out 1 or 3 writes no padding channel.
+//
+// Plain C interface (loaded with ctypes): each `*_forward` launches on the
+// given stream, does not synchronise and allocates nothing.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kMaxStride = 4;
+constexpr int kMaxTaps = 8;
+constexpr int kMaxK = kMaxStride * kMaxTaps;  // the largest kernel size
+constexpr int kTapWords = kMaxStride + 2 * kMaxStride * kMaxTaps;
+constexpr int kMaxThreads = 512;   // with __launch_bounds__: up to 128 registers
+constexpr int kStaticSmem = 4096;  // bound on the kernel's static shared tables
+constexpr int kMaxDynamicSmem = 232448 - kStaticSmem;
+constexpr int kMaxSplit = 8;       // blocks of one cluster (the portable limit)
+constexpr int kMaxStages = 4;
+constexpr int kStageBudget = 100 * 1024;  // bytes the ring may take (2 stages at least)
+constexpr int kMaxBitWords = kMaxK * kMaxK / 32;
+
+// Layout of the int32 parameter array the host passes (kept in step with
+// repro_torch/kernels/deconv2d/kernel.py::_TC_PARAM_FIELDS).
+enum Param {
+  P_N, P_IHP, P_IWP, P_CIP, P_K, P_COP, P_OHP, P_OWP, P_S,
+  P_TN, P_TOH, P_TOW, P_TCI, P_TCO, P_TIH, P_TIW, P_BASE_H, P_BASE_W,
+  P_ACT, P_IH, P_IW, P_PAD_L, P_THREADS, P_SPLIT, P_TAPS
+};
+
+// Argument errors are reported as negative codes, CUDA errors as positive.
+enum ArgError { E_ARGS = -1, E_THREADS = -2, E_SMEM = -3, E_REGTILE = -4, E_ALIGN = -5 };
+
+struct Geometry {
+  int n, ihp, iwp, cip, k, cop, ohp, owp, s;
+  int t_n, t_oh, t_ow, t_ci, t_co, base_h, base_w;
+  int act;
+  int ih, iw, pad_l;  // the unpadded input extent and the left halo padding
+  int tiles_h, tiles_w, tiles_co;
+  int split;
+  // derived: rows of a phase, warp grid, staged window, weight rows, ring
+  int pix, wm, wn, mgroups, ngroups;
+  int win_h, win_w, slots;  // most rows staged per dim; most valid taps
+  int cs, ws;               // word strides: input channel, weight row
+  int x_words, stage_words, stages;
+  bool w_vec4;              // weight rows staged as whole float4s
+};
+
+struct TapTable {
+  int words[kTapWords];  // counts[S] | tap k[S][kMaxTaps] | local row[S][kMaxTaps]
+};
+
+// The packed zero-skip schedule (device int32 arrays); unused by the dense
+// instance.
+struct Schedule {
+  const int* count;
+  const int* ci;
+  const unsigned* bits;
+  int len, nbw;
+};
+
+// v = hi + lo: hi is v cut to TF32 (sign, exponent, 10 mantissa bits), lo
+// = v - hi is exact in f32 and the tensor core reads its top 10 mantissa
+// bits.  The cut costs one LOP3 where cvt.rna.tf32.f32 expands to five
+// instructions on sm_90a, and the split's error (below 2^-21 of v) is far
+// under the f32 accumulation's.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most `pending` of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  if (pending <= 0) cp_async_wait<0>();
+  else if (pending == 1) cp_async_wait<1>();
+  else cp_async_wait<2>();
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) whose completion is counted on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, void* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(void* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive once on `bar`, announcing `bytes` of copies that complete on it.
+__device__ __forceinline__ void mbar_arrive_expect(void* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(void* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// n / d and n % d for a divisor fixed per block, with a multiply-high
+// (Granlund and Montgomery's round-up method, for n < 2^31).
+struct FastDiv {
+  unsigned mul, shift;
+  __device__ __forceinline__ void init(int divisor) {
+    const unsigned d = divisor > 0 ? divisor : 1;
+    shift = 32 - __clz(d - 1);
+    mul = (unsigned)(((1ull << 32) * ((1ull << shift) - d)) / d + 1);
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, mul) + (unsigned)n) >> shift);
+  }
+};
+
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == 1) return fmaxf(v, 0.0f);
+  if (act == 2) return tanhf(v);
+  return v;
+}
+
+template <bool kSparse, int WM, int WN>
+__global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
+    const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
+    float* __restrict__ y, Geometry g, TapTable taps, Schedule sched) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_taps[kTapWords];
+  // per dim (0: rows, 1: cols): which phase taps read any real input for
+  // this block, those taps' kernel indices as a bitmask, the staged window
+  // span [lo, hi) and its rows of real input [lo, hi) (window-local)
+  __shared__ unsigned char s_tap_ok[2][kMaxStride * kMaxTaps];
+  __shared__ unsigned s_kok[2];
+  __shared__ int s_span[4];
+  __shared__ int s_real[4];
+  // the flat kernel tap (kh * K + kw) of each staged weight slot
+  __shared__ short s_wtap[kMaxK * kMaxK];
+  // zero-skip: per stage, the entry's CI tile (-1: none) and its tap bits
+  __shared__ int s_ent[kMaxStages][1 + kMaxBitWords];
+  // per stage: completes when the stage's bulk copies have landed
+  __shared__ __align__(8) unsigned long long s_bar[kMaxStages];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kTapWords; i += blockDim.x) s_taps[i] = taps.words[i];
+
+  const int s = g.s;
+  const int th = g.t_oh / s, tw = g.t_ow / s;
+  const int pix = g.pix;
+
+  // block -> (output tile, rank in the cluster)
+  const int split = g.split;
+  const int rank = blockIdx.x % split;
+  int tile = blockIdx.x / split;
+  const int co_t = tile % g.tiles_co;
+  tile /= g.tiles_co;
+  const int ow_t = tile % g.tiles_w;
+  const int oh_t = tile / g.tiles_w;
+  const int n0 = blockIdx.y * g.t_n;
+  const int co0 = co_t * g.t_co;
+  const int h0 = oh_t * th + g.base_h;
+  const int w0 = ow_t * tw + g.base_w;
+
+  // the weight rows' padding columns stay zero: the copies never write them
+  for (int st = 0; st < g.stages; ++st) {
+    float* ws = smem + st * g.stage_words + g.x_words;
+    const int pad = g.ws - g.t_co;
+    for (int e = tid; e < g.slots * g.t_ci * pad; e += blockDim.x)
+      ws[(e / pad) * g.ws + g.t_co + e % pad] = 0.0f;
+  }
+  if (tid == 0) {
+    for (int st = 0; st < g.stages; ++st) mbar_init(&s_bar[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tap validity, uniform over the block: a tap whose rows (or columns) in
+  // this tile's window all lie in the host padding adds exactly zero, so
+  // its weights are not staged and its products are skipped, and only the
+  // window span that valid taps read is staged.
+  if (tid == 0) {
+    unsigned char kof[2][kMaxK];
+    for (int dim = 0; dim < 2; ++dim) {
+      const int o0 = dim == 0 ? h0 : w0;
+      const int span = dim == 0 ? th : tw;
+      const int lo_real = g.pad_l;
+      const int hi_real = g.pad_l + (dim == 0 ? g.ih : g.iw);
+      int lo = 1 << 30, hi = -(1 << 30);
+      unsigned kok = 0;
+      for (int ph_ = 0; ph_ < s; ++ph_) {
+        for (int a = 0; a < s_taps[ph_]; ++a) {
+          const int d = s_taps[kMaxStride + kMaxStride * kMaxTaps + ph_ * kMaxTaps + a];
+          const bool ok = o0 + d < hi_real && o0 + d + span > lo_real;
+          s_tap_ok[dim][ph_ * kMaxTaps + a] = ok;
+          if (ok) {
+            kok |= 1u << s_taps[kMaxStride + ph_ * kMaxTaps + a];
+            lo = min(lo, d);
+            hi = max(hi, d + span);
+          }
+        }
+      }
+      if (lo >= hi) lo = hi = 0;
+      s_span[2 * dim] = lo;
+      s_span[2 * dim + 1] = hi;
+      // window-local rows lo + r read padded row o0 + lo + r
+      s_real[2 * dim] = min(max(lo_real - (o0 + lo), 0), hi - lo);
+      s_real[2 * dim + 1] = max(min(hi_real - (o0 + lo), hi - lo), s_real[2 * dim]);
+      s_kok[dim] = kok;
+      int n = 0;
+      for (int k = 0; k < g.k; ++k) {
+        if ((kok >> k) & 1u) kof[dim][n++] = (unsigned char)k;
+      }
+      if (dim == 1) {
+        const int nh = __popc(s_kok[0]);
+        for (int sh = 0; sh < nh; ++sh) {
+          for (int sw = 0; sw < n; ++sw) s_wtap[sh * n + sw] = (short)(kof[0][sh] * g.k + kof[1][sw]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const unsigned kok_h = s_kok[0], kok_w = s_kok[1];
+  const int nw_ok = __popc(kok_w);
+  const int n_slots = __popc(kok_h) * nw_ok;
+  const int lo_h = s_span[0], eh = s_span[1] - s_span[0];
+  const int lo_w = s_span[2], ew = s_span[3] - s_span[2];
+  const int cs = g.cs, wst = g.ws;
+  FastDiv div_ew, div_eh, div_ci;
+  div_ew.init(ew);
+  div_eh.init(eh);
+  div_ci.init(g.t_ci);
+  // bytes one chunk's input rows bring: the real rows of the span
+  const int x_bytes =
+      g.t_n * (s_real[1] - s_real[0]) * (s_real[3] - s_real[2]) * g.t_ci * 4;
+
+  // warp -> (phase, row group, column group); warps past the last phase
+  // only stage
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int per_phase = g.mgroups * g.ngroups;
+  const int phase = warp / per_phase;
+  const bool computes = phase < s * s;
+  const int q = warp - phase * per_phase;
+  const int mg = q / g.ngroups, ng = q - (q / g.ngroups) * g.ngroups;
+  const int ph = computes ? phase / s : 0, pw = computes ? phase % s : 0;
+
+  // the input-window offsets of this lane's A rows (rows past the phase's
+  // pixels read pixel 0 and are never stored)
+  int aoff[WM][2];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      int r = (mg * WM + i) * 16 + gid + 8 * hf;
+      if (r >= pix) r = 0;
+      const int nn = r / (th * tw);
+      const int rr = (r / tw) % th;
+      const int cc = r % tw;
+      aoff[i][hf] = ((nn * g.win_h + rr) * g.win_w + cc) * cs;
+    }
+  }
+  // accumulators, from the bias unless a cluster split adds it after the sum
+  float acc[WM][WN][4];
+#pragma unroll
+  for (int j = 0; j < WN; ++j) {
+    const int col = (ng * WN + j) * 8 + 2 * tig;
+    const float b0 = (split == 1 && col < g.t_co) ? b[co0 + col] : 0.0f;
+    const float b1 = (split == 1 && col + 1 < g.t_co) ? b[co0 + col + 1] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+      acc[i][j][0] = b0;
+      acc[i][j][1] = b1;
+      acc[i][j][2] = b0;
+      acc[i][j][3] = b1;
+    }
+  }
+
+  // this rank's range of chunks (dense) or of the CO tile's entries
+  const int n_ci = g.cip / g.t_ci;
+  const int total = kSparse ? sched.count[co_t] : n_ci;
+  const int it0 = rank * total / split;
+  const int n_it = (rank + 1) * total / split - it0;
+
+  // Issue chunk `it` into stage `st`: input rows and (wide) weight rows as
+  // bulk copies counted on the stage's mbarrier, thin weight rows as 4-byte
+  // cp.async in a commit group (an empty group past the end, so that the
+  // wait counts stay uniform).
+  auto issue = [&](int it, int st) {
+    if (it < n_it) {
+      int ci_t = it0 + it;
+      const unsigned* bits = nullptr;
+      if constexpr (kSparse) {
+        const int e = co_t * sched.len + it0 + it;
+        ci_t = sched.ci[e];
+        bits = sched.bits + (size_t)e * sched.nbw;
+        if (ci_t < 0 || ci_t >= n_ci) ci_t = -1;
+      }
+      auto live = [&](int t) {
+        if constexpr (kSparse) return ((__ldg(bits + (t >> 5)) >> (t & 31)) & 1u) != 0;
+        return true;
+      };
+      if (tid == 0) {
+        int bytes = 0;
+        if (ci_t >= 0) {
+          int n_live = n_slots;
+          if constexpr (kSparse) {
+            n_live = 0;
+            for (int sl = 0; sl < n_slots; ++sl) n_live += live(s_wtap[sl]);
+            s_ent[st][0] = ci_t;
+            for (int j = 0; j < sched.nbw; ++j) s_ent[st][1 + j] = (int)bits[j];
+          }
+          bytes = x_bytes + (g.w_vec4 ? n_live * g.t_ci * g.t_co * 4 : 0);
+        } else if constexpr (kSparse) {
+          s_ent[st][0] = -1;
+        }
+        mbar_arrive_expect(&s_bar[st], bytes);
+      }
+      if (ci_t >= 0) {
+        const int c0 = ci_t * g.t_ci;
+        float* xs = smem + st * g.stage_words;
+        float* ws = xs + g.x_words;
+        // input window: one bulk copy per pixel row of t_ci channels; rows
+        // outside the real input are zero-filled in place
+        const int nx = g.t_n * eh * ew;
+        for (int r = tid; r < nx; r += blockDim.x) {
+          const int rest = div_ew.div(r);
+          const int lc = r - rest * ew;
+          const int nn = div_eh.div(rest);
+          const int lr = rest - nn * eh;
+          float* dst = xs + ((nn * g.win_h + lr) * g.win_w + lc) * cs;
+          if (lr >= s_real[0] && lr < s_real[1] && lc >= s_real[2] && lc < s_real[3]) {
+            const int gh = h0 + lo_h + lr, gw = w0 + lo_w + lc;
+            bulk_copy(dst,
+                      x + ((((size_t)(n0 + nn) * g.ihp + gh) * g.iwp + gw) * g.cip) + c0,
+                      g.t_ci * 4, &s_bar[st]);
+          } else {
+            for (int j = 0; j < g.t_ci; j += 4)
+              *reinterpret_cast<float4*>(dst + j) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        }
+        // weight rows of the block's valid (zero-skip: and live) taps
+        const int nw = n_slots * g.t_ci;
+        if (g.w_vec4) {
+          for (int r = tid; r < nw; r += blockDim.x) {
+            const int slot = div_ci.div(r);
+            const int ci = r - slot * g.t_ci;
+            const int t = s_wtap[slot];
+            if (!live(t)) continue;
+            bulk_copy(ws + r * wst, w + ((size_t)t * g.cip + c0 + ci) * g.cop + co0,
+                      g.t_co * 4, &s_bar[st]);
+          }
+        } else {
+          for (int e = tid; e < nw * g.t_co; e += blockDim.x) {
+            const int r = e / g.t_co;
+            const int c = e - r * g.t_co;
+            const int slot = div_ci.div(r);
+            const int ci = r - slot * g.t_ci;
+            const int t = s_wtap[slot];
+            if (!live(t)) continue;
+            cp_async4(ws + r * wst + c, w + ((size_t)t * g.cip + c0 + ci) * g.cop + co0 + c);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // The mma loop of one staged chunk: the phase's valid (and live) taps,
+  // t_ci / 8 k-steps each, summed in a fresh partial that is then added
+  // to the accumulators.  The tensor cores round each mma's sum toward
+  // zero, so a long chain of mma into one accumulator drifts; a partial
+  // per chunk keeps the chain short and the chunks are added with
+  // round-to-nearest.
+  auto compute = [&](int st) {
+    if constexpr (kSparse) {
+      if (s_ent[st][0] < 0) return;
+    }
+    const float* xs = smem + st * g.stage_words;
+    const float* ws = xs + g.x_words;
+    float part[WM][WN][4];
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.0f;
+      }
+    }
+    const int n_taps_h = s_taps[ph], n_taps_w = s_taps[pw];
+    for (int a = 0; a < n_taps_h; ++a) {
+      if (!s_tap_ok[0][ph * kMaxTaps + a]) continue;
+      const int kh = s_taps[kMaxStride + ph * kMaxTaps + a];
+      const int dh = s_taps[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
+      const int sh = __popc(kok_h & ((1u << kh) - 1u));
+      for (int bb = 0; bb < n_taps_w; ++bb) {
+        if (!s_tap_ok[1][pw * kMaxTaps + bb]) continue;
+        const int kw = s_taps[kMaxStride + pw * kMaxTaps + bb];
+        if constexpr (kSparse) {
+          const int t = kh * g.k + kw;
+          if (!(((unsigned)s_ent[st][1 + (t >> 5)] >> (t & 31)) & 1u)) continue;
+        }
+        const int dw = s_taps[kMaxStride + kMaxStride * kMaxTaps + pw * kMaxTaps + bb];
+        const int slot = sh * nw_ok + __popc(kok_w & ((1u << kw) - 1u));
+        const float* xt = xs + ((dh - lo_h) * g.win_w + (dw - lo_w)) * cs + tig;
+        const float* wt = ws + slot * g.t_ci * wst + tig * wst + ng * WN * 8 + gid;
+        for (int k0 = 0; k0 < g.t_ci; k0 += 8) {
+          uint32_t ah[WM][4], al[WM][4], bh[WN][2], bl[WN][2];
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+            split_tf32(xt[aoff[i][0] + k0], ah[i][0], al[i][0]);
+            split_tf32(xt[aoff[i][1] + k0], ah[i][1], al[i][1]);
+            split_tf32(xt[aoff[i][0] + k0 + 4], ah[i][2], al[i][2]);
+            split_tf32(xt[aoff[i][1] + k0 + 4], ah[i][3], al[i][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < WN; ++j) {
+            split_tf32(wt[k0 * wst + j * 8], bh[j][0], bl[j][0]);
+            split_tf32(wt[(k0 + 4) * wst + j * 8], bh[j][1], bl[j][1]);
+          }
+          // the three products of a tile depend on each other through its
+          // accumulator: issue each round over all WM x WN tiles, so that
+          // WM * WN independent mma sit between two dependent ones
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+#pragma unroll
+            for (int j = 0; j < WN; ++j) mma_tf32(part[i][j], al[i], bh[j]);
+          }
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+#pragma unroll
+            for (int j = 0; j < WN; ++j) mma_tf32(part[i][j], ah[i], bl[j]);
+          }
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+#pragma unroll
+            for (int j = 0; j < WN; ++j) mma_tf32(part[i][j], ah[i], bh[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+      }
+    }
+  };
+
+  const int ns = g.stages;
+  for (int st = 0; st < ns - 1; ++st) issue(st, st);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ns;
+    cp_async_wait_pending(ns - 2);         // this thread's 4-byte copies of chunk `it`
+    mbar_wait(&s_bar[st], (it / ns) & 1);  // the chunk's bulk copies
+    __syncthreads();                       // all of it; stage (it-1) % ns is free
+    issue(it + ns - 1, (it + ns - 1) % ns);
+    if (computes) compute(st);
+  }
+  cp_async_wait<0>();
+
+  // output pixel of row r of this warp's phase -> y row pointer
+  auto out_row = [&](int r, int ph_, int pw_) {
+    const int nn = r / (th * tw);
+    const int rr = (r / tw) % th;
+    const int cc = r % tw;
+    const int oh = oh_t * g.t_oh + rr * s + ph_;
+    const int ow = ow_t * g.t_ow + cc * s + pw_;
+    return y + (((size_t)(n0 + nn) * g.ohp + oh) * g.owp + ow) * g.cop + co0;
+  };
+
+  if (split == 1) {
+    if (!computes) return;
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (mg * WM + i) * 16 + gid + 8 * hf;
+        if (r >= pix) continue;
+        float* row = out_row(r, ph, pw);
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = (ng * WN + j) * 8 + 2 * tig;
+          if (col < g.t_co) row[col] = activate(acc[i][j][2 * hf], g.act);
+          if (col + 1 < g.t_co) row[col + 1] = activate(acc[i][j][2 * hf + 1], g.act);
+        }
+      }
+    }
+    return;
+  }
+
+  // Cluster split: the partial tile, [phase][row][channel], in this block's
+  // shared memory (the ring is drained), then the rank-ordered sum of
+  // slice `rank` through distributed shared memory.
+  __syncthreads();
+  float* part = smem;
+  if (computes) {
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (mg * WM + i) * 16 + gid + 8 * hf;
+        if (r >= pix) continue;
+        float* prow = part + (phase * pix + r) * g.t_co;
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = (ng * WN + j) * 8 + 2 * tig;
+          if (col < g.t_co) prow[col] = acc[i][j][2 * hf];
+          if (col + 1 < g.t_co) prow[col + 1] = acc[i][j][2 * hf + 1];
+        }
+      }
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_el = s * s * pix * g.t_co;
+  const int e_end = (rank + 1) * n_el / split;
+  for (int e = rank * n_el / split + tid; e < e_end; e += blockDim.x) {
+    float v = 0.0f;
+    for (int qr = 0; qr < split; ++qr) v += cluster.map_shared_rank(part, qr)[e];
+    const int col = e % g.t_co;
+    const int rest = e / g.t_co;
+    const int r = rest % pix;
+    const int phs = rest / pix;
+    out_row(r, phs / s, phs % s)[col] = activate(v + b[co0 + col], g.act);
+  }
+  cluster.sync();
+}
+
+struct Launch {
+  const float* x;
+  const float* w;
+  const float* b;
+  float* y;
+  Schedule sched;
+};
+
+template <bool kSparse, int WM, int WN>
+int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads, size_t smem,
+           cudaStream_t stream) {
+  auto kern = deconv2d_tc_kernel<kSparse, WM, WN>;
+  // the opt-in shared-memory limit, set once per instance and device
+  static std::atomic<unsigned> allowed{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned bit = 1u << (dev & 31);
+  if (!(allowed.load() & bit)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+    if (e != cudaSuccess) return (int)e;
+    allowed.fetch_or(bit);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.tiles_h * g.tiles_w * g.tiles_co * g.split, g.n / g.t_n, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a.x, a.w, a.b, a.y, g, taps, a.sched);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool kSparse>
+int dispatch(const Launch& a, const Geometry& g, const TapTable& taps, int threads, size_t smem,
+             cudaStream_t stream) {
+#define DECONV_TC_CASE(WM_, WN_) \
+  if (g.wm == WM_ && g.wn == WN_) return launch<kSparse, WM_, WN_>(a, g, taps, threads, smem, stream);
+  DECONV_TC_CASE(2, 4)
+  DECONV_TC_CASE(2, 2)
+  DECONV_TC_CASE(2, 1)
+  DECONV_TC_CASE(1, 4)
+  DECONV_TC_CASE(1, 2)
+  DECONV_TC_CASE(1, 1)
+#undef DECONV_TC_CASE
+  return E_REGTILE;
+}
+
+// Per dim: the most input rows any block stages and the most kernel taps
+// that read real input in any block (repro_torch/core/tiling.py's
+// `staged_window`, which sizes the host's shared-memory model).
+void window(const int* words, int s, int in_size, int pad_l, int tiles, int step, int base,
+            int* rows, int* ntaps) {
+  *rows = *ntaps = 0;
+  for (int j = 0; j < tiles; ++j) {
+    const int o0 = j * step + base;
+    int lo = 1 << 30, hi = -(1 << 30), n = 0;
+    for (int ph = 0; ph < s; ++ph) {
+      for (int a = 0; a < words[ph]; ++a) {
+        const int d = words[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
+        if (o0 + d < pad_l + in_size && o0 + d + step > pad_l) {
+          lo = d < lo ? d : lo;
+          hi = d + step > hi ? d + step : hi;
+          ++n;
+        }
+      }
+    }
+    if (n) {
+      *rows = hi - lo > *rows ? hi - lo : *rows;
+      *ntaps = n > *ntaps ? n : *ntaps;
+    }
+  }
+}
+
+// Reads and checks the parameter array and derives the launch's layout;
+// 0 or an ArgError.
+int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* smem) {
+  Geometry& g = *gp;
+  g.n = p[P_N]; g.ihp = p[P_IHP]; g.iwp = p[P_IWP]; g.cip = p[P_CIP]; g.k = p[P_K];
+  g.cop = p[P_COP]; g.ohp = p[P_OHP]; g.owp = p[P_OWP]; g.s = p[P_S];
+  g.t_n = p[P_TN]; g.t_oh = p[P_TOH]; g.t_ow = p[P_TOW]; g.t_ci = p[P_TCI]; g.t_co = p[P_TCO];
+  g.base_h = p[P_BASE_H]; g.base_w = p[P_BASE_W];
+  g.act = p[P_ACT];
+  g.ih = p[P_IH]; g.iw = p[P_IW]; g.pad_l = p[P_PAD_L];
+  g.split = p[P_SPLIT];
+  if (g.ih < 1 || g.iw < 1 || g.pad_l < 0 || g.pad_l + g.ih > g.ihp || g.pad_l + g.iw > g.iwp)
+    return E_ARGS;
+  if (g.s < 1 || g.s > kMaxStride || g.k < 1 || g.k > kMaxK || g.t_n < 1 || g.t_ci < 8 ||
+      g.t_ci % 8 || g.t_co < 1 || g.t_oh < g.s || g.t_ow < g.s || g.t_oh % g.s ||
+      g.t_ow % g.s || g.n % g.t_n || g.cip % g.t_ci || g.cop % g.t_co || g.ohp % g.t_oh ||
+      g.owp % g.t_ow || g.act < 0 || g.act > 2)
+    return E_ARGS;
+  g.tiles_h = g.ohp / g.t_oh;
+  g.tiles_w = g.owp / g.t_ow;
+  g.tiles_co = g.cop / g.t_co;
+  if (g.split < 1 || g.split > kMaxSplit || g.split > g.cip / g.t_ci) return E_ARGS;
+  // every halo window must lie inside the host-padded input
+  const int t_ih = p[P_TIH], t_iw = p[P_TIW];
+  if (g.base_h < 0 || g.base_w < 0 ||
+      (g.tiles_h - 1) * (g.t_oh / g.s) + g.base_h + t_ih > g.ihp ||
+      (g.tiles_w - 1) * (g.t_ow / g.s) + g.base_w + t_iw > g.iwp)
+    return E_ARGS;
+  for (int i = 0; i < kTapWords; ++i) taps->words[i] = p[P_TAPS + i];
+  for (int ph = 0; ph < g.s; ++ph) {
+    const int cnt = taps->words[ph];
+    if (cnt < 0 || cnt > kMaxTaps) return E_ARGS;
+    for (int a = 0; a < cnt; ++a) {
+      const int k = taps->words[kMaxStride + ph * kMaxTaps + a];
+      const int d = taps->words[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
+      if (k < 0 || k >= g.k || d < 0 || d + g.t_oh / g.s > t_ih || d + g.t_ow / g.s > t_iw)
+        return E_ARGS;
+    }
+  }
+  // warp grid (repro_torch/core/tiling.py: tc_warp_tile, block_threads)
+  g.pix = g.t_n * (g.t_oh / g.s) * (g.t_ow / g.s);
+  const int mt = (g.pix + 15) / 16, nt = (g.t_co + 7) / 8;
+  g.wm = mt >= 2 ? 2 : 1;
+  g.wn = nt >= 4 ? 4 : nt >= 2 ? 2 : 1;
+  g.mgroups = (mt + g.wm - 1) / g.wm;
+  g.ngroups = (nt + g.wn - 1) / g.wn;
+  const long long warps = (long long)g.s * g.s * g.mgroups * g.ngroups;
+  *threads = p[P_THREADS];
+  if (warps * 32 > kMaxThreads || *threads > kMaxThreads) return E_THREADS;
+  if (*threads < warps * 32 || *threads % 32) return E_ARGS;
+  // shared layout (tiling.py: tc_weight_stride, tc_smem_layout)
+  int rows_h, taps_h, rows_w, taps_w;
+  window(taps->words, g.s, g.ih, g.pad_l, g.tiles_h, g.t_oh / g.s, g.base_h, &rows_h, &taps_h);
+  window(taps->words, g.s, g.iw, g.pad_l, g.tiles_w, g.t_ow / g.s, g.base_w, &rows_w, &taps_w);
+  g.win_h = rows_h;
+  g.win_w = rows_w;
+  g.slots = taps_h * taps_w;
+  g.cs = g.t_ci + 4;
+  const int cols = g.ngroups * g.wn * 8;
+  g.ws = cols % 16 == 0 ? cols + 8 : cols;
+  g.w_vec4 = g.t_co % 4 == 0 && g.cop % 4 == 0;
+  const long long x_words = ((long long)g.t_n * rows_h * rows_w * g.cs + 3) / 4 * 4;
+  const long long stage = x_words + (long long)g.slots * g.t_ci * g.ws;
+  int stages = 2;
+  for (int n = 3; n <= kMaxStages; ++n) {
+    if (4 * n * stage <= kStageBudget) stages = n;
+  }
+  const long long partial = g.split > 1 ? (long long)g.s * g.s * g.pix * g.t_co : 0;
+  *smem = 4 * (stages * stage > partial ? stages * stage : partial);
+  if (*smem > kMaxDynamicSmem) return E_SMEM;
+  g.x_words = (int)x_words;
+  g.stage_words = (int)stage;
+  g.stages = stages;
+  return 0;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+}  // namespace
+
+extern "C" {
+
+// Writes the launch limits the host's tile choice must respect: the largest
+// stride, taps per phase, threads per block, dynamic shared memory per
+// block and cluster split (repro_torch/core/tiling.py and kernels/autotune.py
+// keep the same values; the launcher checks them when it loads the library).
+void deconv2d_tc_limits(int* out) {
+  out[0] = kMaxStride;
+  out[1] = kMaxTaps;
+  out[2] = kMaxThreads;
+  out[3] = kMaxDynamicSmem;
+  out[4] = kMaxSplit;
+}
+
+// The dynamic shared memory one block takes, in bytes (the host's
+// `tc_smem_layout` must agree), or an ArgError.
+long long deconv2d_tc_smem_bytes(const int* p) {
+  Geometry g;
+  TapTable taps;
+  int threads;
+  long long smem;
+  if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
+  return smem;
+}
+
+// x, w, b, y: f32 device pointers (x and w 16-byte aligned); p: host int32
+// array laid out as `Param` followed by the tap table; stream: a
+// cudaStream_t.  0 on success.
+int deconv2d_tc_forward(const void* x, const void* w, const void* b, void* y, const int* p,
+                        void* stream) {
+  Geometry g;
+  TapTable taps;
+  int threads;
+  long long smem;
+  if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
+  if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
+  const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
+                 static_cast<const float*>(b), static_cast<float*>(y),
+                 Schedule{nullptr, nullptr, nullptr, 0, 0}};
+  return dispatch<false>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream));
+}
+
+// The dense kernel's arguments plus the packed zero-skip schedule: count
+// (one per CO tile), ci (len per CO tile) and bits (nbw words per entry),
+// device int32.  Entries whose CI tile is out of range are skipped.
+// 0 on success.
+int deconv2d_tc_sparse_forward(const void* x, const void* w, const void* b, void* y,
+                               const void* count, const void* ci, const void* bits, int len,
+                               int nbw, const int* p, void* stream) {
+  Geometry g;
+  TapTable taps;
+  int threads;
+  long long smem;
+  if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
+  if (len < 1 || nbw != (g.k * g.k + 31) / 32 || nbw > kMaxBitWords || !count || !ci || !bits)
+    return E_ARGS;
+  if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
+  const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
+                 static_cast<const float*>(b), static_cast<float*>(y),
+                 Schedule{static_cast<const int*>(count), static_cast<const int*>(ci),
+                          static_cast<const unsigned*>(bits), len, nbw}};
+  return dispatch<true>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

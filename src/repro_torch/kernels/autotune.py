@@ -1,23 +1,31 @@
-"""Tile choice for the Hopper deconv kernel.
+"""Tile choice for the Hopper deconv kernels.
 
-A deterministic heuristic picks the same ``TileChoice`` fields as the JAX
-package's autotuner (``t_oh, t_ow, t_ci, t_co, t_n``), for the kernel in
-``csrc/deconv2d.cu`` on an H100:
+Deterministic choices of the same ``TileChoice`` fields as the JAX
+package's autotuner (``t_oh, t_ow, t_ci, t_co, t_n``), one per kernel
+(`core.tiling.kernel_for`).  In both, ``t_oh``/``t_ow`` are square
+multiples of the stride (every tile has the same phase structure), a block
+has at most 512 threads (the kernels' launch bound), and a 1x1 root layer
+takes S-pixel spatial tiles, one valid tap each.
 
-* ``t_oh``/``t_ow`` are multiples of the stride (every tile has the same
-  phase structure);
-* the weight slab of one CI chunk stays within a 64 KB budget, so
-  ``kernel_smem_bytes`` is far under the 227 KB a block may have and
-  several blocks share an SM;
-* a block has at most 512 threads (``block_threads``; the kernel's launch
-  bound), aiming at 256;
-* a 1x1 root layer takes S-pixel spatial tiles, one valid tap each;
-* the grid fills the 132 SMs: at small batch the channel tile narrows
-  (down to 4; a block then re-reads only the small input window), and
-  only below 66 blocks does the spatial tile shrink (each spatial tile
-  re-reads the whole weight slab), while a block keeps 16 threads; at
-  large batch the batch tile grows while threads, blocks and a 100 KB
-  shared-memory target allow, so each staged weight feeds more pixels.
+fp32, the tensor-core kernel (``csrc/deconv2d_tc.cu``), `_tc_tiles`: every
+candidate the kernel takes (``t_ci`` a multiple of 8; ``t_co`` a multiple
+of 8, or C_out itself below 8; at most 16 warps and 227 KB) is scored by
+`tc_cost`, a model of one SM's clock, and the cheapest whose grid (cluster
+split included, `ci_split`) fills the 132 SMs wins; where no candidate
+fills them, the cheapest of all.  The model counts per block and CI chunk
+the instructions issued, the tensor-core products (3xTF32: three ``mma``
+per m16n8k8 tile), the shared-memory wavefronts of the fragment loads, the
+bytes staged from L2 and the bulk copies (one per staged row), plus one
+copy latency per chunk over the stages in flight; blocks share an SM's
+rates and run in waves.  Its constants were fitted to timed tiles on an
+H100, so it ranks tiles, it does not predict times.
+
+bf16 and int8, the FMA kernel (``csrc/deconv2d.cu``), `_simt_tiles`: the
+weight slab of one CI chunk stays within 64 KB; the grid fills the 132 SMs:
+at small batch the channel tile narrows (down to 4), and only below 66
+blocks does the spatial tile shrink, while a block keeps 16 threads; at
+large batch the batch tile grows while threads (256), blocks and a 100 KB
+shared-memory target allow.
 
 The TPU tiles do not carry over: the JAX plan picks ``t_ci = t_co = 128`` on
 CelebA's wide layers, a 1 MB weight slab.  Timed tuning and its cache are
@@ -26,11 +34,16 @@ later work.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
-from ..core.tiling import DeconvGeometry, block_threads, kernel_smem_bytes
+from ..core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_THREADS,
+                           DeconvGeometry, block_threads, kernel_for,
+                           kernel_smem_bytes, launch_threads, staged_window,
+                           tc_smem_layout, tc_warp_tile)
 
 SMS = 132                      # streaming multiprocessors of an H100
+MAX_SPLIT = 8                  # blocks of a cluster (the portable limit)
 SMEM_TARGET = 100 * 1024       # the batch tile grows only within this
 W_SLAB_BUDGET = 64 * 1024      # weight slab per CI chunk, bytes
 TARGET_THREADS = 256
@@ -63,6 +76,183 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+
+
+def grid_blocks(geom: DeconvGeometry, batch: int, t: int, t_co: int,
+                t_n: int) -> int:
+    """Thread blocks of one launch at square spatial tile ``t``, before a
+    cluster split."""
+    return (-(-batch // t_n) * (-(-geom.out_h // t)) * (-(-geom.out_w // t))
+            * (-(-geom.c_out // t_co)))
+
+
+def ci_split(blocks: int, n_chunks: int) -> int:
+    """Blocks of a cluster that share one output tile's CI chunks (the
+    "tc" kernel): doubled while the grid is under the card's SMs, up to 8
+    and at most one per chunk.  1 leaves the reduction in one block."""
+    split = 1
+    while blocks * split < SMS and split * 2 <= min(MAX_SPLIT, n_chunks):
+        split *= 2
+    return split
+
+
+def hopper_tiles(geom: DeconvGeometry, batch: int = 1,
+                 dtype="float32") -> TileChoice:
+    """Tiles for one layer at the batch its kernel will see, for the
+    kernel that runs ``dtype``."""
+    if kernel_for(dtype) == "tc":
+        return _tc_tiles(geom, batch)
+    return _simt_tiles(geom, batch)
+
+
+def fill_tiles(geom: DeconvGeometry, batch: int, dtype="float32",
+               **given) -> TileChoice:
+    """The tiles given by name (``t_oh=...``), the ones left out or None
+    taken from `hopper_tiles` at this batch and dtype."""
+    return dataclasses.replace(hopper_tiles(geom, batch, dtype),
+                               **{f: v for f, v in given.items() if v is not None})
+
+
+# -- the tensor-core kernel ---------------------------------------------
+# A model of one SM's clock, not measurements: the constants were fitted by
+# hand to timed tiles of both generators' layers on an H100 (PERF.md).
+ISSUE_PER_CLK = 4       # instructions an SM issues per clock (4 schedulers)
+MMA_CLK = 1.5           # SM clocks per m16n8k8 TF32 mma.sync, as sustained
+COPY_INSTR = 12         # instructions per bulk copy (a staged row)
+COPY_CLK = 4.0          # SM clocks of the copy engine per bulk copy
+COPY4_INSTR = 10        # instructions per 4-byte cp.async (thin weight rows)
+CHUNK_INSTR = 60        # per warp and chunk: barrier, waits, partial sums
+L2_BYTES_PER_CLK = 16   # bytes one SM stages per clock with every SM busy
+LATENCY_CLK = 4000      # one chunk's copies in flight, from issue to landed
+REDUCE_CLK = 1500       # the two cluster barriers of a split's reduction
+FULL_WARPS = 8          # warps an SM needs to keep its tensor cores busy
+REGS_PER_THREAD = 128   # the launch bound's register cap
+WAVE_CLK = 2.0          # SM clocks per shared-memory wavefront of the loads
+
+
+def _tc_candidates(geom: DeconvGeometry, batch: int):
+    s = geom.stride
+    if geom.in_h == geom.in_w == 1:
+        spatial = [s]
+    else:
+        full = _round_up(max(geom.out_h, geom.out_w), s)
+        spatial = sorted({min(full, s * 2 ** j) for j in range(5)
+                          if s * 2 ** j <= 32})
+    t_ns = [2 ** j for j in range(7) if 2 ** j <= batch]
+    if geom.c_out < 8:
+        t_cos = [geom.c_out]
+    else:
+        t_cos = [c for c in (8, 16, 32, 64, 128)
+                 if c <= _round_up(geom.c_out, 8)]
+    # 8-channel chunks pay a barrier and a partial sum per 8 channels and
+    # stage 32-byte input rows: on the wide layers they ran slower than 16
+    # or 32 at every tile timed
+    t_cis = [c for c in (8, 16, 32) if c <= _round_up(geom.c_in, 8)
+             and (c > 8 or geom.c_in < 128)]
+    for t in spatial:
+        for t_n in t_ns:
+            for t_co in t_cos:
+                for t_ci in t_cis:
+                    yield t, t_n, t_co, t_ci
+
+
+def _a_conflicts(tw: int, t_n: int, win_w: int, win_h: int) -> float:
+    """Shared-memory wavefronts of one A-fragment load: the most of its 8
+    rows (consecutive output pixels of a phase) whose window pixels meet
+    mod 8, the channel stride being 4 mod 8 words."""
+    th = max(1, 16 // max(tw, 1))
+    pix = [((n * win_h + (r // tw)) * win_w + r % tw) % 8
+           for n in range(t_n) for r in range(min(th, 16) * tw)][:8]
+    return float(max(pix.count(p) for p in set(pix)))
+
+
+def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
+            t_ci: int):
+    """Modelled SM clocks of one "tc" launch at these tiles, or None where
+    the kernel does not take them.
+
+    Per block and CI chunk: the instructions its warps issue (fragment
+    loads, the 3xTF32 splits, the mma, one bulk copy per staged input and
+    weight row) against the SMs' issue rate, its mma against the tensor
+    cores' rate, its staged bytes against L2, and one copy latency divided
+    by the stages in flight.  Blocks resident on one SM share its rates;
+    the grid runs in waves; a split adds its cluster reduction."""
+    s = geom.stride
+    pix = t_n * (t // s) ** 2
+    if block_threads(s, t, t, t_co, t_n) > KERNEL_MAX_THREADS:
+        return None
+    threads = launch_threads(s, t, t, t_co, t_n)
+    ohp, owp = _round_up(geom.out_h, t), _round_up(geom.out_w, t)
+    cip = _round_up(geom.c_in, t_ci)
+    n_chunks = cip // t_ci
+    blocks = grid_blocks(geom, batch, t, t_co, t_n)
+    split = ci_split(blocks, n_chunks)
+    stages, smem = tc_smem_layout(geom.in_h, geom.in_w, geom.kernel, s,
+                                  geom.padding, ohp, owp, t, t, t_ci, t_co,
+                                  t_n, split)
+    if smem > KERNEL_MAX_SMEM:
+        return None
+    rows_h, taps_h = staged_window(geom.in_h, ohp, t, geom.kernel, s,
+                                   geom.padding)
+    rows_w, taps_w = staged_window(geom.in_w, owp, t, geom.kernel, s,
+                                   geom.padding)
+    wm, wn = tc_warp_tile(pix, t_co)
+    mgroups = -(-(-(-pix // 16)) // wm)
+    ngroups = -(-(-(-t_co // 8)) // wn)
+    warps = s * s * mgroups * ngroups
+    # per chunk: every valid tap is one phase's, over that phase's warps
+    ksteps = taps_h * taps_w * mgroups * ngroups * (t_ci // 8)
+    mma = ksteps * 3 * wm * wn
+    frag = 3 * (4 * wm + 2 * wn)         # loads and splits per k-step
+    # the shared-memory wavefronts of a k-step: B rows are conflict-free,
+    # A rows conflict where a fragment's 8 rows share a bank
+    waves_k = 4 * wm * _a_conflicts(t // s, t_n, rows_w, rows_h) + 2 * wn
+    x_rows = t_n * rows_h * rows_w
+    w_rows = taps_h * taps_w * t_ci
+    copies = (x_rows + w_rows) * COPY_INSTR if t_co % 4 == 0 else \
+        x_rows * COPY_INSTR + w_rows * t_co * COPY4_INSTR
+    instr = mma + ksteps * frag + copies + warps * CHUNK_INSTR
+    staged = 4 * t_ci * (x_rows + taps_h * taps_w * t_co)
+    chunks = -(-n_chunks // split)
+    work = chunks * max(
+        instr / ISSUE_PER_CLK, mma * MMA_CLK, ksteps * waves_k * WAVE_CLK,
+        staged / L2_BYTES_PER_CLK,
+        (x_rows + (w_rows if t_co % 4 == 0 else 0)) * COPY_CLK)
+    chain = chunks * LATENCY_CLK / (stages - 1)
+    per_sm = -(-blocks * split // SMS)
+    resident = max(1, min(per_sm, 2048 // threads,
+                          65536 // (threads * REGS_PER_THREAD),
+                          (KERNEL_MAX_SMEM + 4096) // max(smem, 1)))
+    busy = min(1.0, resident * warps / FULL_WARPS)
+    waves = -(-per_sm // resident)
+    clk = waves * (max(resident * work / busy, chain) + LATENCY_CLK)
+    if split > 1:
+        clk += waves * (REDUCE_CLK
+                        + 4 * s * s * pix * t_co / L2_BYTES_PER_CLK)
+    return clk
+
+
+@functools.lru_cache(maxsize=1024)
+def _tc_tiles(geom: DeconvGeometry, batch: int) -> TileChoice:
+    """The cheapest tiles by `tc_cost` among those whose grid, split
+    included, fills the card's SMs; the cheapest of all where none does."""
+    best = None
+    for t, t_n, t_co, t_ci in _tc_candidates(geom, batch):
+        clk = tc_cost(geom, batch, t, t_n, t_co, t_ci)
+        if clk is None:
+            continue
+        blocks = grid_blocks(geom, batch, t, t_co, t_n)
+        split = ci_split(blocks, _round_up(geom.c_in, t_ci) // t_ci)
+        key = (blocks * split < SMS, clk)
+        if best is None or key < best[0]:
+            best = (key, t, t_n, t_co, t_ci)
+    if best is None:
+        raise ValueError(f"no tile of the tensor-core kernel fits {geom}")
+    _, t, t_n, t_co, t_ci = best
+    return TileChoice(t_oh=t, t_ow=t, t_ci=t_ci, t_co=t_co, t_n=t_n)
+
+
+# -- the FMA kernel -----------------------------------------------------
 def _ci_tile(c_in: int, kernel: int, t_co: int) -> int:
     """Largest CI chunk whose weight slab fits the budget, then, within a
     factor of two of it, the one that pads C_in least (ties: larger)."""
@@ -72,45 +262,32 @@ def _ci_tile(c_in: int, kernel: int, t_co: int) -> int:
     return min(range(lo, cap + 1), key=lambda t: (_round_up(c_in, t), -t))
 
 
-def grid_blocks(geom: DeconvGeometry, batch: int, t: int, t_co: int,
-                t_n: int) -> int:
-    """Thread blocks of one launch at square spatial tile ``t``."""
-    return (-(-batch // t_n) * (-(-geom.out_h // t)) * (-(-geom.out_w // t))
-            * (-(-geom.c_out // t_co)))
-
-
-def hopper_tiles(geom: DeconvGeometry, batch: int = 1) -> TileChoice:
-    """Tiles for one layer at the batch its kernel will see."""
+def _simt_tiles(geom: DeconvGeometry, batch: int) -> TileChoice:
     s = geom.stride
     t_co = min(geom.c_out, MAX_CO_TILE)
     if geom.in_h == geom.in_w == 1:
-        # a 1x1 root: each S-pixel tile has exactly one valid tap (the
-        # kernel skips the taps that read only halo padding)
         t = s
     else:
         t = min(_round_up(geom.out_h, s), _round_up(MAX_SPATIAL, s))
-    while block_threads(s, t, t, t_co, 1) > TARGET_THREADS and t > s:
+
+    def threads(t, t_co, t_n):
+        return block_threads(s, t, t, t_co, t_n, "simt")
+
+    while threads(t, t_co, 1) > TARGET_THREADS and t > s:
         t = max(s, _round_up(t // 2, s))
     while grid_blocks(geom, batch, t, t_co, 1) < SMS and t_co > MIN_CO_TILE:
         t_co = max(MIN_CO_TILE, t_co // 2)
     while grid_blocks(geom, batch, t, t_co, 1) < SMS // 2 and t > s:
         smaller = max(s, _round_up(t // 2, s))
-        if block_threads(s, smaller, smaller, t_co, 1) < MIN_THREADS:
+        if threads(smaller, t_co, 1) < MIN_THREADS:
             break
         t = smaller
     t_ci = _ci_tile(geom.c_in, geom.kernel, t_co)
     t_n = 1
     while (t_n * 2 <= batch
-           and block_threads(s, t, t, t_co, t_n * 2) <= TARGET_THREADS
+           and threads(t, t_co, t_n * 2) <= TARGET_THREADS
            and grid_blocks(geom, batch, t, t_co, t_n * 2) >= SMS
-           and kernel_smem_bytes(geom, t, t, t_ci, t_co, t_n * 2) <= SMEM_TARGET):
+           and kernel_smem_bytes(geom, t, t, t_ci, t_co, t_n * 2,
+                                 "simt") <= SMEM_TARGET):
         t_n *= 2
     return TileChoice(t_oh=t, t_ow=t, t_ci=t_ci, t_co=t_co, t_n=t_n)
-
-
-def fill_tiles(geom: DeconvGeometry, batch: int, **given) -> TileChoice:
-    """The tiles given by name (``t_oh=...``), the ones left out or None
-    taken from `hopper_tiles` at this batch."""
-    return dataclasses.replace(hopper_tiles(geom, batch),
-                               **{f: v for f, v in given.items() if v is not None})
-

@@ -1,15 +1,19 @@
-"""Launcher and plain version of the Hopper reverse-loop deconv kernel.
+"""Launcher and plain version of the Hopper reverse-loop deconv kernels.
 
 ``deconv2d_launch`` takes what the TPU kernel's ``deconv2d_pallas_call``
 took: the host-padded input ``(N, IHp, IWp, CIp)``, weights ``(K, K, CIp,
 COp)``, bias ``(1, COp)``, the layer's `PhasePlan`, the padded output grid
-and the tiles, plus the unpadded input extent ``(ih, iw)`` (the kernel
-skips taps that read only host padding).  It returns the padded output
+and the tiles, plus the unpadded input extent ``(ih, iw)`` (the kernels
+skip taps that read only host padding).  It returns the padded output
 ``(N, OHp, OWp, COp)`` in x's dtype.
 
-* On a CUDA tensor it launches ``csrc/deconv2d.cu`` (built at first use) on
-  the current stream, or raises: on a failed build, a refused launch, or an
-  input the kernel does not take.  There is no fallback.
+* On a CUDA tensor it launches, on the current stream, the fp32
+  tensor-core kernel of ``csrc/deconv2d_tc.cu`` or, for bf16, the FMA
+  kernel of ``csrc/deconv2d.cu`` (both built at first use), or raises: on a
+  failed build, a refused launch, or an input the kernel does not take.
+  There is no fallback.  Where the grid would not fill the card, the fp32
+  kernel splits the CI chunks over the blocks of a cluster
+  (`autotune.ci_split`).
 * On a CPU tensor it runs ``deconv2d_launch_plain``, the same function in
   plain torch (vectorised over the whole padded arrays, not a tile loop).
 
@@ -29,8 +33,10 @@ from ...core.deconv import fp32_exact, phase_products
 from ...core.offsets import PhasePlan, make_phase_plan
 from ...core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_STRIDE,
                             KERNEL_MAX_TAPS, KERNEL_MAX_THREADS,
-                            DeconvGeometry, halo_tile, kernel_smem_bytes,
-                            launch_threads, register_tile)
+                            DeconvGeometry, halo_tile, kernel_for,
+                            kernel_smem_bytes, launch_threads, register_tile,
+                            tc_smem_layout)
+from ..autotune import MAX_SPLIT, ci_split
 
 ACTIVATIONS = (None, "none", "relu", "tanh")
 _ACT_CODE = {None: 0, "none": 0, "relu": 1, "tanh": 2}
@@ -41,11 +47,17 @@ _PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
                  "t_n", "t_oh", "t_ow", "t_ci", "t_co", "t_ih", "t_iw",
                  "base_h", "base_w", "act", "rp", "rc", "dtype", "ih", "iw",
                  "pad_l", "threads")
+# In step with `enum Param` in csrc/deconv2d_tc.cu; the tap table follows.
+_TC_PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
+                    "t_n", "t_oh", "t_ow", "t_ci", "t_co", "t_ih", "t_iw",
+                    "base_h", "base_w", "act", "ih", "iw", "pad_l", "threads",
+                    "split")
 _ARG_ERRORS = {
     -1: "arguments the kernel does not take (geometry, tiles or padding)",
     -2: f"more than {KERNEL_MAX_THREADS} threads per block at these tiles",
     -3: "more shared memory than a block can have at these tiles",
     -4: "no kernel instance for this register tile",
+    -5: "x or w is not 16-byte aligned",
 }
 
 LAUNCHES = 0
@@ -67,18 +79,35 @@ def deconv2d_launch_plain(
     xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, *,
     plan: PhasePlan, ih: int, iw: int, ohp: int, owp: int, t_oh: int,
     t_ow: int, t_ci: int, t_co: int, t_n: int, activation: Optional[str],
+    split: int = 1,
 ) -> torch.Tensor:
     """The kernel's function in plain torch, on the launcher's arguments.
 
     Output phase-row ``t`` of the padded grid reads input row
     ``t + left_halo + delta`` for each tap: exactly the rows the kernel's
     halo window ``j*step + base + local`` reaches.  The tiles only order the
-    kernel's sums, so they do not enter here beyond the checks."""
+    kernel's sums, so they do not enter here beyond the checks.  With
+    ``split`` > 1 the sum is taken as the fp32 kernel's cluster takes it:
+    rank r's partial over the r-th contiguous range of the CI chunks, the
+    partials added in rank order, then the bias."""
     _check_shapes(tuple(xp.shape), tuple(wp.shape), plan, ih, iw, ohp, owp,
                   t_oh, t_ow, t_ci, t_co, t_n)
     fp32_exact(xp.device)
     s = plan.stride
-    y = phase_products(xp, wp, plan, ohp // s, owp // s, bp.reshape(-1))
+    n_ci = xp.shape[3] // t_ci
+    if not 1 <= split <= n_ci:
+        raise ValueError(f"split {split} over {n_ci} CI chunks")
+    if split == 1:
+        y = phase_products(xp, wp, plan, ohp // s, owp // s, bp.reshape(-1))
+    else:
+        zero = torch.zeros_like(bp.reshape(-1))
+        y = None
+        for r in range(split):
+            c0, c1 = (r * n_ci // split) * t_ci, ((r + 1) * n_ci // split) * t_ci
+            part = phase_products(xp[..., c0:c1], wp[:, :, c0:c1], plan,
+                                  ohp // s, owp // s, zero)
+            y = part if y is None else y + part
+        y = y + bp.reshape(-1).float()
     return apply_activation(y, activation).to(xp.dtype)
 
 
@@ -122,6 +151,14 @@ def _tap_words(plan: PhasePlan) -> list:
     return counts + ks + local
 
 
+def launch_split(n: int, cip: int, cop: int, ohp: int, owp: int, t_oh: int,
+                 t_ow: int, t_ci: int, t_co: int, t_n: int) -> int:
+    """Blocks of a cluster that share one output tile's CI chunks in the
+    fp32 kernel's launch at these padded extents and tiles."""
+    blocks = (n // t_n) * (ohp // t_oh) * (owp // t_ow) * (cop // t_co)
+    return ci_split(blocks, cip // t_ci)
+
+
 def deconv2d_launch(
     xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, *,
     plan: PhasePlan, ih: int, iw: int, ohp: int, owp: int, t_oh: int,
@@ -141,29 +178,41 @@ def _launch_cuda(xp, wp, bp, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co,
     if xp.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"deconv2d kernel takes float32 or bfloat16, got "
                         f"{xp.dtype}")
+    xp, wp = aligned(xp), aligned(wp)
     params = launch_params(xp, wp, [("b", bp, xp.dtype)], plan=plan, ih=ih,
                            iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
                            t_ci=t_ci, t_co=t_co, t_n=t_n,
                            activation=activation)
     y = torch.empty((xp.shape[0], ohp, owp, wp.shape[3]), dtype=xp.dtype,
                     device=xp.device)
+    args = (xp.data_ptr(), wp.data_ptr(), bp.data_ptr(), y.data_ptr(),
+            params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     with torch.cuda.device(xp.device):
-        rc = library().deconv2d_forward(
-            xp.data_ptr(), wp.data_ptr(), bp.data_ptr(), y.data_ptr(),
-            params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if xp.dtype == torch.float32:
+            rc = tc_library().deconv2d_tc_forward(*args, stream)
+        else:
+            rc = library().deconv2d_forward(*args, stream)
     check_rc("deconv2d", rc)
     LAUNCHES += 1
     return y
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    fp32 kernel stages whole 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
                   t_co, t_n, activation) -> np.ndarray:
-    """Check one launch's tensors and return its int32 parameter array.
+    """Check one launch's tensors and return its int32 parameter array, for
+    the kernel that runs x's dtype (`core.tiling.kernel_for`).
 
     ``others`` lists ``(name, tensor, dtype)`` of the per-channel vectors
     (bias, scale) that must hold one value per padded output channel.
-    Shared by the three kernels of ``csrc/deconv2d.cu``."""
+    Shared by the kernels of ``csrc/deconv2d.cu`` and
+    ``csrc/deconv2d_tc.cu``."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
     if xp.device.type != "cuda":
@@ -180,10 +229,11 @@ def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
         if not t.is_contiguous() or t.numel() != wp.shape[3]:
             raise ValueError(f"{name} has {t.numel()} values for "
                              f"{wp.shape[3]} output channels")
-    return _launch_params(tuple(xp.shape), tuple(wp.shape), plan.kernel_size,
-                          plan.stride, plan.padding, ih, iw, ohp, owp, t_oh,
-                          t_ow, t_ci, t_co, t_n, _ACT_CODE[activation],
-                          _DTYPE_CODE[xp.dtype])
+    fn = (_tc_launch_params if kernel_for(xp.dtype) == "tc"
+          else _launch_params)
+    return fn(tuple(xp.shape), tuple(wp.shape), plan.kernel_size, plan.stride,
+              plan.padding, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co, t_n,
+              _ACT_CODE[activation], _DTYPE_CODE[xp.dtype])
 
 
 def check_rc(name: str, rc: int) -> None:
@@ -193,32 +243,39 @@ def check_rc(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
-@functools.lru_cache(maxsize=256)
-def _launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
-                   t_ci, t_co, t_n, act, dtype) -> np.ndarray:
-    """The kernel's int32 parameter array for one launch shape, checked
-    once per shape and tiles (a serving engine launches a handful of
-    shapes over and over).  Read-only: every caller shares it."""
+def _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
+                   t_ci, t_co, t_n, act) -> dict:
     plan = make_phase_plan(k, s, p)
     _check_shapes(x_shape, w_shape, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
                   t_co, t_n)
-    n, ihp, iwp, cip = x_shape
-    cop = w_shape[3]
     if s > KERNEL_MAX_STRIDE:
         raise ValueError(f"stride {s} > {KERNEL_MAX_STRIDE} is not supported")
+    n, ihp, iwp, cip = x_shape
     ht_h = halo_tile(t_oh, k, s, p)
     ht_w = halo_tile(t_ow, k, s, p)
+    return dict(n=n, ihp=ihp, iwp=iwp, cip=cip, k=k, cop=w_shape[3], ohp=ohp,
+                owp=owp, s=s, t_n=t_n, t_oh=t_oh, t_ow=t_ow, t_ci=t_ci,
+                t_co=t_co, t_ih=ht_h.extent, t_iw=ht_w.extent,
+                base_h=ht_h.base, base_w=ht_w.base, act=act, ih=ih, iw=iw,
+                pad_l=plan.left_halo)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
+                   t_ci, t_co, t_n, act, dtype) -> np.ndarray:
+    """The FMA kernel's int32 parameter array for one launch shape, checked
+    once per shape and tiles (a serving engine launches a handful of
+    shapes over and over).  Read-only: every caller shares it."""
+    fields = _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh,
+                            t_ow, t_ci, t_co, t_n, act)
     rp, rc = register_tile(t_co)
-    fields = dict(n=n, ihp=ihp, iwp=iwp, cip=cip, k=k, cop=cop, ohp=ohp,
-                  owp=owp, s=s, t_n=t_n, t_oh=t_oh, t_ow=t_ow, t_ci=t_ci,
-                  t_co=t_co, t_ih=ht_h.extent, t_iw=ht_w.extent,
-                  base_h=ht_h.base, base_w=ht_w.base, act=act, rp=rp, rc=rc,
-                  dtype=dtype, ih=ih, iw=iw, pad_l=plan.left_halo,
-                  threads=launch_threads(s, t_oh, t_ow, t_co, t_n))
-    params = np.array([fields[f] for f in _PARAM_FIELDS] + _tap_words(plan),
-                      dtype=np.int32)
-    want = kernel_smem_bytes(DeconvGeometry(1, 1, cip, cop, k, s, p), t_oh,
-                             t_ow, t_ci, t_co, t_n)
+    fields.update(rp=rp, rc=rc, dtype=dtype,
+                  threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "simt"))
+    params = np.array([fields[f] for f in _PARAM_FIELDS]
+                      + _tap_words(make_phase_plan(k, s, p)), dtype=np.int32)
+    want = kernel_smem_bytes(DeconvGeometry(1, 1, x_shape[3], w_shape[3], k,
+                                            s, p), t_oh, t_ow, t_ci, t_co,
+                             t_n, "simt")
     got = library().deconv2d_smem_bytes(
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     if got != want:
@@ -228,43 +285,106 @@ def _launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
     return params
 
 
-_lib: Optional[ctypes.CDLL] = None
+@functools.lru_cache(maxsize=256)
+def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
+                      t_ci, t_co, t_n, act, dtype) -> np.ndarray:
+    """The fp32 kernel's int32 parameter array for one launch shape (split
+    included), checked once per shape and tiles.  Read-only."""
+    fields = _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh,
+                            t_ow, t_ci, t_co, t_n, act)
+    if t_ci % 8:
+        raise ValueError(f"t_ci={t_ci}: the fp32 kernel takes CI chunks of a "
+                         "multiple of 8 channels")
+    split = launch_split(x_shape[0], x_shape[3], w_shape[3], ohp, owp, t_oh,
+                         t_ow, t_ci, t_co, t_n)
+    fields.update(threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "tc"),
+                  split=split)
+    params = np.array([fields[f] for f in _TC_PARAM_FIELDS]
+                      + _tap_words(make_phase_plan(k, s, p)), dtype=np.int32)
+    got = tc_library().deconv2d_tc_smem_bytes(
+        params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    check_rc("deconv2d", min(got, 0))
+    want = tc_smem_layout(ih, iw, k, s, p, ohp, owp, t_oh, t_ow, t_ci, t_co,
+                          t_n, split)[1]
+    if got != want:
+        raise RuntimeError(f"deconv2d fp32 kernel: shared-memory model says "
+                           f"{want} bytes, the kernel {got}")
+    params.flags.writeable = False
+    return params
+
+
+_libs = {}
+
+
+def _load(name: str, limits: tuple, n_limits: int) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        from .._build import load
+
+        lib = load(name)
+        fn = getattr(lib, f"{name}_limits")
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
+        got = (ctypes.c_int * n_limits)()
+        fn(got)
+        if tuple(got) != limits:
+            raise RuntimeError(f"{name} kernel: its launch limits {tuple(got)}"
+                               f" are not core.tiling's {limits}")
+        _libs[name] = lib
+    return lib
+
+
+_LIMITS = (KERNEL_MAX_STRIDE, KERNEL_MAX_TAPS, KERNEL_MAX_THREADS,
+           KERNEL_MAX_SMEM)
 
 
 def library() -> ctypes.CDLL:
-    """The library of ``csrc/deconv2d.cu`` (the dense, int8 and zero-skip
-    kernels), built at first use; its launch limits are checked against
-    ``core.tiling``'s."""
-    global _lib
-    if _lib is None:
-        from .._build import load
-
-        lib = load("deconv2d")
+    """The library of ``csrc/deconv2d.cu`` (the bf16 dense and zero-skip
+    kernels and the int8 kernel), built at first use; its launch limits
+    are checked against ``core.tiling``'s."""
+    if "deconv2d" not in _libs:
+        lib = _load("deconv2d", _LIMITS, 4)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         params = ctypes.POINTER(ctypes.c_int)
         lib.deconv2d_forward.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
         lib.deconv2d_int8_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, params,
                                               f32, i32, ptr]
         lib.deconv2d_sparse_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                                ptr, i32, params, ptr]
+                                                ptr, i32, i32, params, ptr]
         for fn in (lib.deconv2d_forward, lib.deconv2d_int8_forward,
                    lib.deconv2d_sparse_forward):
             fn.restype = ctypes.c_int
         lib.deconv2d_smem_bytes.argtypes = [params]
         lib.deconv2d_smem_bytes.restype = ctypes.c_longlong
-        lib.deconv2d_limits.argtypes = [params]
-        lib.deconv2d_limits.restype = None
-        got = (ctypes.c_int * 4)()
-        lib.deconv2d_limits(got)
-        want = (KERNEL_MAX_STRIDE, KERNEL_MAX_TAPS, KERNEL_MAX_THREADS,
-                KERNEL_MAX_SMEM)
-        if tuple(got) != want:
-            raise RuntimeError(f"deconv2d kernel: its launch limits {tuple(got)}"
-                               f" are not core.tiling's {want}")
-        _lib = lib
-    return _lib
+    return _libs["deconv2d"]
 
 
-def build() -> None:
-    """Build and load the kernel library now (``chip_smoke.py`` times it)."""
+def tc_library() -> ctypes.CDLL:
+    """The library of ``csrc/deconv2d_tc.cu`` (the fp32 dense and
+    zero-skip kernels on the tensor cores), built at first use; its launch
+    limits are checked against ``core.tiling``'s and ``autotune``'s."""
+    if "deconv2d_tc" not in _libs:
+        lib = _load("deconv2d_tc", _LIMITS + (MAX_SPLIT,), 5)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        params = ctypes.POINTER(ctypes.c_int)
+        lib.deconv2d_tc_forward.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
+        lib.deconv2d_tc_sparse_forward.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                                   ptr, ptr, i32, i32, params,
+                                                   ptr]
+        for fn in (lib.deconv2d_tc_forward, lib.deconv2d_tc_sparse_forward):
+            fn.restype = ctypes.c_int
+        lib.deconv2d_tc_smem_bytes.argtypes = [params]
+        lib.deconv2d_tc_smem_bytes.restype = ctypes.c_longlong
+    return _libs["deconv2d_tc"]
+
+
+def build() -> dict:
+    """Build both kernel libraries now, one ``nvcc`` each, started together
+    (``chip_smoke.py`` times it), and load them.  Returns the compiler's
+    per-kernel resource report (`_build.ptxas_report`) per library."""
+    from .._build import build_all, ptxas_report
+
+    build_all(("deconv2d", "deconv2d_tc"))
     library()
+    tc_library()
+    return {name: ptxas_report(name) for name in ("deconv2d", "deconv2d_tc")}

@@ -107,7 +107,8 @@ def resolve_call(plan, x, w, backend, fn_name, stride, padding, activation,
     """``(stride, padding, (t_oh, t_ow, t_ci, t_co, t_n), activation)`` of
     one call: all from ``plan`` (an explicit ``activation`` overrides the
     plan's), or ``stride``/``padding`` as given with the tiles left out
-    filled by `autotune.hopper_tiles` at this batch."""
+    filled by `autotune.hopper_tiles` at this batch, for the kernel that
+    runs x's dtype."""
     if plan is not None:
         check_layer_plan(plan, x, w, backend, fn_name)
         t = plan.tiles
@@ -122,7 +123,7 @@ def resolve_call(plan, x, w, backend, fn_name, stride, padding, activation,
         n, ih, iw, ci = x.shape
         k, _, _, co = w.shape
         c = fill_tiles(DeconvGeometry(ih, iw, ci, co, k, stride, padding), n,
-                       **dict(zip(("t_oh", "t_ow", "t_ci", "t_co", "t_n"),
+                       x.dtype, **dict(zip(("t_oh", "t_ow", "t_ci", "t_co", "t_n"),
                                   tiles)))
         tiles = (c.t_oh, c.t_ow, c.t_ci, c.t_co, c.t_n)
     return stride, padding, tiles, activation

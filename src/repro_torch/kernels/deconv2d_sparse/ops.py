@@ -55,9 +55,9 @@ def deconv2d_sparse(
     With ``plan`` (a `repro_torch.plan.DeconvPlan` for backend
     "cuda_sparse"), stride, padding, tiles, activation and the schedule
     come from the plan.  ``schedule`` gives the ``make_sparse_plan`` tables
-    (numpy, or int32 tensors already on x's device, which are then not
-    copied); without either, the schedule is built here from ``w`` at the
-    tiles, which the caller gives or the Hopper heuristic fills."""
+    (packed here), or a packed `kernel.Schedule` (already on x's device, it
+    is not copied); without either, the schedule is built here from ``w``
+    at the tiles, which the caller gives or the Hopper heuristic fills."""
     stride, padding, tiles, activation = resolve_call(
         plan, x, w, "cuda_sparse", "deconv2d_sparse", stride, padding,
         activation, (t_oh, t_ow, t_ci, t_co, t_n))

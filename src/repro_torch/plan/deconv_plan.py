@@ -170,7 +170,7 @@ def build_layer_plan(
     sparse_cache_key=None,
 ) -> DeconvPlan:
     """Resolve one layer's `DeconvPlan`; tiles come from the Hopper
-    heuristic.  Non-tiled backends ("reverse_loop", "cudnn") get
+    heuristic of the kernel that runs ``dtype``.  Non-tiled backends ("reverse_loop", "cudnn") get
     ``tiles=None``.
 
     ``weights`` (the pruned static weights) build the zero-skip schedule
@@ -182,7 +182,7 @@ def build_layer_plan(
     if backend not in TILED_BACKENDS:
         return DeconvPlan(geometry=geom, batch=batch, dtype=dtype_name,
                           backend=backend, activation=activation)
-    tiles = hopper_tiles(geom, batch=batch)
+    tiles = hopper_tiles(geom, batch=batch, dtype=dtype_name)
     sparse_tables = digest = None
     if backend == "cuda_sparse" and weights is not None:
         from ..kernels.deconv2d_sparse import make_sparse_plan

@@ -121,7 +121,8 @@ class NetworkPlan:
     def for_hopper(self, params=None) -> "NetworkPlan":
         """This plan for the H100 kernels: the backend mapped to its
         counterpart here and every tiled layer's tiles re-resolved by
-        `autotune.hopper_tiles`; epilogues, int8 scales and the rest kept.
+        `autotune.hopper_tiles` for the kernel that runs the layer's dtype;
+        epilogues, int8 scales and the rest kept.
 
         A zero-skip plan's schedules were built at the TPU's channel tiles,
         so they are rebuilt (tables and digest) at the Hopper tiles from

@@ -4,12 +4,14 @@ without a card).  Run on a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances as in the CPU tests: fp32 1e-4, bf16 8e-2; the int8 kernel's
-int8 outputs equal its plain version's bit for bit, f32 ones within 1e-6."""
+int8 outputs equal its plain version's bit for bit, f32 ones within 1e-6;
+the fp32 kernel's repeated launches equal each other bit for bit."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.sparsity import magnitude_prune, prune_tree
+from repro_torch.kernels.autotune import hopper_tiles
 from repro_torch.kernels.deconv2d import int8 as int8_kernel
 from repro_torch.kernels.deconv2d import kernel as deconv_kernel
 from repro_torch.kernels.deconv2d.ops import deconv2d, launch_args
@@ -41,7 +43,7 @@ def test_kernel_matches_plain_version(card, geom, dtype, rng):
     w = torch.from_numpy((rng.randn(k, k, ci, co) * 0.1).astype(np.float32))
     b = torch.from_numpy((rng.randn(co) * 0.1).astype(np.float32))
     xp, wp, bp, kw, _ = launch_args(x.to(card, dtype), w.to(card, dtype),
-                                    b.to(card, dtype), s, p, t, t, 4, 8, 2,
+                                    b.to(card, dtype), s, p, t, t, 8, 8, 2,
                                     "tanh")
     before = deconv_kernel.LAUNCHES
     y = deconv_kernel.deconv2d_launch(xp, wp, bp, **kw)
@@ -108,9 +110,9 @@ def test_sparse_kernel_matches_plain_version(card, geom, dtype, rng):
     w[:, :, : ci // 2] = 0.0
     b = torch.from_numpy((rng.randn(co) * 0.1).astype(np.float32))
     xp, wp, bp, kw, _ = launch_args(x.to(card, dtype), w.to(card, dtype),
-                                    b.to(card, dtype), s, p, t, t, 4, 8, 2,
+                                    b.to(card, dtype), s, p, t, t, 8, 8, 2,
                                     "tanh")
-    sched = schedule_tensors(make_sparse_plan(w, s, p, 4, 8), card)
+    sched = schedule_tensors(make_sparse_plan(w, s, p, 8, 8), card)
     before = sparse_kernel.LAUNCHES
     y = sparse_kernel.deconv2d_sparse_launch(xp, wp, bp, *sched, **kw)
     torch.cuda.synchronize()
@@ -149,3 +151,59 @@ def test_int8_and_sparse_engines_launch_their_kernel(card, kind):
                                     backend="reverse_loop")
         np.testing.assert_allclose(y, want.cpu().numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "zero_skip"])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_tc_kernel_at_each_cluster_split(card, split, sparse, rng):
+    """One 16x16 output tile and 64 channels: the grid is one block, so the
+    split is the CI chunks' count (8 channels each), up to 8.  The fp32
+    kernel against its plain version, zero-skip on hand-zeroed slabs, and
+    two launches bit-identical."""
+    ci = 8 * split if split > 1 else 8
+    x = torch.from_numpy(rng.randn(1, 8, 8, ci).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.randn(4, 4, ci, 64) * 0.1).astype(np.float32))
+    if sparse:
+        w[:, :, : ci // 2] = 0.0
+        w[1] = 0.0
+    w = w.to(card)
+    b = torch.from_numpy((rng.randn(64) * 0.1).astype(np.float32)).to(card)
+    xp, wp, bp, kw, _ = launch_args(x, w, b, 2, 1, 16, 16, 8, 64, 1, "relu")
+    assert deconv_kernel.launch_split(1, ci, 64, 16, 16, 16, 16, 8, 64,
+                                      1) == split
+    if sparse:
+        sched = schedule_tensors(make_sparse_plan(w, 2, 1, 8, 64), card)
+        run = lambda: sparse_kernel.deconv2d_sparse_launch(  # noqa: E731
+            xp, wp, bp, *sched, **kw)
+        want = sparse_kernel.deconv2d_sparse_launch_plain(xp, wp, bp, *sched,
+                                                          **kw)
+    else:
+        run = lambda: deconv_kernel.deconv2d_launch(xp, wp, bp, **kw)  # noqa: E731
+        want = deconv_kernel.deconv2d_launch_plain(xp, wp, bp, split=split,
+                                                   **kw)
+    y0, y1 = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1)
+    torch.testing.assert_close(y0, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cfg,layer", [(dcnn.MNIST_DCNN, 2),
+                                       (dcnn.CELEBA_DCNN, 4)],
+                         ids=["mnist_l2", "celeba_l4"])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_tc_kernel_on_thin_tanh_layers(card, cfg, layer, batch, rng):
+    """The 1- and 3-channel tanh layers at their fp32 tiles: zero-padded
+    weight columns in shared memory, stores masked to the real channels."""
+    g = cfg.geometries()[layer]
+    t = hopper_tiles(g, batch)
+    x = torch.from_numpy(rng.randn(batch, g.in_h, g.in_w, g.c_in)
+                         .astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.randn(4, 4, g.c_in, g.c_out) * 0.05)
+                         .astype(np.float32)).to(card)
+    xp, wp, bp, kw, _ = launch_args(x, w, None, g.stride, g.padding,
+                                    *t.as_kwargs().values(), "tanh")
+    assert wp.shape[3] == g.c_out
+    y = deconv_kernel.deconv2d_launch(xp, wp, bp, **kw)
+    torch.cuda.synchronize()
+    want = deconv_kernel.deconv2d_launch_plain(xp, wp, bp, **kw)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)

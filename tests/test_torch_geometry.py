@@ -99,22 +99,55 @@ def test_output_macs_count_the_products_that_reach_the_output(k, s):
 
 
 def test_kernel_smem_bytes_counts_padded_window_and_slab():
-    """The shared-memory model: t_n halo windows with a channel stride of
-    t_ci + 1 words, plus the K x K x t_ci x t_co weight slab, in f32."""
+    """The shared-memory models.  fp32 ("tc"): per ring stage the staged
+    windows of t_n images with a channel stride of t_ci + 4 words, plus
+    the weight rows of the block's valid taps at a stride of 8 mod 16
+    words; as many stages (2..4) as 100 KB holds; under a cluster split at
+    least the partial tile.  "simt": t_n Eq. 5 windows with a channel
+    stride of t_ci + 1 words, plus the K x K x t_ci x t_co weight slab."""
     g = t_tiling.DeconvGeometry(8, 8, 512, 256, 4, 2, 1)
     ht = t_tiling.halo_tile(8, 4, 2, 1)
-    assert t_tiling.kernel_smem_bytes(g, 8, 8, 16, 64, t_n=2) == \
+    # every 8x8 tile of the 16x16 output stages a 6x6 window and 2x2 taps
+    # per phase, 16 in all; 64 channels in rows of 72 words
+    assert t_tiling.staged_window(8, 16, 8, 4, 2, 1) == (ht.extent, 4)
+    assert t_tiling.tc_weight_stride(64) == 72
+    stage = 4 * (2 * 6 * 6 * 20 + 16 * 16 * 72)
+    assert t_tiling.kernel_smem_bytes(g, 8, 8, 16, 64, t_n=2) == 2 * stage
+    # t_ci = 8, t_co = 32 (rows of 40 words): four stages fit 100 KB
+    stage = 4 * (2 * 6 * 6 * 12 + 16 * 8 * 40)
+    assert t_tiling.kernel_smem_bytes(g, 8, 8, 8, 32, t_n=2) == 4 * stage
+    # a 1x1 root stages one pixel and one tap of K*K per 1-pixel tile
+    root = t_tiling.DeconvGeometry(1, 1, 100, 256, 7, 1, 0)
+    assert t_tiling.staged_window(1, 7, 1, 7, 1, 0) == (1, 1)
+    stage = 4 * (4 * 12 + 8 * 72)
+    assert t_tiling.kernel_smem_bytes(root, 1, 1, 8, 64, t_n=4) == 4 * stage
+    # under a split the partial tile (here 4 images x 64 channels) shares
+    # the ring's memory; at 64 images x 128 channels it needs more
+    assert t_tiling.kernel_smem_bytes(root, 1, 1, 8, 64, t_n=4, split=2) == \
+        4 * stage
+    assert 4 * 4 * (64 * 12 + 8 * 136) < 4 * 64 * 128 == \
+        t_tiling.kernel_smem_bytes(root, 1, 1, 8, 128, t_n=64, split=2)
+    # the FMA kernel's model (bf16, int8)
+    assert t_tiling.kernel_smem_bytes(g, 8, 8, 16, 64, 2, "simt") == \
         4 * (2 * ht.extent * ht.extent * 17 + 16 * 16 * 64)
     # the window's words round up to 16 bytes: 13 * 13 * 6 = 1014 -> 1016
-    root = t_tiling.DeconvGeometry(1, 1, 100, 256, 7, 1, 0)
-    assert t_tiling.kernel_smem_bytes(root, 7, 7, 5, 64) == \
+    assert t_tiling.kernel_smem_bytes(root, 7, 7, 5, 64, 1, "simt") == \
         4 * (1016 + 49 * 5 * 64)
 
 
 def test_block_threads_cover_every_phase():
-    # S=2, wide: 4 phases x ceil(16 pixels / 4) x ceil(64 channels / 8)
-    assert t_tiling.block_threads(2, 8, 8, 64, 1) == 4 * 4 * 8
-    # middle: 4 x 2 register tiles
-    assert t_tiling.block_threads(3, 9, 9, 8, 1) == 9 * 3 * 4
-    # thin tanh layer: one channel per thread
-    assert t_tiling.block_threads(2, 16, 16, 1, 1) == 4 * 16 * 1
+    # fp32, S=2, wide: 4 phases x one m16 tile x two 32-channel warp tiles
+    assert t_tiling.block_threads(2, 8, 8, 64, 1) == 32 * 4 * 1 * 2
+    # 9 phases of 9 pixels (one m16 tile), 8 channels (one n8 tile)
+    assert t_tiling.block_threads(3, 9, 9, 8, 1) == 32 * 9
+    # thin tanh layer: 64 pixels per phase in two 32-row warp tiles, one
+    # channel in an n8 tile
+    assert t_tiling.block_threads(2, 16, 16, 1, 1) == 32 * 4 * 2
+    assert t_tiling.tc_warp_tile(64, 1) == (2, 1)
+    assert t_tiling.launch_threads(1, 1, 1, 8, 1) == 128
+    # the FMA kernel: S=2, wide: 4 phases x ceil(16 pixels / 4) x
+    # ceil(64 channels / 8); middle: 4 x 2 register tiles; thin: one
+    # channel per thread
+    assert t_tiling.block_threads(2, 8, 8, 64, 1, "simt") == 4 * 4 * 8
+    assert t_tiling.block_threads(3, 9, 9, 8, 1, "simt") == 9 * 3 * 4
+    assert t_tiling.block_threads(2, 16, 16, 1, 1, "simt") == 4 * 16 * 1

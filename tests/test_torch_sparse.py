@@ -123,15 +123,18 @@ def test_plain_version_honours_the_schedule(rng):
     w = torch.from_numpy(rng.randn(4, 4, 8, 8).astype(np.float32))
     xp, wp, bp, kw, crop = launch_args(x, w, None, 2, 1, 4, 4, 4, 4, 1,
                                        None)
-    ci_idx, valid, tap_mask = schedule_tensors(
-        make_sparse_plan(w, 2, 1, 4, 4), "cpu")
-    full = deconv2d_sparse_launch(xp, wp, bp, ci_idx, valid, tap_mask, **kw)
-    dropped = valid.clone()
+    ci_idx, valid, tap_mask = make_sparse_plan(w, 2, 1, 4, 4)
+    full = deconv2d_sparse_launch(
+        xp, wp, bp, *schedule_tensors((ci_idx, valid, tap_mask), "cpu"), **kw)
+    dropped = valid.copy()
     dropped[1, 0] = 0
-    part = deconv2d_sparse_launch(xp, wp, bp, ci_idx, dropped, tap_mask, **kw)
-    masked = tap_mask.clone()
+    part = deconv2d_sparse_launch(
+        xp, wp, bp, *schedule_tensors((ci_idx, dropped, tap_mask), "cpu"),
+        **kw)
+    masked = tap_mask.copy()
     masked[0, 1, 5] = 0
-    one_tap = deconv2d_sparse_launch(xp, wp, bp, ci_idx, valid, masked, **kw)
+    one_tap = deconv2d_sparse_launch(
+        xp, wp, bp, *schedule_tensors((ci_idx, valid, masked), "cpu"), **kw)
     for y in (part, one_tap):
         assert float((y - full).abs().max()) > 1e-3
     # channels of the other CO tile do not move
@@ -148,7 +151,8 @@ def test_schedule_for_other_channel_tiles_is_refused(rng):
     tabs = schedule_tensors(make_sparse_plan(w, 2, 1, 4, 4), "cpu")
     with pytest.raises(ValueError, match="do not fit"):
         sparse_kernel.deconv2d_sparse_launch_plain(
-            xp, wp, bp, tabs[0], tabs[1], tabs[2][..., :4], **kw)
+            xp, wp, bp, tabs.count, tabs.ci,
+            torch.cat([tabs.bits, tabs.bits], -1), **kw)
 
 
 @pytest.mark.parametrize("s", [0.5, 0.9])
