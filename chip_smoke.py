@@ -5,9 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Three kernels, one per TPU kernel of the JAX package: B1 the dense
 reverse-loop deconv (fp32/bf16), B2 the int8 one with its requant epilogue,
-B3 the zero-skip one.  fp32 B1 and B3 run on the tensor cores (3xTF32 mma,
-bulk-copy staging, cluster split of the CI reduction) in
-src/repro_torch/csrc/deconv2d_tc.cu; bf16 B1/B3 and B2 on the FMA kernel of
+B3 the zero-skip one.  fp32 B1 and B3 (3xTF32 mma) and B2 (s8 mma into
+exact int32 sums, weights packed CI-minor) run on the tensor cores, with
+bulk-copy staging and a cluster split of the CI reduction, in
+src/repro_torch/csrc/deconv2d_tc.cu; bf16 B1/B3 on the FMA kernel of
 src/repro_torch/csrc/deconv2d.cu.
 
 Phases (any failure raises and the exit code is non-zero):
@@ -19,26 +20,29 @@ Phases (any failure raises and the exit code is non-zero):
     sweep, ragged and batch-tiled shapes, several CI chunks, and every
     layer of both generators at buckets 1 and 64.  B1 fp32 tol 1e-4, bf16
     8e-2; B2 int8 outputs bit-equal, f32 outputs 1e-6, with real requant
-    scales on the generator layers; B3 as B1, under magnitude pruning at
-    0.5 / 0.9 / 0.97 and hand-zeroed slabs, and some case must skip slabs;
-    then B1 and B3 launched twice on the same inputs at every generator
-    layer at bucket 1 must give bit-identical outputs (the cluster split
-    sums its partials in rank order, with no atomics);
+    scales on the generator layers, each at its launch's cluster split; B3
+    as B1, under magnitude pruning at 0.5 / 0.9 / 0.97 and hand-zeroed
+    slabs, and some case must skip slabs; then B1, B2 and B3 launched twice
+    on the same inputs at every generator layer at bucket 1 must give
+    bit-identical outputs (the cluster split sums its partials in rank
+    order, with no atomics);
  4. serving, both generators at full width through DcnnServeEngine with
     mixed-size requests, on three paths, each driven with every kernel
     count at 0 just before and read just after: fp32 on "cuda" (held
     against reverse_loop and cudnn), int8 (against the int8 plain chain;
-    MMD against the fp32 images) and "cuda_sparse" on params pruned at 0.9
+    MMD against the fp32 images; weights packed once by the engine) and
+    "cuda_sparse" on params pruned at 0.9
     (against reverse_loop and cudnn on the same params); the path's kernel
     launches == layers x dispatches, the others' 0;
  5. times: per kernel, layer and bucket, device time (CUDA events, median
     of 25, launches queued behind a sleep, with a check that the sleep
     outlasted the host's enqueue) and per-call time against its bound (B1
     and B3: the 3xTF32 rate, a third of the TF32 tensor-core peak, with the
-    bound at the fp32 FMA peak beside it), the plain version's per-call
-    time and the library call's device time where there is one, and each
-    row's cluster split; per net and path, images/s and run-to-run CV from
-    the engine;
+    bound at the fp32 FMA peak beside it; B2: the int8 peak), the plain
+    version's per-call time and the library call's device time where there
+    is one, and each row's cluster split (B2's rows also the registers and
+    spills of the instance they launch); per net and path, images/s and
+    run-to-run CV from the engine;
  6. the kernels line; 7. the result line.
 
 Imports nothing of JAX: only torch, numpy and the port (src/repro_torch).
@@ -60,7 +64,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.core.mmd import mmd  # noqa: E402
 from repro_torch.core.sparsity import magnitude_prune, prune_tree  # noqa: E402
-from repro_torch.core.tiling import DeconvGeometry  # noqa: E402
+from repro_torch.core.tiling import DeconvGeometry, tc_warp_tile  # noqa: E402
 from repro_torch.kernels.autotune import fill_tiles, hopper_tiles  # noqa: E402
 from repro_torch.kernels.deconv2d import int8 as int8_kernel  # noqa: E402
 from repro_torch.kernels.deconv2d import kernel as deconv_kernel  # noqa: E402
@@ -93,7 +97,7 @@ KERNELS = (
      "src/repro/kernels/deconv2d_sparse/kernel.py:57"),
 )
 SOURCES = {"deconv2d_kernel": "src/repro_torch/csrc/deconv2d_tc.cu",
-           "deconv2d_int8_kernel": "src/repro_torch/csrc/deconv2d.cu",
+           "deconv2d_int8_kernel": "src/repro_torch/csrc/deconv2d_tc.cu",
            "deconv2d_sparse_kernel": "src/repro_torch/csrc/deconv2d_tc.cu"}
 
 # (ih, iw, ci, co, k, s, p, t_oh): the JAX package's kernel sweep
@@ -185,9 +189,12 @@ def check_cases(dtype):
                         f"t_n={t_n}", g, batch,
                         fill_tiles(g, batch, dtype, t_oh=t, t_ow=t, t_n=t_n),
                         "tanh"))
-    g = DeconvGeometry(6, 6, 24, 40, 4, 2, 1)
-    out.append(("ci-chunks t_ci=8 t_co=16", g, 3,
-                fill_tiles(g, 3, dtype, t_ci=8, t_co=16), None))
+    # three CI chunks of the kernel's smallest (int8: 32 channels, fp32 and
+    # bf16: 8)
+    t_ci = 32 if dtype == torch.int8 else 8
+    g = DeconvGeometry(6, 6, 3 * t_ci, 40, 4, 2, 1)
+    out.append((f"ci-chunks t_ci={t_ci} t_co=16", g, 3,
+                fill_tiles(g, 3, dtype, t_ci=t_ci, t_co=16), None))
     for cfg in NETS:
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             for batch in (1, 64):
@@ -223,17 +230,19 @@ def check_dense(label, x, w, b, s, p, tiles, activation, results):
 
 def check_int8(label, x, w, sc, b, s, p, tiles, activation, out_scale,
                results):
-    """B2 against its plain version: int8 outputs equal, f32 within
-    INT8_TOL."""
-    xp, wp, sp, bp, kw, _ = int8_kernel.launch_args_int8(
+    """B2 against its plain version at the launch's cluster split: int8
+    outputs equal, f32 outputs within INT8_TOL."""
+    xp, wpk, sp, bp, kw, _ = int8_kernel.launch_args_int8(
         x, w, sc, b, s, p, *tiles.as_kwargs().values(), activation, out_scale)
-    y = int8_kernel.deconv2d_int8_launch(xp, wp, sp, bp, **kw)
+    split = int8_kernel.launch_split_int8(xp, wpk, kw)
+    y = int8_kernel.deconv2d_int8_launch(xp, wpk, sp, bp, **kw)
     torch.cuda.synchronize()
-    y_ref = int8_kernel.deconv2d_int8_launch_plain(xp, wp, sp, bp, **kw)
+    y_ref = int8_kernel.deconv2d_int8_launch_plain(
+        xp, int8_kernel.unpack_int8_weights(wpk), sp, bp, split=split, **kw)
     torch.cuda.synchronize()
     err = disagree(label, y, y_ref, 0.0 if out_scale is not None else INT8_TOL)
     nz = int((y_ref != 0).sum())
-    print(f"  B2 {label} out={'int8' if out_scale else 'f32'} "
+    print(f"  B2 {label} out={'int8' if out_scale else 'f32'} split {split} "
           f"max_abs_err={err:.3e} nonzero={nz}/{y_ref.numel()}", flush=True)
     results.append(err)
 
@@ -425,6 +434,12 @@ def phase_serving():
             imgs = np.concatenate(outputs[cfg.name])
             images[path, cfg.name] = imgs
             if path == "int8":
+                # the engine packed every layer's weight once, on the card
+                if not all(isinstance(eng.params[f"l{i}"]["w_packed"],
+                                      int8_kernel.PackedInt8Weights)
+                           and eng.params[f"l{i}"]["w_packed"].device.type
+                           == "cuda" for i in range(len(cfg.layers))):
+                    raise AssertionError(f"{cfg.name}: int8 weights not packed")
                 ref = quantized_generator_ref(eng.params, cfg, eng.quant_cfg, z)
                 errs = check_images(cfg.name, outputs[cfg.name],
                                     {"int8 plain chain": ref.cpu().numpy()},
@@ -540,12 +555,13 @@ def kept_work(g, tables, t_ci, t_co):
     return macs, weights
 
 
-def phase_bit_identity():
-    """B1 and B3 launched twice on the same inputs at every generator layer
-    at bucket 1 (where the grid splits the CI reduction over clusters)
-    must agree bit for bit."""
+def phase_bit_identity(int8_nets):
+    """B1, B2 and B3 launched twice on the same inputs at every generator
+    layer at bucket 1 (where the grid splits the CI reduction over
+    clusters) must agree bit for bit; B2 on the layer's real int8 input."""
     rng = np.random.default_rng(4)
     for cfg in NETS:
+        q_inputs = int8_layer_inputs(cfg, int8_nets[cfg.name], 1, rng)
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             t = hopper_tiles(g, 1)
             x, w, b = layer_inputs(rng, 1, g.in_h, g.in_w, g.c_in, g.c_out,
@@ -557,9 +573,16 @@ def phase_bit_identity():
                                 *t.as_kwargs().values(), l.activation)
             sparse = launch_args(x, wq, b, g.stride, g.padding,
                                  *t.as_kwargs().values(), l.activation)
+            xq, lq, out_scale = q_inputs[i]
+            t8 = hopper_tiles(g, 1, "int8")
+            qa = int8_kernel.launch_args_int8(
+                xq, lq["w_q"], lq["scale"], lq["b"], g.stride, g.padding,
+                *t8.as_kwargs().values(), l.activation, out_scale)
             runs = {
                 "B1": lambda: deconv_kernel.deconv2d_launch(*dense[:3],
                                                             **dense[3]),
+                "B2": lambda: int8_kernel.deconv2d_int8_launch(*qa[:4],
+                                                               **qa[4]),
                 "B3": lambda: sparse_kernel.deconv2d_sparse_launch(
                     *sparse[:3], *sched, **sparse[3])}
             for name, fn in runs.items():
@@ -570,8 +593,9 @@ def phase_bit_identity():
                     raise AssertionError(f"{name} {cfg.name} l{i} bucket 1: two "
                                          "launches on the same inputs differ")
             print(f"  B1, B3 {cfg.name} l{i} bucket 1 {t.as_kwargs()} split "
-                  f"{split_of(dense)}: repeated launches bit-identical",
-                  flush=True)
+                  f"{split_of(dense)}; B2 {t8.as_kwargs()} split "
+                  f"{int8_kernel.launch_split_int8(qa[0], qa[1], qa[4])}: "
+                  "repeated launches bit-identical", flush=True)
 
 
 def split_of(args):
@@ -582,7 +606,21 @@ def split_of(args):
         kw["t_oh"], kw["t_ow"], kw["t_ci"], kw["t_co"], kw["t_n"])
 
 
-def phase_times(smi, peaks, int8_nets):
+def int8_instance(report, tiles, stride, requant):
+    """(name, registers, spill bytes) from ``ptxas`` of the B2 instance a
+    launch at ``tiles`` runs; registers and spills None where the report
+    lacks it."""
+    pix = tiles.t_n * (tiles.t_oh // stride) * (tiles.t_ow // stride)
+    wm, wn = tc_warp_tile(pix, tiles.t_co)
+    want = (f"deconv2d_tc_int8_kernel<{'true' if requant else 'false'}, "
+            f"{wm}, {wn}>")
+    for r in report.get("deconv2d_tc", []):
+        if want in demangle(r["kernel"]):
+            return want, r["registers"], r["spill_stores"] + r["spill_loads"]
+    return want, None, None
+
+
+def phase_times(smi, peaks, int8_nets, report):
     rng = np.random.default_rng(2)
     rows = []
     torch.backends.cudnn.allow_tf32 = False
@@ -625,15 +663,20 @@ def phase_times(smi, peaks, int8_nets):
                 qa = int8_kernel.launch_args_int8(
                     xq, lq["w_q"], lq["scale"], lq["b"], g.stride, g.padding,
                     *t8.as_kwargs().values(), l.activation, out_scale)
+                split8 = int8_kernel.launch_split_int8(qa[0], qa[1], qa[4])
+                w_ref = int8_kernel.unpack_int8_weights(qa[1])
+                inst, regs, spill = int8_instance(report, t8, g.stride,
+                                                  out_scale is not None)
                 rows.append(time_row(
                     "deconv2d_int8_kernel", cfg, i, batch, t8,
                     lambda: int8_kernel.deconv2d_int8_launch(*qa[:4], **qa[4]),
-                    lambda: int8_kernel.deconv2d_int8_launch_plain(*qa[:4],
-                                                                   **qa[4]),
+                    lambda: int8_kernel.deconv2d_int8_launch_plain(
+                        qa[0], w_ref, *qa[2:4], split=split8, **qa[4]),
                     None, ops, peaks["int8"],
                     n_in + n_w + 8 * g.c_out
                     + n_out * (1 if out_scale is not None else 4),
-                    peaks["bw"], smi, split=1,
+                    peaks["bw"], smi, split=split8, instance=inst,
+                    registers=regs, spill_bytes=spill,
                     library_note="no PyTorch call computes an int8 "
                                  "transposed convolution on CUDA"))
                 # B3: fp32 on weights pruned at the serving level; the bound
@@ -706,13 +749,13 @@ def main() -> int:
     int8_nets = {cfg.name: int8_net(cfg) for cfg in NETS}
     dense, int8, sparse = phase_kernel_checks(int8_nets)
 
-    phase_bit_identity()
+    phase_bit_identity(int8_nets)
 
     print(f"[4] serving (at {time.perf_counter() - t0:.1f} s)", flush=True)
     engines, launches = phase_serving()
 
     print(f"[5] times (at {time.perf_counter() - t0:.1f} s)", flush=True)
-    rows = phase_times(smi, peaks, int8_nets)
+    rows = phase_times(smi, peaks, int8_nets, report)
     phase_end_to_end(engines, smi)
 
     errs = {"deconv2d_kernel": (max(dense[torch.float32]),

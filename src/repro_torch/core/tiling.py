@@ -6,9 +6,9 @@ required per output tile has the *constant* extent of Eq. 5:
 
     T_IH = ceil(T_OH / S) + ceil(K / S)                       (Eq. 5)
 
-independent of the tile position.  In the CUDA kernel (``csrc/deconv2d.cu``)
-one thread block owns one output tile and stages exactly that window in
-shared memory.
+independent of the tile position.  In the CUDA kernels (``csrc/``) one
+thread block owns one output tile and stages that window (or the part of
+it that reads real input) in shared memory.
 
 The geometry half mirrors ``repro.core.tiling``; ``kernel_smem_bytes`` and
 ``block_threads`` describe what the Hopper kernel allocates and launches,
@@ -167,20 +167,26 @@ def _contributions(in_size: int, kernel: int, stride: int,
 
 
 # ---------------------------------------------------------------------------
-# The kernels' resources.  "tc" is the fp32 tensor-core kernel
-# (`csrc/deconv2d_tc.cu`: dense and zero-skip), "simt" the FMA kernel of
-# `csrc/deconv2d.cu` (bf16 dense and zero-skip, int8).  Each function here
+# The kernels' resources.  "tc" is the tensor-core library
+# (`csrc/deconv2d_tc.cu`: the fp32 dense and zero-skip kernels and the int8
+# kernel, whose staged layouts differ by dtype), "simt" the FMA kernel of
+# `csrc/deconv2d.cu` (bf16 dense and zero-skip).  Each function here
 # mirrors the C code that launches the kernel; the launcher checks that the
 # two agree on the shared memory of every launch shape.
 # ---------------------------------------------------------------------------
 KERNELS = ("tc", "simt")
 
 
-def kernel_for(dtype) -> str:
-    """The kernel that runs a layer of ``dtype`` (a torch or numpy dtype, or
-    its name): fp32 on the tensor cores, bf16 and int8 on the FMA kernel."""
+def dtype_name(dtype) -> str:
+    """A torch or numpy dtype, or its name, as "float32", "int8", ...."""
     name = str(dtype).replace("torch.", "")
-    return "tc" if name in ("float32", "fp32") else "simt"
+    return {"fp32": "float32", "bf16": "bfloat16"}.get(name, name)
+
+
+def kernel_for(dtype) -> str:
+    """The kernel that runs a layer of ``dtype``: fp32 and int8 on the
+    tensor cores, bf16 on the FMA kernel."""
+    return "tc" if dtype_name(dtype) in ("float32", "int8") else "simt"
 
 
 def _check_kernel(kernel: str) -> None:
@@ -209,14 +215,28 @@ def tc_warp_tile(pix: int, t_co: int) -> Tuple[int, int]:
     return (2 if mt >= 2 else 1), (4 if nt >= 4 else 2 if nt >= 2 else 1)
 
 
-def tc_weight_stride(t_co: int) -> int:
-    """Words per staged weight row of the "tc" kernel: the channels the
-    warps cover (zero-padded past ``t_co``), then padded so that the row
-    stride is 8 mod 16 words and the four k-rows of a B fragment land on
-    different banks."""
+def tc_columns(t_co: int) -> int:
+    """Output channels the "tc" kernel's warps cover: ``t_co`` rounded up
+    to whole warp tiles of WN n8 columns (the staged weights are zero past
+    ``t_co``)."""
     wn = tc_warp_tile(1, t_co)[1]
-    cols = -(-(-(-t_co // 8)) // wn) * wn * 8
+    return -(-(-(-t_co // 8)) // wn) * wn * 8
+
+
+def tc_weight_stride(t_co: int) -> int:
+    """Words per staged weight row of the fp32 "tc" kernel: `tc_columns`,
+    padded so that the row stride is 8 mod 16 words and the four k-rows of
+    a B fragment land on different banks."""
+    cols = tc_columns(t_co)
     return cols + 8 if cols % 16 == 0 else cols
+
+
+def int8_row_stride(t_ci: int) -> int:
+    """Bytes per staged row of the int8 "tc" kernel (an input pixel's or a
+    (tap, channel)'s ``t_ci`` bytes): t_ci + 16, so that the 8 rows x 4
+    words of an A fragment (consecutive pixels) or a B fragment fall in 32
+    distinct banks at every t_ci the tiles take (32, 64, 128)."""
+    return t_ci + 16
 
 
 def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
@@ -276,20 +296,29 @@ TC_STAGE_BUDGET = 100 * 1024   # the ring holds as many stages (2..4) as fit
 
 def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
                    padding: int, ohp: int, owp: int, t_oh: int, t_ow: int,
-                   t_ci: int, t_co: int, t_n: int,
-                   split: int = 1) -> Tuple[int, int]:
-    """(stages, bytes) of the "tc" kernel's dynamic shared memory.
+                   t_ci: int, t_co: int, t_n: int, split: int = 1,
+                   dtype="float32") -> Tuple[int, int]:
+    """(stages, bytes) of the "tc" kernels' dynamic shared memory.
 
-    One stage holds a CI chunk: the staged windows of the ``t_n`` images,
-    ``(t_n, rows_h, rows_w, t_ci + 4)`` words (channel stride t_ci + 4, so
-    the eight rows of an A fragment hit different banks), rounded to 16
-    bytes, then the weight rows of the block's valid taps, ``(taps_h *
-    taps_w, t_ci, tc_weight_stride(t_co))``.  Under a cluster split the
-    same memory then holds the block's partial tile, S*S*pixels*t_co f32."""
+    One stage holds a CI chunk.  fp32: the staged windows of the ``t_n``
+    images, ``(t_n, rows_h, rows_w, t_ci + 4)`` words (channel stride t_ci
+    + 4, so the eight rows of an A fragment hit different banks), rounded
+    to 16 bytes, then the weight rows of the block's valid taps, ``(taps_h
+    * taps_w, t_ci, tc_weight_stride(t_co))``.  int8: the windows as
+    ``(t_n, rows_h, rows_w)`` rows of `int8_row_stride` bytes, then per
+    valid tap `tc_columns` weight rows (CI-minor) of the same stride.
+    Under a cluster split the same memory then holds the block's partial
+    tile, S*S*pixels*t_co 4-byte sums."""
     rows_h, taps_h = staged_window(in_h, ohp, t_oh, kernel, stride, padding)
     rows_w, taps_w = staged_window(in_w, owp, t_ow, kernel, stride, padding)
-    x_words = -(-t_n * rows_h * rows_w * (t_ci + 4) // 4) * 4
-    stage = 4 * (x_words + taps_h * taps_w * t_ci * tc_weight_stride(t_co))
+    if dtype_name(dtype) == "int8":
+        row = int8_row_stride(t_ci)
+        stage = row * (t_n * rows_h * rows_w
+                       + taps_h * taps_w * tc_columns(t_co))
+    else:
+        x_words = -(-t_n * rows_h * rows_w * (t_ci + 4) // 4) * 4
+        stage = 4 * (x_words
+                     + taps_h * taps_w * t_ci * tc_weight_stride(t_co))
     stages = max([n for n in (2, 3, 4) if n * stage <= TC_STAGE_BUDGET],
                  default=2)
     pix = t_n * (t_oh // stride) * (t_ow // stride)
@@ -297,23 +326,33 @@ def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
     return stages, max(stages * stage, partial)
 
 
+def int8_acc_bound(kernel: int, stride: int, padding: int, cip: int) -> int:
+    """The largest magnitude an int8 output's int32 sum can reach: the most
+    taps of one phase per dimension, squared, times ``cip`` channels times
+    127^2.  The int8 kernel (and the reference's accumulator) needs it
+    below 2^31; on the served nets it is at most 4 x 1024 x 127^2."""
+    plan = make_phase_plan(kernel, stride, padding)
+    taps = max(len(t) for t in plan.taps.values())
+    return taps * taps * cip * 127 * 127
+
+
 def kernel_smem_bytes(geom: DeconvGeometry, t_oh: int, t_ow: int, t_ci: int,
                       t_co: int, t_n: int = 1, kernel: str = "tc",
-                      split: int = 1) -> int:
+                      split: int = 1, dtype="float32") -> int:
     """Dynamic shared memory of one kernel block, in bytes.
 
-    "tc": `tc_smem_layout` at the layer's tile-padded output.  "simt": per
-    CI chunk the halo windows of the ``t_n`` images, ``(t_n, T_IH, T_IW,
-    t_ci)`` with the channel stride padded by one word against bank
-    conflicts (rounded up to 16 bytes), and the weight slab ``(K, K, t_ci,
-    t_co)``, both as 4-byte words whatever the input dtype (bf16 is
-    converted and int8 widened on staging)."""
+    "tc": `tc_smem_layout` for ``dtype`` (fp32 or int8) at the layer's
+    tile-padded output.  "simt": per CI chunk the halo windows of the
+    ``t_n`` images, ``(t_n, T_IH, T_IW, t_ci)`` with the channel stride
+    padded by one word against bank conflicts (rounded up to 16 bytes), and
+    the weight slab ``(K, K, t_ci, t_co)``, both as 4-byte words (bf16 is
+    converted on staging)."""
     _check_kernel(kernel)
     if kernel == "tc":
         return tc_smem_layout(
             geom.in_h, geom.in_w, geom.kernel, geom.stride, geom.padding,
             -(-geom.out_h // t_oh) * t_oh, -(-geom.out_w // t_ow) * t_ow,
-            t_oh, t_ow, t_ci, t_co, t_n, split)[1]
+            t_oh, t_ow, t_ci, t_co, t_n, split, dtype)[1]
     ht_h = halo_tile(t_oh, geom.kernel, geom.stride, geom.padding)
     ht_w = halo_tile(t_ow, geom.kernel, geom.stride, geom.padding)
     x_words = -(-t_n * ht_h.extent * ht_w.extent * (t_ci + 1) // 4) * 4

@@ -1,9 +1,11 @@
 // Halo-tiled, phase-decomposed transposed convolution for Hopper (sm_90a)
-// on the FMA units: the bf16 and int8 kernels, instances of one template.
-// fp32 layers run on the tensor cores (csrc/deconv2d_tc.cu).
+// on the FMA units: the bf16 dense and zero-skip kernels, instances of one
+// template.  fp32 and int8 layers run on the tensor cores
+// (csrc/deconv2d_tc.cu): the int8 instance of this template and its entry
+// `deconv2d_int8_forward` are gone, replaced by `deconv2d_tc_int8_forward`.
 //
-// Replaces the three Pallas TPU kernels of the JAX package in bf16 and
-// int8, each computing the same function on the same host-padded inputs:
+// Replaces two Pallas TPU kernels of the JAX package in bf16, each
+// computing the same function on the same host-padded inputs:
 //
 //  * dense (`deconv2d_forward`): `_deconv2d_kernel`,
 //    src/repro/kernels/deconv2d/kernel.py (launched by `deconv2d_pallas_call`)
@@ -11,17 +13,6 @@
 //      y = act(conv_transpose(x, w) + b)   x (N, IHp, IWp, CIp), w (K, K, CIp, COp),
 //                                          b (COp), y (N, OHp, OWp, COp), NHWC,
 //                                          bf16
-//
-//  * int8 (`deconv2d_int8_forward`): `_deconv2d_int8_kernel`,
-//    src/repro/kernels/deconv2d/int8.py (launched by `deconv2d_int8_pallas_call`).
-//    x, w int8; the products go into an int32 accumulator that starts at 0
-//    (the bias lives in the epilogue), then the requant epilogue
-//      v = act(float(acc) * scale[c] + b[c])     (f32, each step rounded)
-//      y = clip(rint(v / out_scale), -127, 127)  int8, or y = v in f32 (last layer)
-//    The epilogue is written with __fmul_rn/__fadd_rn/__fdiv_rn so that nvcc
-//    does not contract it into an FMA: it then rounds exactly as the plain
-//    torch version (a separate multiply, add and true division) and the two
-//    agree bit for bit on every int8 output.
 //
 //  * zero-skip (`deconv2d_sparse_forward`): `_sparse_kernel`,
 //    src/repro/kernels/deconv2d_sparse/kernel.py (launched by
@@ -68,12 +59,6 @@
 //    consecutive threads store consecutive channels.
 //  * Plain FMA in f32: no tensor cores.  bf16 on the tensor cores
 //    (mma/wgmma), TMA and warp specialisation are for later work.
-//  * int8 reuses all of the above with int32 words: x and w are widened to
-//    int32 on staging (so the shared-memory layout and `kernel_smem_bytes`
-//    are those of f32) and each product is one integer multiply-add, about
-//    half the FMA rate on Hopper.  It is bound like the dense kernel, by
-//    arithmetic on the wide layers; dp4a packing or int8 mma/wgmma (the
-//    tensor cores' 1979 TOPS) and staging int8 bytes are later work.
 //  * Zero-skip saves work in proportion to the slabs it drops: at
 //    element-level magnitude pruning few whole slabs are zero, so on the
 //    served nets it runs close to the dense kernel plus the schedule reads.
@@ -86,7 +71,6 @@
 #include <stdint.h>
 
 #include <atomic>
-#include <type_traits>
 
 namespace {
 
@@ -132,22 +116,13 @@ struct Schedule {
   int len, nbw;
 };
 
-// Staged values are 4-byte words: f32 for f32/bf16 inputs, int32 for int8.
-__device__ __forceinline__ float load_val(const float* p) { return *p; }
+// Staged values are f32 words (bf16 is converted on staging).
 __device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ int load_val(const int8_t* p) { return (int)*p; }
-__device__ __forceinline__ float mac(float acc, float x, float w) { return fmaf(x, w, acc); }
-__device__ __forceinline__ int mac(int acc, int x, int w) { return acc + x * w; }
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
-__device__ __forceinline__ void store_from_f32(int8_t* p, float q) { *p = (int8_t)q; }
-
-template <typename Acc> struct Vec4 { using type = float4; };
-template <> struct Vec4<int> { using type = int4; };
 
 // Shared words of the staged halo windows, rounded up to 16 bytes so that
 // the weight slab after them takes 16-byte stores.
@@ -155,18 +130,14 @@ __host__ __device__ __forceinline__ int x_words(const Geometry& g) {
   return (g.t_n * g.t_ih * g.t_iw * (g.t_ci + 1) + 3) / 4 * 4;
 }
 
-// T: x and w; TB: bias; TO: y.  Dense: T = TB = TO in {float, bf16}.
-// int8: T = int8_t, TB = float (with `scale`), TO = int8_t (requant at
-// out_scale) or float.  kSparse walks `sched` in place of every CI chunk.
-template <typename T, typename TB, typename TO, bool kSparse, int RP, int RC>
+// T: x, w, b and y (bf16).  kSparse walks `sched` in place of every CI
+// chunk.
+template <typename T, bool kSparse, int RP, int RC>
 __global__ void __launch_bounds__(kMaxThreads) deconv2d_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ scale,
-    const TB* __restrict__ b, TO* __restrict__ y, Geometry g, TapTable taps,
-    Schedule sched, float out_scale) {
-  constexpr bool kInt = std::is_same_v<T, int8_t>;
-  using Acc = std::conditional_t<kInt, int, float>;
-  using V4 = typename Vec4<Acc>::type;
-  static_assert(sizeof(Acc) == 4, "staged words are 4 bytes");
+    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b, T* __restrict__ y,
+    Geometry g, TapTable taps, Schedule sched) {
+  using Acc = float;
+  using V4 = float4;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_taps[kTapWords];
   // per dim (0: rows, 1: cols): which phase taps read any real input for
@@ -276,9 +247,8 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_kernel(
     const int co = kContig ? tc * RC + j : tc + tc_threads * j;
     cvalid[j] = co < g.t_co;
     cols[j] = cvalid[j] ? co : 0;
-    // initializeToBias(); the int8 accumulator starts at 0, its bias is
-    // added in the epilogue
-    const Acc init = kInt ? Acc(0) : Acc(load_val(b + co0 + cols[j]));
+    // initializeToBias()
+    const Acc init = load_val(b + co0 + cols[j]);
 #pragma unroll
     for (int i = 0; i < RP; ++i) acc[i][j] = init;
   }
@@ -407,24 +377,15 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_kernel(
 #pragma unroll
           for (int i = 0; i < RP; ++i) {
 #pragma unroll
-            for (int j = 0; j < RC; ++j) acc[i][j] = mac(acc[i][j], xv[i], wv[j]);
+            for (int j = 0; j < RC; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
           }
         }
       }
     }
   }
 
-  // fused epilogue: (int8: requant scale and bias,) activation in f32,
-  // (int8: requant,) cast, one disjoint write per element
+  // fused epilogue: activation in f32, cast, one disjoint write per element
   if (!computes) return;
-  float sc[RC], bs[RC];
-  if constexpr (kInt) {
-#pragma unroll
-    for (int j = 0; j < RC; ++j) {
-      sc[j] = scale[co0 + cols[j]];
-      bs[j] = b[co0 + cols[j]];
-    }
-  }
 #pragma unroll
   for (int i = 0; i < RP; ++i) {
     if (!pvalid[i]) continue;
@@ -438,29 +399,13 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_kernel(
     float v[RC];
 #pragma unroll
     for (int j = 0; j < RC; ++j) {
-      if constexpr (kInt) {
-        // no contraction: the same roundings as the plain version
-        v[j] = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), sc[j]), bs[j]);
-      } else {
-        v[j] = acc[i][j];
-      }
+      v[j] = acc[i][j];
       if (g.act == 1) v[j] = fmaxf(v[j], 0.0f);
       else if (g.act == 2) v[j] = tanhf(v[j]);
-      if constexpr (std::is_same_v<TO, int8_t>) {
-        // round half to even, saturate at +-127
-        v[j] = fminf(fmaxf(rintf(__fdiv_rn(v[j], out_scale)), -127.0f), 127.0f);
-      }
     }
-    if constexpr (kContig && std::is_same_v<TO, float>) {
-      float4* dst = reinterpret_cast<float4*>(y + row + tc * RC);
 #pragma unroll
-      for (int j4 = 0; j4 < RC / 4; ++j4)
-        dst[j4] = make_float4(v[4 * j4], v[4 * j4 + 1], v[4 * j4 + 2], v[4 * j4 + 3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < RC; ++j) {
-        if (cvalid[j]) store_from_f32(y + row + cols[j], v[j]);
-      }
+    for (int j = 0; j < RC; ++j) {
+      if (cvalid[j]) store_from_f32(y + row + cols[j], v[j]);
     }
   }
 }
@@ -468,17 +413,15 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_kernel(
 struct Launch {
   const void* x;
   const void* w;
-  const float* scale;
   const void* b;
   void* y;
   Schedule sched;
-  float out_scale;
 };
 
-template <typename T, typename TB, typename TO, bool kSparse, int RP, int RC>
+template <typename T, bool kSparse, int RP, int RC>
 int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads,
            size_t smem, cudaStream_t stream) {
-  auto kern = deconv2d_kernel<T, TB, TO, kSparse, RP, RC>;
+  auto kern = deconv2d_kernel<T, kSparse, RP, RC>;
   // the opt-in shared-memory limit, set once per instance and device
   static std::atomic<unsigned> allowed{0};
   int dev = 0;
@@ -491,18 +434,18 @@ int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads
     allowed.fetch_or(bit);
   }
   dim3 grid(g.tiles_h * g.tiles_w * g.tiles_co, g.n / g.t_n);
-  kern<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w), a.scale,
-      static_cast<const TB*>(a.b), static_cast<TO*>(a.y), g, taps, a.sched, a.out_scale);
+  kern<<<grid, threads, smem, stream>>>(static_cast<const T*>(a.x), static_cast<const T*>(a.w),
+                                        static_cast<const T*>(a.b), static_cast<T*>(a.y), g,
+                                        taps, a.sched);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TB, typename TO, bool kSparse>
+template <typename T, bool kSparse>
 int dispatch(int rp, int rc, const Launch& a, const Geometry& g, const TapTable& taps,
              int threads, size_t smem, cudaStream_t stream) {
 #define DECONV_CASE(RP_, RC_) \
   if (rp == RP_ && rc == RC_)   \
-    return launch<T, TB, TO, kSparse, RP_, RC_>(a, g, taps, threads, smem, stream);
+    return launch<T, kSparse, RP_, RC_>(a, g, taps, threads, smem, stream);
   DECONV_CASE(4, 8)
   DECONV_CASE(4, 2)
   DECONV_CASE(4, 1)
@@ -580,7 +523,7 @@ void deconv2d_limits(int* out) {
 }
 
 // Returns the dynamic shared memory one block takes, in bytes (the host's
-// `kernel_smem_bytes` model must agree); the same for the three kernels.
+// `kernel_smem_bytes` model must agree); the same for both kernels.
 long long deconv2d_smem_bytes(const int* p) { return smem_bytes(p); }
 
 // x, w, b, y: device pointers; p: host int32 array laid out as `Param`
@@ -592,32 +535,12 @@ int deconv2d_forward(const void* x, const void* w, const void* b, void* y, const
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  const Launch a{x, w, nullptr, b, y, Schedule{nullptr, nullptr, nullptr, 0, 0}, 1.0f};
+  const Launch a{x, w, b, y, Schedule{nullptr, nullptr, nullptr, 0, 0}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rp = p[P_RP], rc = p[P_RC];
   if (p[P_DTYPE] == 1)
-    return dispatch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false>(
-        rp, rc, a, g, taps, threads, (size_t)smem, st);
+    return dispatch<__nv_bfloat16, false>(rp, rc, a, g, taps, threads, (size_t)smem, st);
   return E_ARGS;
-}
-
-// int8 x and w, f32 per-channel scale and bias (device pointers).  With
-// requant != 0, y is int8 at out_scale; else y is f32.  0 on success.
-int deconv2d_int8_forward(const void* x, const void* w, const void* scale, const void* b,
-                          void* y, const int* p, float out_scale, int requant, void* stream) {
-  Geometry g;
-  TapTable taps;
-  int threads;
-  long long smem;
-  if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  if (p[P_DTYPE] != 2 || (requant && !(out_scale > 0.0f))) return E_ARGS;
-  const Launch a{x, w, static_cast<const float*>(scale), b, y,
-                 Schedule{nullptr, nullptr, nullptr, 0, 0}, out_scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rp = p[P_RP], rc = p[P_RC];
-  if (requant)
-    return dispatch<int8_t, float, int8_t, false>(rp, rc, a, g, taps, threads, (size_t)smem, st);
-  return dispatch<int8_t, float, float, false>(rp, rc, a, g, taps, threads, (size_t)smem, st);
 }
 
 // The dense kernel's arguments plus the packed zero-skip schedule: count
@@ -633,15 +556,13 @@ int deconv2d_sparse_forward(const void* x, const void* w, const void* b, void* y
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
   if (len < 1 || nbw != (g.k * g.k + 31) / 32 || !count || !ci || !bits) return E_ARGS;
-  const Launch a{x, w, nullptr, b, y,
+  const Launch a{x, w, b, y,
                  Schedule{static_cast<const int*>(count), static_cast<const int*>(ci),
-                          static_cast<const unsigned*>(bits), len, nbw},
-                 1.0f};
+                          static_cast<const unsigned*>(bits), len, nbw}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rp = p[P_RP], rc = p[P_RC];
   if (p[P_DTYPE] == 1)
-    return dispatch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true>(
-        rp, rc, a, g, taps, threads, (size_t)smem, st);
+    return dispatch<__nv_bfloat16, true>(rp, rc, a, g, taps, threads, (size_t)smem, st);
   return E_ARGS;
 }
 

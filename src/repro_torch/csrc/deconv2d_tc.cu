@@ -1,9 +1,9 @@
-// Halo-tiled, phase-decomposed transposed convolution in fp32 on Hopper's
-// tensor cores (sm_90a): the dense and the zero-skip kernel, instances of
-// one template.
+// Halo-tiled, phase-decomposed transposed convolution on Hopper's tensor
+// cores (sm_90a): the fp32 dense and zero-skip kernels, instances of one
+// template, and the int8 kernel, built on the same staging and split.
 //
-// Replaces two Pallas TPU kernels of the JAX package in fp32, each
-// computing the same function on the same host-padded inputs:
+// Replaces three Pallas TPU kernels of the JAX package, each computing the
+// same function on the same host-padded inputs:
 //
 //  * dense (`deconv2d_tc_forward`): `_deconv2d_kernel`,
 //    src/repro/kernels/deconv2d/kernel.py (launched by `deconv2d_pallas_call`)
@@ -19,7 +19,19 @@
 //    where the slab is not all zero).  Tap bits are ANDed with the block's
 //    valid taps; a dead tap stages nothing and costs no product.
 //
-// bf16 and int8 layers run on the FMA kernel of csrc/deconv2d.cu.
+//  * int8 (`deconv2d_tc_int8_forward`): `_deconv2d_int8_kernel`,
+//    src/repro/kernels/deconv2d/int8.py (launched by `deconv2d_int8_pallas_call`).
+//    x int8 (N, IHp, IWp, CIp); w int8 packed CI-minor, (K, K, COp, CIp);
+//    the products go into an int32 accumulator that starts at 0 (the bias
+//    lives in the epilogue), then the requant epilogue
+//      v = act(float(acc) * scale[c] + b[c])     (f32, each step rounded)
+//      y = clip(rint(v / out_scale), -127, 127)  int8, or y = v in f32 (last layer)
+//    written with __fmul_rn/__fadd_rn/__fdiv_rn so that nvcc does not
+//    contract it into an FMA: it rounds exactly as the plain torch version
+//    (a separate multiply, add and true division) and the two agree bit for
+//    bit on every int8 output.
+//
+// bf16 layers run on the FMA kernel of csrc/deconv2d.cu.
 //
 // What bounds the kernel on an H100: tensor-core throughput on the wide
 // CelebA layers (1024->512, 512->256, 256->128 channels: ~134M MACs per
@@ -84,6 +96,20 @@
 //  5. Thin layers: the n8 column tile is padded with zero weight columns in
 //     shared memory (zeroed once per launch) and the stores are masked to
 //     the real channels, so C_out 1 or 3 writes no padding channel.
+//  6. int8 (its own kernel on the same steps 1-3 and 5): products are
+//     mma.sync m16n8k32 s8 x s8 -> s32, one per fragment pair, summed into
+//     int32 accumulators over the whole CI reduction (integer sums are
+//     exact: no split of the operands, no fresh partial per chunk, and the
+//     cluster's rank-ordered sum is the plain version's in any order).  The
+//     B operand wants 4 consecutive CI bytes per output channel, so the
+//     weight comes packed CI-minor, (K, K, COp, CIp), once per engine; a
+//     staged row (an input pixel's or a (tap, channel)'s t_ci bytes, t_ci a
+//     multiple of 32) is one bulk copy of whole 16-byte pieces, thin layers
+//     included, at a stride of t_ci + 16 bytes: the 8 rows x 4 words of an A
+//     (consecutive pixels) or B fragment then fall in 32 distinct banks.
+//     The largest sum on the served nets, 4 taps x 1024 x 127^2 ~ 6.6e7, is
+//     far below 2^31; the launch refuses a layer whose taps x CIp x 127^2
+//     could reach it.
 //
 // Plain C interface (loaded with ctypes): each `*_forward` launches on the
 // given stream, does not synchronise and allocates nothing.
@@ -115,8 +141,11 @@ constexpr int kMaxBitWords = kMaxK * kMaxK / 32;
 enum Param {
   P_N, P_IHP, P_IWP, P_CIP, P_K, P_COP, P_OHP, P_OWP, P_S,
   P_TN, P_TOH, P_TOW, P_TCI, P_TCO, P_TIH, P_TIW, P_BASE_H, P_BASE_W,
-  P_ACT, P_IH, P_IW, P_PAD_L, P_THREADS, P_SPLIT, P_TAPS
+  P_ACT, P_IH, P_IW, P_PAD_L, P_THREADS, P_SPLIT, P_DTYPE, P_TAPS
 };
+
+// P_DTYPE: the staged type, and so the instance and shared layout.
+enum Dtype { D_F32 = 0, D_INT8 = 2 };
 
 // Argument errors are reported as negative codes, CUDA errors as positive.
 enum ArgError { E_ARGS = -1, E_THREADS = -2, E_SMEM = -3, E_REGTILE = -4, E_ALIGN = -5 };
@@ -131,9 +160,15 @@ struct Geometry {
   // derived: rows of a phase, warp grid, staged window, weight rows, ring
   int pix, wm, wn, mgroups, ngroups;
   int win_h, win_w, slots;  // most rows staged per dim; most valid taps
-  int cs, ws;               // word strides: input channel, weight row
-  int x_words, stage_words, stages;
-  bool w_vec4;              // weight rows staged as whole float4s
+  // strides and sizes in elements of the staged type (f32 words; int8
+  // bytes): fp32 cs = input pixel row, ws = weight row (t_co wide); int8
+  // cs = either row (t_ci wide), ws = weight rows per slot
+  int cs, ws;
+  int x_elems, stage_elems, stages;
+  bool w_vec4;              // fp32 weight rows staged as whole float4s
+  // the int8 kernel's layout (else fp32); last, so that the fp32 kernels'
+  // fields keep their offsets and compiled code
+  bool int8;
 };
 
 struct TapTable {
@@ -166,6 +201,22 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b, int8 operands into int32 (exact: no saturation below 2^31).
+// a: rows lane/4 and lane/4 + 8, k bytes 4*(lane%4) and +16; b: column
+// lane/4, the same k bytes; d: rows lane/4 (+8), columns 2*(lane%4) (+1).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -247,6 +298,62 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// Tap validity, uniform over a block, run by one thread: the int8 kernel's
+// copy of the block the fp32 kernel keeps inline (called from there, this
+// function changed the fp32 kernel's compiled code and cost it 1-2 % at
+// bucket 1).  A tap whose rows (or columns) in this tile's window all lie in the
+// host padding adds exactly zero, so its weights are not staged and its
+// products are skipped, and only the window span that valid taps read is
+// staged.  Per dim (0: rows, 1: cols) it writes which phase taps are valid
+// (tap_ok), their kernel indices as a bitmask (kok), the staged span [lo,
+// hi) (span) and its rows of real input [lo, hi), window-local (real); and
+// the flat kernel tap (kh * K + kw) of each staged weight slot (wtap).
+__device__ __forceinline__ void block_taps(const Geometry& g, const int* s_taps, int h0, int w0,
+                                           unsigned char (*s_tap_ok)[kMaxStride * kMaxTaps],
+                                           unsigned* s_kok, int* s_span, int* s_real,
+                                           short* s_wtap) {
+  const int s = g.s;
+  const int th = g.t_oh / s, tw = g.t_ow / s;
+  unsigned char kof[2][kMaxK];
+  for (int dim = 0; dim < 2; ++dim) {
+    const int o0 = dim == 0 ? h0 : w0;
+    const int span = dim == 0 ? th : tw;
+    const int lo_real = g.pad_l;
+    const int hi_real = g.pad_l + (dim == 0 ? g.ih : g.iw);
+    int lo = 1 << 30, hi = -(1 << 30);
+    unsigned kok = 0;
+    for (int ph_ = 0; ph_ < s; ++ph_) {
+      for (int a = 0; a < s_taps[ph_]; ++a) {
+        const int d = s_taps[kMaxStride + kMaxStride * kMaxTaps + ph_ * kMaxTaps + a];
+        const bool ok = o0 + d < hi_real && o0 + d + span > lo_real;
+        s_tap_ok[dim][ph_ * kMaxTaps + a] = ok;
+        if (ok) {
+          kok |= 1u << s_taps[kMaxStride + ph_ * kMaxTaps + a];
+          lo = min(lo, d);
+          hi = max(hi, d + span);
+        }
+      }
+    }
+    if (lo >= hi) lo = hi = 0;
+    s_span[2 * dim] = lo;
+    s_span[2 * dim + 1] = hi;
+    // window-local rows lo + r read padded row o0 + lo + r
+    s_real[2 * dim] = min(max(lo_real - (o0 + lo), 0), hi - lo);
+    s_real[2 * dim + 1] = max(min(hi_real - (o0 + lo), hi - lo), s_real[2 * dim]);
+    s_kok[dim] = kok;
+    int n = 0;
+    for (int k = 0; k < g.k; ++k) {
+      if ((kok >> k) & 1u) kof[dim][n++] = (unsigned char)k;
+    }
+    if (dim == 1) {
+      const int nh = __popc(s_kok[0]);
+      for (int sh = 0; sh < nh; ++sh) {
+        for (int sw = 0; sw < n; ++sw) s_wtap[sh * n + sw] = (short)(kof[0][sh] * g.k + kof[1][sw]);
+      }
+    }
+  }
+}
+
 template <bool kSparse, int WM, int WN>
 __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
     const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
@@ -289,7 +396,7 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
 
   // the weight rows' padding columns stay zero: the copies never write them
   for (int st = 0; st < g.stages; ++st) {
-    float* ws = smem + st * g.stage_words + g.x_words;
+    float* ws = smem + st * g.stage_elems + g.x_elems;
     const int pad = g.ws - g.t_co;
     for (int e = tid; e < g.slots * g.t_ci * pad; e += blockDim.x)
       ws[(e / pad) * g.ws + g.t_co + e % pad] = 0.0f;
@@ -444,8 +551,8 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
       }
       if (ci_t >= 0) {
         const int c0 = ci_t * g.t_ci;
-        float* xs = smem + st * g.stage_words;
-        float* ws = xs + g.x_words;
+        float* xs = smem + st * g.stage_elems;
+        float* ws = xs + g.x_elems;
         // input window: one bulk copy per pixel row of t_ci channels; rows
         // outside the real input are zero-filled in place
         const int nx = g.t_n * eh * ew;
@@ -502,8 +609,8 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
     if constexpr (kSparse) {
       if (s_ent[st][0] < 0) return;
     }
-    const float* xs = smem + st * g.stage_words;
-    const float* ws = xs + g.x_words;
+    const float* xs = smem + st * g.stage_elems;
+    const float* ws = xs + g.x_elems;
     float part[WM][WN][4];
 #pragma unroll
     for (int i = 0; i < WM; ++i) {
@@ -655,6 +762,282 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
   cluster.sync();
 }
 
+// The int8 kernel (design step 6): the fp32 kernel's block, warp grid,
+// tap table, ring and cluster split, on int8 bytes and s8 mma.
+template <bool kRequant, int WM, int WN>
+__global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_int8_kernel(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
+    const float* __restrict__ b, void* __restrict__ y, Geometry g, TapTable taps,
+    float out_scale) {
+  extern __shared__ __align__(16) unsigned char smem_i8[];
+  __shared__ int s_taps[kTapWords];
+  __shared__ unsigned char s_tap_ok[2][kMaxStride * kMaxTaps];
+  __shared__ unsigned s_kok[2];
+  __shared__ int s_span[4];
+  __shared__ int s_real[4];
+  __shared__ short s_wtap[kMaxK * kMaxK];
+  __shared__ __align__(8) unsigned long long s_bar[kMaxStages];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kTapWords; i += blockDim.x) s_taps[i] = taps.words[i];
+
+  const int s = g.s;
+  const int th = g.t_oh / s, tw = g.t_ow / s;
+  const int pix = g.pix;
+
+  // block -> (output tile, rank in the cluster)
+  const int split = g.split;
+  const int rank = blockIdx.x % split;
+  int tile = blockIdx.x / split;
+  const int co_t = tile % g.tiles_co;
+  tile /= g.tiles_co;
+  const int ow_t = tile % g.tiles_w;
+  const int oh_t = tile / g.tiles_w;
+  const int n0 = blockIdx.y * g.t_n;
+  const int co0 = co_t * g.t_co;
+  const int h0 = oh_t * th + g.base_h;
+  const int w0 = ow_t * tw + g.base_w;
+  // a staged row (input pixel or (tap, channel) weight) is t_ci bytes at a
+  // stride of cs bytes; a slot holds g.ws weight rows, those past t_co zero
+  const int cs = g.cs, cols = g.ws;
+
+  // the padding weight rows stay zero: the copies never write them
+  const int pieces = g.t_ci / 16;
+  for (int st = 0; st < g.stages; ++st) {
+    unsigned char* ws = smem_i8 + st * g.stage_elems + g.x_elems;
+    const int pad = cols - g.t_co;
+    for (int e = tid; e < g.slots * pad * pieces; e += blockDim.x) {
+      const int r = e / pieces;
+      *reinterpret_cast<int4*>(ws + ((r / pad) * cols + g.t_co + r % pad) * cs +
+                               16 * (e - r * pieces)) = make_int4(0, 0, 0, 0);
+    }
+  }
+  if (tid == 0) {
+    for (int st = 0; st < g.stages; ++st) mbar_init(&s_bar[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) block_taps(g, s_taps, h0, w0, s_tap_ok, s_kok, s_span, s_real, s_wtap);
+  __syncthreads();
+
+  const unsigned kok_h = s_kok[0], kok_w = s_kok[1];
+  const int nw_ok = __popc(kok_w);
+  const int n_slots = __popc(kok_h) * nw_ok;
+  const int lo_h = s_span[0], eh = s_span[1] - s_span[0];
+  const int lo_w = s_span[2], ew = s_span[3] - s_span[2];
+  FastDiv div_ew, div_eh, div_co;
+  div_ew.init(ew);
+  div_eh.init(eh);
+  div_co.init(g.t_co);
+  // bytes one chunk brings: the real rows of the span and the valid taps'
+  // weight rows
+  const int chunk_bytes =
+      (g.t_n * (s_real[1] - s_real[0]) * (s_real[3] - s_real[2]) + n_slots * g.t_co) * g.t_ci;
+
+  // warp -> (phase, row group, column group); warps past the last phase
+  // only stage
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int per_phase = g.mgroups * g.ngroups;
+  const int phase = warp / per_phase;
+  const bool computes = phase < s * s;
+  const int q = warp - phase * per_phase;
+  const int mg = q / g.ngroups, ng = q - (q / g.ngroups) * g.ngroups;
+  const int ph = computes ? phase / s : 0, pw = computes ? phase % s : 0;
+
+  // the input-window byte offsets of this lane's A words (rows past the
+  // phase's pixels read pixel 0 and are never stored)
+  int aoff[WM][2];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      int r = (mg * WM + i) * 16 + gid + 8 * hf;
+      if (r >= pix) r = 0;
+      const int nn = r / (th * tw);
+      const int rr = (r / tw) % th;
+      const int cc = r % tw;
+      aoff[i][hf] = ((nn * g.win_h + rr) * g.win_w + cc) * cs + 4 * tig;
+    }
+  }
+  int acc[WM][WN][4];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+    }
+  }
+
+  // this rank's range of CI chunks
+  const int n_ci = g.cip / g.t_ci;
+  const int it0 = rank * n_ci / split;
+  const int n_it = (rank + 1) * n_ci / split - it0;
+
+  // Issue chunk `it` into stage `st`: every staged row one bulk copy counted
+  // on the stage's mbarrier; input rows outside the real input zero-filled.
+  auto issue = [&](int it, int st) {
+    if (it >= n_it) return;
+    if (tid == 0) mbar_arrive_expect(&s_bar[st], chunk_bytes);
+    const int c0 = (it0 + it) * g.t_ci;
+    unsigned char* xs = smem_i8 + st * g.stage_elems;
+    unsigned char* ws = xs + g.x_elems;
+    const int nx = g.t_n * eh * ew;
+    for (int r = tid; r < nx; r += blockDim.x) {
+      const int rest = div_ew.div(r);
+      const int lc = r - rest * ew;
+      const int nn = div_eh.div(rest);
+      const int lr = rest - nn * eh;
+      unsigned char* dst = xs + ((nn * g.win_h + lr) * g.win_w + lc) * cs;
+      if (lr >= s_real[0] && lr < s_real[1] && lc >= s_real[2] && lc < s_real[3]) {
+        const int gh = h0 + lo_h + lr, gw = w0 + lo_w + lc;
+        bulk_copy(dst, x + ((((size_t)(n0 + nn) * g.ihp + gh) * g.iwp + gw) * g.cip) + c0,
+                  g.t_ci, &s_bar[st]);
+      } else {
+        for (int j = 0; j < g.t_ci; j += 16)
+          *reinterpret_cast<int4*>(dst + j) = make_int4(0, 0, 0, 0);
+      }
+    }
+    // weight rows of the block's valid taps: (tap, channel) -> t_ci bytes
+    for (int r = tid; r < n_slots * g.t_co; r += blockDim.x) {
+      const int slot = div_co.div(r);
+      const int co = r - slot * g.t_co;
+      bulk_copy(ws + (slot * cols + co) * cs,
+                w + ((size_t)s_wtap[slot] * g.cop + co0 + co) * g.cip + c0, g.t_ci,
+                &s_bar[st]);
+    }
+  };
+
+  // The mma loop of one staged chunk: the phase's valid taps, t_ci / 32
+  // k-steps each, straight into the int32 accumulators.
+  auto compute = [&](int st) {
+    const unsigned char* xs = smem_i8 + st * g.stage_elems;
+    const unsigned char* ws = xs + g.x_elems;
+    const int n_taps_h = s_taps[ph], n_taps_w = s_taps[pw];
+    for (int a = 0; a < n_taps_h; ++a) {
+      if (!s_tap_ok[0][ph * kMaxTaps + a]) continue;
+      const int kh = s_taps[kMaxStride + ph * kMaxTaps + a];
+      const int dh = s_taps[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
+      const int sh = __popc(kok_h & ((1u << kh) - 1u));
+      for (int bb = 0; bb < n_taps_w; ++bb) {
+        if (!s_tap_ok[1][pw * kMaxTaps + bb]) continue;
+        const int kw = s_taps[kMaxStride + pw * kMaxTaps + bb];
+        const int dw = s_taps[kMaxStride + kMaxStride * kMaxTaps + pw * kMaxTaps + bb];
+        const int slot = sh * nw_ok + __popc(kok_w & ((1u << kw) - 1u));
+        const unsigned char* xt = xs + ((dh - lo_h) * g.win_w + (dw - lo_w)) * cs;
+        const unsigned char* wt = ws + (slot * cols + ng * WN * 8 + gid) * cs + 4 * tig;
+        for (int k0 = 0; k0 < g.t_ci; k0 += 32) {
+          uint32_t af[WM][4], bf[WN][2];
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+            af[i][0] = lds32(xt + aoff[i][0] + k0);
+            af[i][1] = lds32(xt + aoff[i][1] + k0);
+            af[i][2] = lds32(xt + aoff[i][0] + k0 + 16);
+            af[i][3] = lds32(xt + aoff[i][1] + k0 + 16);
+          }
+#pragma unroll
+          for (int j = 0; j < WN; ++j) {
+            bf[j][0] = lds32(wt + j * 8 * cs + k0);
+            bf[j][1] = lds32(wt + j * 8 * cs + k0 + 16);
+          }
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+#pragma unroll
+            for (int j = 0; j < WN; ++j) mma_s8(acc[i][j], af[i], bf[j]);
+          }
+        }
+      }
+    }
+  };
+
+  const int ns = g.stages;
+  for (int st = 0; st < ns - 1; ++st) issue(st, st);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ns;
+    mbar_wait(&s_bar[st], (it / ns) & 1);  // the chunk's bulk copies
+    __syncthreads();                       // and its zero fill; stage (it-1) % ns is free
+    issue(it + ns - 1, (it + ns - 1) % ns);
+    if (computes) compute(st);
+  }
+
+  // the requant epilogue of the sum at row r (of phase (ph_, pw_)) and
+  // tile channel col: one disjoint write per element
+  auto store = [&](int r, int ph_, int pw_, int col, int v) {
+    const int nn = r / (th * tw);
+    const int rr = (r / tw) % th;
+    const int cc = r % tw;
+    const int oh = oh_t * g.t_oh + rr * s + ph_;
+    const int ow = ow_t * g.t_ow + cc * s + pw_;
+    const size_t o = (((size_t)(n0 + nn) * g.ohp + oh) * g.owp + ow) * g.cop + co0 + col;
+    // no contraction: the same roundings as the plain version
+    float f = __fadd_rn(__fmul_rn(__int2float_rn(v), scale[co0 + col]), b[co0 + col]);
+    f = activate(f, g.act);
+    if constexpr (kRequant) {
+      // round half to even, saturate at +-127
+      static_cast<int8_t*>(y)[o] =
+          (int8_t)fminf(fmaxf(rintf(__fdiv_rn(f, out_scale)), -127.0f), 127.0f);
+    } else {
+      static_cast<float*>(y)[o] = f;
+    }
+  };
+
+  if (split == 1) {
+    if (!computes) return;
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (mg * WM + i) * 16 + gid + 8 * hf;
+        if (r >= pix) continue;
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = (ng * WN + j) * 8 + 2 * tig;
+          if (col < g.t_co) store(r, ph, pw, col, acc[i][j][2 * hf]);
+          if (col + 1 < g.t_co) store(r, ph, pw, col + 1, acc[i][j][2 * hf + 1]);
+        }
+      }
+    }
+    return;
+  }
+
+  // Cluster split: the int32 partial tile, [phase][row][channel], in this
+  // block's shared memory (the ring is drained), then slice `rank` summed
+  // over the ranks in rank order through distributed shared memory.
+  __syncthreads();
+  int* part = reinterpret_cast<int*>(smem_i8);
+  if (computes) {
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (mg * WM + i) * 16 + gid + 8 * hf;
+        if (r >= pix) continue;
+        int* prow = part + (phase * pix + r) * g.t_co;
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = (ng * WN + j) * 8 + 2 * tig;
+          if (col < g.t_co) prow[col] = acc[i][j][2 * hf];
+          if (col + 1 < g.t_co) prow[col + 1] = acc[i][j][2 * hf + 1];
+        }
+      }
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_el = s * s * pix * g.t_co;
+  const int e_end = (rank + 1) * n_el / split;
+  for (int e = rank * n_el / split + tid; e < e_end; e += blockDim.x) {
+    int v = 0;
+    for (int qr = 0; qr < split; ++qr) v += cluster.map_shared_rank(part, qr)[e];
+    const int col = e % g.t_co;
+    const int rest = e / g.t_co;
+    const int phs = rest / pix;
+    store(rest % pix, phs / s, phs % s, col, v);
+  }
+  cluster.sync();
+}
+
 struct Launch {
   const float* x;
   const float* w;
@@ -663,12 +1046,12 @@ struct Launch {
   Schedule sched;
 };
 
-template <bool kSparse, int WM, int WN>
-int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads, size_t smem,
-           cudaStream_t stream) {
-  auto kern = deconv2d_tc_kernel<kSparse, WM, WN>;
-  // the opt-in shared-memory limit, set once per instance and device
-  static std::atomic<unsigned> allowed{0};
+// Launches `kern` over the geometry's grid, in clusters of g.split blocks,
+// after raising its opt-in shared-memory limit once per device (`allowed`:
+// a bit per device, one variable per kernel instance).
+template <class... P, class... A>
+int launch_clusters(void (*kern)(P...), std::atomic<unsigned>& allowed, const Geometry& g,
+                    int threads, size_t smem, cudaStream_t stream, A... args) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -690,9 +1073,17 @@ int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, a.x, a.w, a.b, a.y, g, taps, a.sched);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <bool kSparse, int WM, int WN>
+int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads, size_t smem,
+           cudaStream_t stream) {
+  static std::atomic<unsigned> allowed{0};
+  return launch_clusters(deconv2d_tc_kernel<kSparse, WM, WN>, allowed, g, threads, smem, stream,
+                         a.x, a.w, a.b, a.y, g, taps, a.sched);
 }
 
 template <bool kSparse>
@@ -707,6 +1098,39 @@ int dispatch(const Launch& a, const Geometry& g, const TapTable& taps, int threa
   DECONV_TC_CASE(1, 2)
   DECONV_TC_CASE(1, 1)
 #undef DECONV_TC_CASE
+  return E_REGTILE;
+}
+
+struct LaunchInt8 {
+  const int8_t* x;
+  const int8_t* w;
+  const float* scale;
+  const float* b;
+  void* y;
+  float out_scale;
+};
+
+template <bool kRequant, int WM, int WN>
+int launch_int8(const LaunchInt8& a, const Geometry& g, const TapTable& taps, int threads,
+                size_t smem, cudaStream_t stream) {
+  static std::atomic<unsigned> allowed{0};
+  return launch_clusters(deconv2d_tc_int8_kernel<kRequant, WM, WN>, allowed, g, threads, smem,
+                         stream, a.x, a.w, a.scale, a.b, a.y, g, taps, a.out_scale);
+}
+
+template <bool kRequant>
+int dispatch_int8(const LaunchInt8& a, const Geometry& g, const TapTable& taps, int threads,
+                  size_t smem, cudaStream_t stream) {
+#define DECONV_TC_INT8_CASE(WM_, WN_) \
+  if (g.wm == WM_ && g.wn == WN_)     \
+    return launch_int8<kRequant, WM_, WN_>(a, g, taps, threads, smem, stream);
+  DECONV_TC_INT8_CASE(2, 4)
+  DECONV_TC_INT8_CASE(2, 2)
+  DECONV_TC_INT8_CASE(2, 1)
+  DECONV_TC_INT8_CASE(1, 4)
+  DECONV_TC_INT8_CASE(1, 2)
+  DECONV_TC_INT8_CASE(1, 1)
+#undef DECONV_TC_INT8_CASE
   return E_REGTILE;
 }
 
@@ -747,10 +1171,12 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
   g.act = p[P_ACT];
   g.ih = p[P_IH]; g.iw = p[P_IW]; g.pad_l = p[P_PAD_L];
   g.split = p[P_SPLIT];
+  if (p[P_DTYPE] != D_F32 && p[P_DTYPE] != D_INT8) return E_ARGS;
+  g.int8 = p[P_DTYPE] == D_INT8;
   if (g.ih < 1 || g.iw < 1 || g.pad_l < 0 || g.pad_l + g.ih > g.ihp || g.pad_l + g.iw > g.iwp)
     return E_ARGS;
   if (g.s < 1 || g.s > kMaxStride || g.k < 1 || g.k > kMaxK || g.t_n < 1 || g.t_ci < 8 ||
-      g.t_ci % 8 || g.t_co < 1 || g.t_oh < g.s || g.t_ow < g.s || g.t_oh % g.s ||
+      g.t_ci % (g.int8 ? 32 : 8) || g.t_co < 1 || g.t_oh < g.s || g.t_ow < g.s || g.t_oh % g.s ||
       g.t_ow % g.s || g.n % g.t_n || g.cip % g.t_ci || g.cop % g.t_co || g.ohp % g.t_oh ||
       g.owp % g.t_ow || g.act < 0 || g.act > 2)
     return E_ARGS;
@@ -765,9 +1191,11 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
       (g.tiles_w - 1) * (g.t_ow / g.s) + g.base_w + t_iw > g.iwp)
     return E_ARGS;
   for (int i = 0; i < kTapWords; ++i) taps->words[i] = p[P_TAPS + i];
+  int most_taps = 0;
   for (int ph = 0; ph < g.s; ++ph) {
     const int cnt = taps->words[ph];
     if (cnt < 0 || cnt > kMaxTaps) return E_ARGS;
+    most_taps = cnt > most_taps ? cnt : most_taps;
     for (int a = 0; a < cnt; ++a) {
       const int k = taps->words[kMaxStride + ph * kMaxTaps + a];
       const int d = taps->words[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
@@ -786,28 +1214,46 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
   *threads = p[P_THREADS];
   if (warps * 32 > kMaxThreads || *threads > kMaxThreads) return E_THREADS;
   if (*threads < warps * 32 || *threads % 32) return E_ARGS;
-  // shared layout (tiling.py: tc_weight_stride, tc_smem_layout)
+  // int8: every sum of a phase's taps x CIp products must fit the int32
+  // accumulator (the reference's accumulator assumes the same)
+  if (g.int8 && (long long)most_taps * most_taps * g.cip * 127 * 127 >= (1LL << 31))
+    return E_ARGS;
+  // shared layout (tiling.py: tc_columns, tc_weight_stride, tc_smem_layout)
   int rows_h, taps_h, rows_w, taps_w;
   window(taps->words, g.s, g.ih, g.pad_l, g.tiles_h, g.t_oh / g.s, g.base_h, &rows_h, &taps_h);
   window(taps->words, g.s, g.iw, g.pad_l, g.tiles_w, g.t_ow / g.s, g.base_w, &rows_w, &taps_w);
   g.win_h = rows_h;
   g.win_w = rows_w;
   g.slots = taps_h * taps_w;
-  g.cs = g.t_ci + 4;
   const int cols = g.ngroups * g.wn * 8;
-  g.ws = cols % 16 == 0 ? cols + 8 : cols;
-  g.w_vec4 = g.t_co % 4 == 0 && g.cop % 4 == 0;
-  const long long x_words = ((long long)g.t_n * rows_h * rows_w * g.cs + 3) / 4 * 4;
-  const long long stage = x_words + (long long)g.slots * g.t_ci * g.ws;
+  long long x_elems, stage;
+  int elem;  // bytes per staged element
+  if (g.int8) {
+    // rows of t_ci bytes at a stride of t_ci + 16; a slot holds `cols`
+    // weight rows (CI-minor), zero past t_co
+    elem = 1;
+    g.cs = g.t_ci + 16;
+    g.ws = cols;
+    x_elems = (long long)g.t_n * rows_h * rows_w * g.cs;
+    stage = x_elems + (long long)g.slots * cols * g.cs;
+  } else {
+    elem = 4;
+    g.cs = g.t_ci + 4;
+    g.ws = cols % 16 == 0 ? cols + 8 : cols;
+    g.w_vec4 = g.t_co % 4 == 0 && g.cop % 4 == 0;
+    x_elems = ((long long)g.t_n * rows_h * rows_w * g.cs + 3) / 4 * 4;
+    stage = x_elems + (long long)g.slots * g.t_ci * g.ws;
+  }
   int stages = 2;
   for (int n = 3; n <= kMaxStages; ++n) {
-    if (4 * n * stage <= kStageBudget) stages = n;
+    if (elem * n * stage <= kStageBudget) stages = n;
   }
-  const long long partial = g.split > 1 ? (long long)g.s * g.s * g.pix * g.t_co : 0;
-  *smem = 4 * (stages * stage > partial ? stages * stage : partial);
+  // under a split the partial tile (4-byte sums) reuses the ring's memory
+  const long long partial = g.split > 1 ? 4LL * g.s * g.s * g.pix * g.t_co : 0;
+  *smem = elem * stages * stage > partial ? elem * stages * stage : partial;
   if (*smem > kMaxDynamicSmem) return E_SMEM;
-  g.x_words = (int)x_words;
-  g.stage_words = (int)stage;
+  g.x_elems = (int)x_elems;
+  g.stage_elems = (int)stage;
   g.stages = stages;
   return 0;
 }
@@ -851,6 +1297,7 @@ int deconv2d_tc_forward(const void* x, const void* w, const void* b, void* y, co
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
+  if (g.int8) return E_ARGS;
   if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
                  static_cast<const float*>(b), static_cast<float*>(y),
@@ -870,7 +1317,8 @@ int deconv2d_tc_sparse_forward(const void* x, const void* w, const void* b, void
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  if (len < 1 || nbw != (g.k * g.k + 31) / 32 || nbw > kMaxBitWords || !count || !ci || !bits)
+  if (g.int8 || len < 1 || nbw != (g.k * g.k + 31) / 32 || nbw > kMaxBitWords || !count ||
+      !ci || !bits)
     return E_ARGS;
   if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
@@ -878,6 +1326,27 @@ int deconv2d_tc_sparse_forward(const void* x, const void* w, const void* b, void
                  Schedule{static_cast<const int*>(count), static_cast<const int*>(ci),
                           static_cast<const unsigned*>(bits), len, nbw}};
   return dispatch<true>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream));
+}
+
+// x, w int8 device pointers (16-byte aligned; w packed (K, K, COp, CIp)),
+// scale and b f32 per padded output channel; with requant != 0 y is int8
+// at out_scale, else f32.  p as for `deconv2d_tc_forward`, its dtype
+// D_INT8.  0 on success.
+int deconv2d_tc_int8_forward(const void* x, const void* w, const void* scale, const void* b,
+                             void* y, const int* p, float out_scale, int requant, void* stream) {
+  Geometry g;
+  TapTable taps;
+  int threads;
+  long long smem;
+  if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
+  if (!g.int8 || (requant && !(out_scale > 0.0f))) return E_ARGS;
+  if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
+  const LaunchInt8 a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+                     static_cast<const float*>(scale), static_cast<const float*>(b), y,
+                     out_scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (requant) return dispatch_int8<true>(a, g, taps, threads, (size_t)smem, st);
+  return dispatch_int8<false>(a, g, taps, threads, (size_t)smem, st);
 }
 
 }  // extern "C"

@@ -2,25 +2,27 @@
 
 Deterministic choices of the same ``TileChoice`` fields as the JAX
 package's autotuner (``t_oh, t_ow, t_ci, t_co, t_n``), one per kernel
-(`core.tiling.kernel_for`).  In both, ``t_oh``/``t_ow`` are square
+(`core.tiling.kernel_for`).  In all, ``t_oh``/``t_ow`` are square
 multiples of the stride (every tile has the same phase structure), a block
 has at most 512 threads (the kernels' launch bound), and a 1x1 root layer
 takes S-pixel spatial tiles, one valid tap each.
 
-fp32, the tensor-core kernel (``csrc/deconv2d_tc.cu``), `_tc_tiles`: every
-candidate the kernel takes (``t_ci`` a multiple of 8; ``t_co`` a multiple
-of 8, or C_out itself below 8; at most 16 warps and 227 KB) is scored by
-`tc_cost`, a model of one SM's clock, and the cheapest whose grid (cluster
-split included, `ci_split`) fills the 132 SMs wins; where no candidate
-fills them, the cheapest of all.  The model counts per block and CI chunk
-the instructions issued, the tensor-core products (3xTF32: three ``mma``
-per m16n8k8 tile), the shared-memory wavefronts of the fragment loads, the
-bytes staged from L2 and the bulk copies (one per staged row), plus one
-copy latency per chunk over the stages in flight; blocks share an SM's
-rates and run in waves.  Its constants were fitted to timed tiles on an
-H100, so it ranks tiles, it does not predict times.
+fp32 and int8, the tensor-core kernels (``csrc/deconv2d_tc.cu``),
+`_tc_tiles`: every candidate the kernel takes (fp32: ``t_ci`` a multiple of
+8; int8: 32, 64 or 128; ``t_co`` a multiple of 8, or C_out itself below 8;
+at most 16 warps and 227 KB) is scored by `tc_cost`, a model of one SM's
+clock, and the cheapest whose grid (cluster split included, `ci_split`)
+fills the 132 SMs wins; where no candidate fills them, the cheapest of
+all.  The model counts per block and CI chunk the instructions issued, the
+tensor-core products (fp32 3xTF32: three ``mma`` per m16n8k8 tile; int8:
+one m16n8k32 ``mma``), the shared-memory wavefronts of the fragment loads,
+the bytes staged from L2 and the bulk copies (one per staged row), plus
+one copy latency per chunk over the stages in flight; blocks share an SM's
+rates and run in waves.  Its constants were fitted by hand to timed tiles
+on an H100, each dtype's to its own kernel, so it ranks tiles, it does not
+predict times.
 
-bf16 and int8, the FMA kernel (``csrc/deconv2d.cu``), `_simt_tiles`: the
+bf16, the FMA kernel (``csrc/deconv2d.cu``), `_simt_tiles`: the
 weight slab of one CI chunk stays within 64 KB; the grid fills the 132 SMs:
 at small batch the channel tile narrows (down to 4), and only below 66
 blocks does the spatial tile shrink, while a block keeps 16 threads; at
@@ -38,9 +40,10 @@ import functools
 from typing import Dict
 
 from ..core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_THREADS,
-                           DeconvGeometry, block_threads, kernel_for,
-                           kernel_smem_bytes, launch_threads, staged_window,
-                           tc_smem_layout, tc_warp_tile)
+                           DeconvGeometry, block_threads, dtype_name,
+                           kernel_for, kernel_smem_bytes, launch_threads,
+                           staged_window, tc_columns, tc_smem_layout,
+                           tc_warp_tile)
 
 SMS = 132                      # streaming multiprocessors of an H100
 MAX_SPLIT = 8                  # blocks of a cluster (the portable limit)
@@ -101,7 +104,7 @@ def hopper_tiles(geom: DeconvGeometry, batch: int = 1,
     """Tiles for one layer at the batch its kernel will see, for the
     kernel that runs ``dtype``."""
     if kernel_for(dtype) == "tc":
-        return _tc_tiles(geom, batch)
+        return _tc_tiles(geom, batch, dtype_name(dtype))
     return _simt_tiles(geom, batch)
 
 
@@ -113,11 +116,20 @@ def fill_tiles(geom: DeconvGeometry, batch: int, dtype="float32",
                                **{f: v for f, v in given.items() if v is not None})
 
 
-# -- the tensor-core kernel ---------------------------------------------
+# -- the tensor-core kernels --------------------------------------------
 # A model of one SM's clock, not measurements: the constants were fitted by
-# hand to timed tiles of both generators' layers on an H100 (PERF.md).
+# hand to timed tiles of both generators' layers on an H100 (PERF.md), the
+# shared ones and MMA_CLK to the fp32 kernel, the INT8_ ones to the int8
+# kernel (every tile it takes, timed by tools/sweep_int8_tiles.py).  On
+# int8 the mma never binds; the per-chunk cost does (a 128-channel chunk
+# ran up to 1.25x faster than two of 64 at equal tiles), and a cluster
+# split costs more than fp32's constant says.
 ISSUE_PER_CLK = 4       # instructions an SM issues per clock (4 schedulers)
 MMA_CLK = 1.5           # SM clocks per m16n8k8 TF32 mma.sync, as sustained
+INT8_MMA_CLK = 2.0      # SM clocks per m16n8k32 s8 mma.sync, as sustained
+INT8_CHUNK_CLK = 750    # SM clocks per block and chunk not hidden (int8)
+INT8_REDUCE_CLK = 5000  # the int8 split's cluster barriers and int32 sums
+INT8_T_CI = (32, 64, 128)  # the int8 kernel's CI chunks (whole k32 steps)
 COPY_INSTR = 12         # instructions per bulk copy (a staged row)
 COPY_CLK = 4.0          # SM clocks of the copy engine per bulk copy
 COPY4_INSTR = 10        # instructions per 4-byte cp.async (thin weight rows)
@@ -130,7 +142,7 @@ REGS_PER_THREAD = 128   # the launch bound's register cap
 WAVE_CLK = 2.0          # SM clocks per shared-memory wavefront of the loads
 
 
-def _tc_candidates(geom: DeconvGeometry, batch: int):
+def _tc_candidates(geom: DeconvGeometry, batch: int, dtype="float32"):
     s = geom.stride
     if geom.in_h == geom.in_w == 1:
         spatial = [s]
@@ -149,6 +161,8 @@ def _tc_candidates(geom: DeconvGeometry, batch: int):
     # or 32 at every tile timed
     t_cis = [c for c in (8, 16, 32) if c <= _round_up(geom.c_in, 8)
              and (c > 8 or geom.c_in < 128)]
+    if dtype_name(dtype) == "int8":
+        t_cis = [c for c in INT8_T_CI if c <= _round_up(geom.c_in, 32)]
     for t in spatial:
         for t_n in t_ns:
             for t_co in t_cos:
@@ -167,16 +181,17 @@ def _a_conflicts(tw: int, t_n: int, win_w: int, win_h: int) -> float:
 
 
 def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
-            t_ci: int):
-    """Modelled SM clocks of one "tc" launch at these tiles, or None where
-    the kernel does not take them.
+            t_ci: int, dtype="float32"):
+    """Modelled SM clocks of one "tc" launch of ``dtype`` (fp32 or int8) at
+    these tiles, or None where the kernel does not take them.
 
     Per block and CI chunk: the instructions its warps issue (fragment
-    loads, the 3xTF32 splits, the mma, one bulk copy per staged input and
+    loads, fp32's 3xTF32 splits, the mma, one bulk copy per staged input and
     weight row) against the SMs' issue rate, its mma against the tensor
     cores' rate, its staged bytes against L2, and one copy latency divided
     by the stages in flight.  Blocks resident on one SM share its rates;
     the grid runs in waves; a split adds its cluster reduction."""
+    int8 = dtype_name(dtype) == "int8"
     s = geom.stride
     pix = t_n * (t // s) ** 2
     if block_threads(s, t, t, t_co, t_n) > KERNEL_MAX_THREADS:
@@ -189,7 +204,7 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     split = ci_split(blocks, n_chunks)
     stages, smem = tc_smem_layout(geom.in_h, geom.in_w, geom.kernel, s,
                                   geom.padding, ohp, owp, t, t, t_ci, t_co,
-                                  t_n, split)
+                                  t_n, split, dtype)
     if smem > KERNEL_MAX_SMEM:
         return None
     rows_h, taps_h = staged_window(geom.in_h, ohp, t, geom.kernel, s,
@@ -200,24 +215,37 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     mgroups = -(-(-(-pix // 16)) // wm)
     ngroups = -(-(-(-t_co // 8)) // wn)
     warps = s * s * mgroups * ngroups
-    # per chunk: every valid tap is one phase's, over that phase's warps
-    ksteps = taps_h * taps_w * mgroups * ngroups * (t_ci // 8)
-    mma = ksteps * 3 * wm * wn
-    frag = 3 * (4 * wm + 2 * wn)         # loads and splits per k-step
+    x_rows = t_n * rows_h * rows_w
+    # per chunk: every valid tap is one phase's, over that phase's warps;
     # the shared-memory wavefronts of a k-step: B rows are conflict-free,
     # A rows conflict where a fragment's 8 rows share a bank
     waves_k = 4 * wm * _a_conflicts(t // s, t_n, rows_w, rows_h) + 2 * wn
-    x_rows = t_n * rows_h * rows_w
-    w_rows = taps_h * taps_w * t_ci
-    copies = (x_rows + w_rows) * COPY_INSTR if t_co % 4 == 0 else \
-        x_rows * COPY_INSTR + w_rows * t_co * COPY4_INSTR
+    if int8:
+        # one m16n8k32 mma per tile and 32-deep k-step, 32-bit fragment
+        # loads, one bulk copy per staged (tap, channel) weight row
+        ksteps = taps_h * taps_w * mgroups * ngroups * (t_ci // 32)
+        mma = ksteps * wm * wn
+        frag = 4 * wm + 2 * wn
+        w_rows = taps_h * taps_w * t_co
+        copies = (x_rows + w_rows) * COPY_INSTR
+        staged = t_ci * (x_rows + taps_h * taps_w * tc_columns(t_co))
+        mma_clk, copied, chunk_clk = INT8_MMA_CLK, x_rows + w_rows, \
+            INT8_CHUNK_CLK
+    else:
+        ksteps = taps_h * taps_w * mgroups * ngroups * (t_ci // 8)
+        mma = ksteps * 3 * wm * wn
+        frag = 3 * (4 * wm + 2 * wn)     # loads and splits per k-step
+        w_rows = taps_h * taps_w * t_ci
+        copies = (x_rows + w_rows) * COPY_INSTR if t_co % 4 == 0 else \
+            x_rows * COPY_INSTR + w_rows * t_co * COPY4_INSTR
+        staged = 4 * t_ci * (x_rows + taps_h * taps_w * t_co)
+        mma_clk, chunk_clk = MMA_CLK, 0
+        copied = x_rows + (w_rows if t_co % 4 == 0 else 0)
     instr = mma + ksteps * frag + copies + warps * CHUNK_INSTR
-    staged = 4 * t_ci * (x_rows + taps_h * taps_w * t_co)
     chunks = -(-n_chunks // split)
-    work = chunks * max(
-        instr / ISSUE_PER_CLK, mma * MMA_CLK, ksteps * waves_k * WAVE_CLK,
-        staged / L2_BYTES_PER_CLK,
-        (x_rows + (w_rows if t_co % 4 == 0 else 0)) * COPY_CLK)
+    work = chunks * (chunk_clk + max(
+        instr / ISSUE_PER_CLK, mma * mma_clk, ksteps * waves_k * WAVE_CLK,
+        staged / L2_BYTES_PER_CLK, copied * COPY_CLK))
     chain = chunks * LATENCY_CLK / (stages - 1)
     per_sm = -(-blocks * split // SMS)
     resident = max(1, min(per_sm, 2048 // threads,
@@ -227,18 +255,19 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     waves = -(-per_sm // resident)
     clk = waves * (max(resident * work / busy, chain) + LATENCY_CLK)
     if split > 1:
-        clk += waves * (REDUCE_CLK
+        clk += waves * ((INT8_REDUCE_CLK if int8 else REDUCE_CLK)
                         + 4 * s * s * pix * t_co / L2_BYTES_PER_CLK)
     return clk
 
 
 @functools.lru_cache(maxsize=1024)
-def _tc_tiles(geom: DeconvGeometry, batch: int) -> TileChoice:
+def _tc_tiles(geom: DeconvGeometry, batch: int,
+              dtype: str = "float32") -> TileChoice:
     """The cheapest tiles by `tc_cost` among those whose grid, split
     included, fills the card's SMs; the cheapest of all where none does."""
     best = None
-    for t, t_n, t_co, t_ci in _tc_candidates(geom, batch):
-        clk = tc_cost(geom, batch, t, t_n, t_co, t_ci)
+    for t, t_n, t_co, t_ci in _tc_candidates(geom, batch, dtype):
+        clk = tc_cost(geom, batch, t, t_n, t_co, t_ci, dtype)
         if clk is None:
             continue
         blocks = grid_blocks(geom, batch, t, t_co, t_n)
@@ -247,7 +276,8 @@ def _tc_tiles(geom: DeconvGeometry, batch: int) -> TileChoice:
         if best is None or key < best[0]:
             best = (key, t, t_n, t_co, t_ci)
     if best is None:
-        raise ValueError(f"no tile of the tensor-core kernel fits {geom}")
+        raise ValueError(f"no tile of the {dtype} tensor-core kernel fits "
+                         f"{geom}")
     _, t, t_n, t_co, t_ci = best
     return TileChoice(t_oh=t, t_ow=t, t_ci=t_ci, t_co=t_co, t_n=t_n)
 

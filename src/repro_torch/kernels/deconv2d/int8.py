@@ -1,4 +1,5 @@
-"""The int8 reverse-loop deconv kernel: launcher, plain version and op.
+"""The int8 reverse-loop deconv kernel: weight packing, launcher, plain
+version and op.
 
 The quantized twin of `kernel.py`, and the counterpart of the JAX
 package's ``_deconv2d_int8_kernel``: the same tiles and halo windows, int8
@@ -7,30 +8,105 @@ and a fused requant epilogue (`requant_epilogue`): ``acc * scale[c] + b``
 in f32, the activation, then either f32 out (the last layer) or int8 at
 the next layer's input scale ``out_scale``.
 
-* On a CUDA tensor `deconv2d_int8_launch` launches the kernel of
-  ``csrc/deconv2d.cu`` (``deconv2d_int8_forward``) or raises.
+* On a CUDA tensor `deconv2d_int8_launch` launches the int8 kernel of
+  ``csrc/deconv2d_tc.cu`` (``deconv2d_tc_int8_forward``: s8 ``mma.sync``
+  on the tensor cores, exact int32 sums, the CI chunks split over a
+  cluster where the grid would not fill the card) or raises.
 * On a CPU tensor it runs `deconv2d_int8_launch_plain`: the same sums in
   float64, exact for int8 products below 2**53, cast to int32, then the
   same epilogue.
+
+The kernel's B operand wants four consecutive input channels per output
+channel, so it takes the weight packed CI-minor, ``(K, K, COp, CIp)``, as
+a `PackedInt8Weights` from `pack_int8_weights`.  A serving engine packs
+each layer once (`quant.infer.pack_quantized_params`); the public
+`deconv2d_int8` also takes the reference layout ``(K, K, CI, CO)`` and
+packs per call.
 
 ``LAUNCHES`` counts launches of the int8 kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...core.deconv import phase_products
-from ...core.offsets import PhasePlan
+from ...core.offsets import PhasePlan, make_phase_plan
+from ...core.tiling import int8_acc_bound
 from ...quant.qmath import quantize_symmetric
-from .kernel import (_check_shapes, apply_activation, check_rc, launch_params,
-                     library)
-from .ops import launch_args, pad_channels, resolve_call
+from .kernel import (_check_shapes, aligned, apply_activation, check_rc,
+                     launch_params, launch_split, tc_library)
+from .ops import halo_pad_geometry, pad_channels, resolve_call
 
 LAUNCHES = 0
+# Channel multiple of the engine's packed weights: every t_ci and t_co the
+# int8 tiles take (`autotune.INT8_T_CI`; t_co 8..128, or C_out below 8)
+# divides it, so one packing serves every bucket's plan.
+PACK_ALIGN = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedInt8Weights:
+    """An int8 weight packed for the kernel: ``data`` is ``(K, K, COp,
+    CIp)`` int8, contiguous, zero past the real ``c_in`` / ``c_out``
+    channels (int8 has no zero point, so the padding adds exactly 0)."""
+
+    data: torch.Tensor
+    c_in: int
+    c_out: int
+
+    @property
+    def shape(self):
+        """The reference shape ``(K, K, CI, CO)`` of the weight it packs."""
+        return (self.kernel, self.kernel, self.c_in, self.c_out)
+
+    @property
+    def kernel(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def cip(self) -> int:
+        return self.data.shape[3]
+
+    @property
+    def cop(self) -> int:
+        return self.data.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def pack_int8_weights(w: torch.Tensor, cip: int, cop: int) -> PackedInt8Weights:
+    """``w`` ``(K, K, CI, CO)`` int8 zero-padded to ``cip`` / ``cop``
+    channels and laid out ``(K, K, COp, CIp)``: each (tap, output channel)
+    row holds its input channels contiguously."""
+    k, k2, ci, co = w.shape
+    if w.dtype != torch.int8 or k != k2:
+        raise ValueError(f"pack_int8_weights takes (K, K, CI, CO) int8, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    if cip < ci or cop < co:
+        raise ValueError(f"cannot pack {ci}x{co} channels into {cip}x{cop}")
+    data = F.pad(w, (0, cop - co, 0, cip - ci)).permute(0, 1, 3, 2)
+    return PackedInt8Weights(data.contiguous(), ci, co)
+
+
+def packed_width(c: int) -> int:
+    """The channels a layer's weight is packed to once for every plan:
+    ``c`` below 8 (a thin layer's t_co is C_out itself), else the next
+    multiple of `PACK_ALIGN`."""
+    return c if c < 8 else -(-c // PACK_ALIGN) * PACK_ALIGN
+
+
+def unpack_int8_weights(pk: PackedInt8Weights) -> torch.Tensor:
+    """The padded reference layout ``(K, K, CIp, COp)`` of a packed weight:
+    a view (no copy), for the plain version."""
+    return pk.data.permute(0, 1, 3, 2)
 
 
 def requant_epilogue(acc_i32: torch.Tensor, scale: torch.Tensor,
@@ -49,48 +125,91 @@ def requant_epilogue(acc_i32: torch.Tensor, scale: torch.Tensor,
     return quantize_symmetric(y, out_scale)
 
 
+def check_acc_range(plan: PhasePlan, cip: int) -> None:
+    """Refuse a layer whose int32 sums could overflow (`int8_acc_bound`)."""
+    bound = int8_acc_bound(plan.kernel_size, plan.stride, plan.padding, cip)
+    if bound >= 2 ** 31:
+        raise ValueError(f"int8 deconv: taps x {cip} channels x 127^2 = "
+                         f"{bound} does not fit the int32 accumulator")
+
+
+def int8_acc_plain(xp: torch.Tensor, wp: torch.Tensor, plan: PhasePlan,
+                   ohp: int, owp: int, t_ci: int,
+                   split: int = 1) -> torch.Tensor:
+    """The int32 sums of the int8 kernel, ``(N, OHp, OWp, COp)``, in plain
+    torch: float64 products and sums (exact below 2**53) cast to int32.
+    ``wp`` is the padded reference layout ``(K, K, CIp, COp)``.  With
+    ``split`` > 1 they are taken as the kernel's cluster takes them: rank
+    r's partial over the r-th contiguous range of the CI chunks, the
+    partials added in rank order (integer sums: the same in any order)."""
+    check_acc_range(plan, xp.shape[3])
+    s = plan.stride
+    n_ci = xp.shape[3] // t_ci
+    if not 1 <= split <= n_ci:
+        raise ValueError(f"split {split} over {n_ci} CI chunks")
+    zero = torch.zeros((), dtype=torch.float64, device=xp.device)
+    acc = None
+    for r in range(split):
+        c0, c1 = (r * n_ci // split) * t_ci, ((r + 1) * n_ci // split) * t_ci
+        part = phase_products(xp[..., c0:c1], wp[:, :, c0:c1], plan, ohp // s,
+                              owp // s, zero, dtype=torch.float64)
+        part = part.to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def deconv2d_int8_launch_plain(
     xp: torch.Tensor, wp: torch.Tensor, sp: torch.Tensor, bp: torch.Tensor, *,
     plan: PhasePlan, ih: int, iw: int, ohp: int, owp: int, t_oh: int,
     t_ow: int, t_ci: int, t_co: int, t_n: int, activation: Optional[str],
-    out_scale: Optional[float],
+    out_scale: Optional[float], split: int = 1,
 ) -> torch.Tensor:
-    """The int8 kernel's function in plain torch, on its launch arguments."""
+    """The int8 kernel's function in plain torch, on its launch arguments
+    with the weight in the padded reference layout ``(K, K, CIp, COp)``
+    (`unpack_int8_weights` of the packed one): `int8_acc_plain` (at
+    ``split``), then `requant_epilogue`."""
     _check_shapes(tuple(xp.shape), tuple(wp.shape), plan, ih, iw, ohp, owp,
                   t_oh, t_ow, t_ci, t_co, t_n)
-    s = plan.stride
-    zero = torch.zeros((), dtype=torch.float64, device=xp.device)
-    acc = phase_products(xp, wp, plan, ohp // s, owp // s, zero,
-                         dtype=torch.float64).to(torch.int32)
+    acc = int8_acc_plain(xp, wp, plan, ohp, owp, t_ci, split)
     return requant_epilogue(acc, sp.reshape(-1), bp.reshape(-1), activation,
                             out_scale)
 
 
 def deconv2d_int8_launch(
-    xp: torch.Tensor, wp: torch.Tensor, sp: torch.Tensor, bp: torch.Tensor, *,
-    plan: PhasePlan, ih: int, iw: int, ohp: int, owp: int, t_oh: int,
-    t_ow: int, t_ci: int, t_co: int, t_n: int, activation: Optional[str],
-    out_scale: Optional[float],
+    xp: torch.Tensor, wpk: PackedInt8Weights, sp: torch.Tensor,
+    bp: torch.Tensor, *, plan: PhasePlan, ih: int, iw: int, ohp: int,
+    owp: int, t_oh: int, t_ow: int, t_ci: int, t_co: int, t_n: int,
+    activation: Optional[str], out_scale: Optional[float],
 ) -> torch.Tensor:
     """One int8 kernel launch on a CUDA tensor; the plain version on a CPU
-    one.  x, w int8; scale, bias f32 ``(1, COp)``; the output is int8, or
-    f32 when ``out_scale`` is None."""
+    one.  x int8 ``(N, IHp, IWp, CIp)``; ``wpk`` the packed weight (CIp
+    its channels); scale, bias f32 ``(1, COp)``; the output ``(N, OHp,
+    OWp, COp)`` is int8, or f32 when ``out_scale`` is None.  Raises before
+    the launch on an unpacked weight and on a layer whose sums could leave
+    the int32 range; on the card also on CI chunks that are not a multiple
+    of 32 and on tiles whose shared memory exceeds a block's."""
     global LAUNCHES
+    if not isinstance(wpk, PackedInt8Weights):
+        raise TypeError("the int8 kernel takes a PackedInt8Weights "
+                        "(pack_int8_weights), not a raw weight tensor")
     kw = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
               t_ci=t_ci, t_co=t_co, t_n=t_n, activation=activation)
     if xp.device.type == "cpu":
-        return deconv2d_int8_launch_plain(xp, wp, sp, bp, out_scale=out_scale,
-                                          **kw)
+        return deconv2d_int8_launch_plain(xp, unpack_int8_weights(wpk), sp,
+                                          bp, out_scale=out_scale, **kw)
     if xp.dtype != torch.int8:
         raise TypeError(f"deconv2d int8 kernel takes int8, got {xp.dtype}")
-    params = launch_params(xp, wp, [("scale", sp, torch.float32),
-                                    ("b", bp, torch.float32)], **kw)
+    check_acc_range(plan, xp.shape[3])
+    xp, wq = aligned(xp), aligned(wpk.data)
+    params = launch_params(xp, wq, [("scale", sp, torch.float32),
+                                    ("b", bp, torch.float32)],
+                           w_shape=wpk.shape[:2] + (wpk.cip, wpk.cop), **kw)
     out_dtype = torch.float32 if out_scale is None else torch.int8
-    y = torch.empty((xp.shape[0], ohp, owp, wp.shape[3]), dtype=out_dtype,
+    y = torch.empty((xp.shape[0], ohp, owp, wpk.cop), dtype=out_dtype,
                     device=xp.device)
     with torch.cuda.device(xp.device):
-        rc = library().deconv2d_int8_forward(
-            xp.data_ptr(), wp.data_ptr(), sp.data_ptr(), bp.data_ptr(),
+        rc = tc_library().deconv2d_tc_int8_forward(
+            xp.data_ptr(), wq.data_ptr(), sp.data_ptr(), bp.data_ptr(),
             y.data_ptr(), params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
             float(np.float32(out_scale if out_scale is not None else 1.0)),
             int(out_scale is not None),
@@ -100,22 +219,47 @@ def deconv2d_int8_launch(
     return y
 
 
+def launch_split_int8(xp: torch.Tensor, wpk: PackedInt8Weights, kw) -> int:
+    """The cluster split of one int8 launch (``kw`` the launch kwargs)."""
+    return launch_split(xp.shape[0], xp.shape[3], wpk.cop, kw["ohp"],
+                        kw["owp"], kw["t_oh"], kw["t_ow"], kw["t_ci"],
+                        kw["t_co"], kw["t_n"])
+
+
 def launch_args_int8(x, w, scale, b, stride, padding, t_oh, t_ow, t_ci, t_co,
                      t_n, activation, out_scale):
     """The host padding of one int8 launch, as in the JAX package's
-    ``_deconv2d_int8_jit``: ``(xp, wp, sp, bp, kwargs, crop)`` where
-    ``deconv2d_int8_launch(xp, wp, sp, bp, **kwargs)[crop]`` is the
-    layer's output.  int8 zero is real zero, so padding needs no offset."""
-    xp, wp, bp, kwargs, crop = launch_args(
-        x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co, t_n, activation,
-        bias_dtype=torch.float32)
-    sp = pad_channels(scale.to(torch.float32), wp.shape[3]).contiguous()
-    return xp, wp, sp, bp, {**kwargs, "out_scale": out_scale}, crop
+    ``_deconv2d_int8_jit``: ``(xp, wpk, sp, bp, kwargs, crop)`` where
+    ``deconv2d_int8_launch(xp, wpk, sp, bp, **kwargs)[crop]`` is the
+    layer's output.  ``w`` is the reference layout ``(K, K, CI, CO)``,
+    packed here at the launch's padded channels, or a `PackedInt8Weights`
+    (packed once), whose channels x is padded to.  int8 zero is real
+    zero, so padding needs no offset."""
+    n, ih, iw, ci = x.shape
+    k, _, wci, co = w.shape
+    if wci != ci:
+        raise ValueError(f"w has {wci} input channels, x {ci}")
+    plan = make_phase_plan(k, stride, padding)
+    (oh, ow, ohp, owp, pad_l, pad_rh, pad_rw, cip, cop, t_n,
+     np_) = halo_pad_geometry(n, ih, iw, ci, co, plan, t_oh, t_ow, t_ci,
+                              t_co, t_n)
+    wpk = w if isinstance(w, PackedInt8Weights) else \
+        pack_int8_weights(w, cip, cop)
+    x_pad = (0, wpk.cip - ci, pad_l, pad_rw, pad_l, pad_rh, 0, np_ - n)
+    xp = F.pad(x, x_pad) if any(x_pad) else x
+    bp = (b if b is not None else torch.zeros((co,), device=x.device))
+    bp = pad_channels(bp.to(torch.float32), wpk.cop).contiguous()
+    sp = pad_channels(scale.to(torch.float32), wpk.cop).contiguous()
+    kwargs = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh,
+                  t_ow=t_ow, t_ci=t_ci, t_co=t_co, t_n=t_n,
+                  activation=activation, out_scale=out_scale)
+    crop = (slice(0, n), slice(0, oh), slice(0, ow), slice(0, co))
+    return xp.contiguous(), wpk, sp, bp, kwargs, crop
 
 
 def deconv2d_int8(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w: Union[torch.Tensor, PackedInt8Weights],
     scale: torch.Tensor,
     b: Optional[torch.Tensor],
     stride: Optional[int] = None,
@@ -131,8 +275,9 @@ def deconv2d_int8(
 ) -> torch.Tensor:
     """Quantized transposed conv through the int8 kernel, on x's device.
 
-    x: (N, IH, IW, CI) int8; w: (K, K, CI, CO) int8; scale: (CO,) f32, the
-    combined ``x_scale * w_scale`` per output channel
+    x: (N, IH, IW, CI) int8; w: (K, K, CI, CO) int8 (packed per call), or
+    its `PackedInt8Weights` (packed once); scale: (CO,) f32, the combined
+    ``x_scale * w_scale`` per output channel
     (`quant.calibrate.quantize_params`); b: (CO,) f32 or None.
     ``out_scale`` re-quantizes the activated output to int8 for the next
     layer; None emits f32.
@@ -142,10 +287,11 @@ def deconv2d_int8(
     plan.  Without one, ``stride`` and ``padding`` are required and the
     tiles left out come from `autotune.hopper_tiles` at this batch."""
     stride, padding, tiles, activation = resolve_call(
-        plan, x, w, "cuda", "deconv2d_int8", stride, padding, activation,
-        (t_oh, t_ow, t_ci, t_co, t_n))
+        plan, x, w, "cuda", "deconv2d_int8", stride, padding,
+        activation, (t_oh, t_ow, t_ci, t_co, t_n))
     if plan is not None and out_scale is None:
         out_scale = plan.out_scale
-    xp, wp, sp, bp, kwargs, crop = launch_args_int8(
+    xp, wpk, sp, bp, kwargs, crop = launch_args_int8(
         x, w, scale, b, stride, padding, *tiles, activation, out_scale)
-    return deconv2d_int8_launch(xp, wp, sp, bp, **kwargs)[crop]
+    return deconv2d_int8_launch(xp, wpk, sp, bp, **kwargs)[crop]
+

@@ -13,7 +13,8 @@ skip taps that read only host padding).  It returns the padded output
   failed build, a refused launch, or an input the kernel does not take.
   There is no fallback.  Where the grid would not fill the card, the fp32
   kernel splits the CI chunks over the blocks of a cluster
-  (`autotune.ci_split`).
+  (`autotune.ci_split`).  The int8 kernel of the same library has its own
+  launcher (`int8.py`) and shares the parameter checks here.
 * On a CPU tensor it runs ``deconv2d_launch_plain``, the same function in
   plain torch (vectorised over the whole padded arrays, not a tile loop).
 
@@ -51,7 +52,7 @@ _PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
 _TC_PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
                     "t_n", "t_oh", "t_ow", "t_ci", "t_co", "t_ih", "t_iw",
                     "base_h", "base_w", "act", "ih", "iw", "pad_l", "threads",
-                    "split")
+                    "split", "dtype")
 _ARG_ERRORS = {
     -1: "arguments the kernel does not take (geometry, tiles or padding)",
     -2: f"more than {KERNEL_MAX_THREADS} threads per block at these tiles",
@@ -153,8 +154,9 @@ def _tap_words(plan: PhasePlan) -> list:
 
 def launch_split(n: int, cip: int, cop: int, ohp: int, owp: int, t_oh: int,
                  t_ow: int, t_ci: int, t_co: int, t_n: int) -> int:
-    """Blocks of a cluster that share one output tile's CI chunks in the
-    fp32 kernel's launch at these padded extents and tiles."""
+    """Blocks of a cluster that share one output tile's CI chunks in a
+    tensor-core kernel's launch (fp32 or int8) at these padded extents and
+    tiles."""
     blocks = (n // t_n) * (ohp // t_oh) * (owp // t_ow) * (cop // t_co)
     return ci_split(blocks, cip // t_ci)
 
@@ -205,14 +207,17 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
-                  t_co, t_n, activation) -> np.ndarray:
+                  t_co, t_n, activation, w_shape=None) -> np.ndarray:
     """Check one launch's tensors and return its int32 parameter array, for
     the kernel that runs x's dtype (`core.tiling.kernel_for`).
 
     ``others`` lists ``(name, tensor, dtype)`` of the per-channel vectors
     (bias, scale) that must hold one value per padded output channel.
-    Shared by the kernels of ``csrc/deconv2d.cu`` and
+    ``w_shape`` is the weight's shape in the reference layout ``(K, K,
+    CIp, COp)`` where ``wp`` is laid out otherwise (the int8 kernel's
+    packed weight).  Shared by the kernels of ``csrc/deconv2d.cu`` and
     ``csrc/deconv2d_tc.cu``."""
+    w_shape = tuple(wp.shape) if w_shape is None else tuple(w_shape)
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
     if xp.device.type != "cuda":
@@ -226,12 +231,12 @@ def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
         if t.device != xp.device or t.dtype != dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; the kernel "
                              f"takes {dtype} on {xp.device}")
-        if not t.is_contiguous() or t.numel() != wp.shape[3]:
+        if not t.is_contiguous() or t.numel() != w_shape[3]:
             raise ValueError(f"{name} has {t.numel()} values for "
-                             f"{wp.shape[3]} output channels")
+                             f"{w_shape[3]} output channels")
     fn = (_tc_launch_params if kernel_for(xp.dtype) == "tc"
           else _launch_params)
-    return fn(tuple(xp.shape), tuple(wp.shape), plan.kernel_size, plan.stride,
+    return fn(tuple(xp.shape), w_shape, plan.kernel_size, plan.stride,
               plan.padding, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co, t_n,
               _ACT_CODE[activation], _DTYPE_CODE[xp.dtype])
 
@@ -288,27 +293,30 @@ def _launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
 @functools.lru_cache(maxsize=256)
 def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
                       t_ci, t_co, t_n, act, dtype) -> np.ndarray:
-    """The fp32 kernel's int32 parameter array for one launch shape (split
-    included), checked once per shape and tiles.  Read-only."""
+    """The int32 parameter array of the fp32 or the int8 tensor-core kernel
+    (``dtype``) for one launch shape (split included), checked once per
+    shape and tiles.  Read-only."""
     fields = _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh,
                             t_ow, t_ci, t_co, t_n, act)
-    if t_ci % 8:
-        raise ValueError(f"t_ci={t_ci}: the fp32 kernel takes CI chunks of a "
-                         "multiple of 8 channels")
+    int8 = dtype == _DTYPE_CODE[torch.int8]
+    name = "int8" if int8 else "fp32"
+    if t_ci % (32 if int8 else 8):
+        raise ValueError(f"t_ci={t_ci}: the {name} kernel takes CI chunks of "
+                         f"a multiple of {32 if int8 else 8} channels")
     split = launch_split(x_shape[0], x_shape[3], w_shape[3], ohp, owp, t_oh,
                          t_ow, t_ci, t_co, t_n)
     fields.update(threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "tc"),
-                  split=split)
+                  split=split, dtype=dtype)
     params = np.array([fields[f] for f in _TC_PARAM_FIELDS]
                       + _tap_words(make_phase_plan(k, s, p)), dtype=np.int32)
     got = tc_library().deconv2d_tc_smem_bytes(
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     check_rc("deconv2d", min(got, 0))
     want = tc_smem_layout(ih, iw, k, s, p, ohp, owp, t_oh, t_ow, t_ci, t_co,
-                          t_n, split)[1]
+                          t_n, split, "int8" if int8 else "float32")[1]
     if got != want:
-        raise RuntimeError(f"deconv2d fp32 kernel: shared-memory model says "
-                           f"{want} bytes, the kernel {got}")
+        raise RuntimeError(f"deconv2d {name} kernel: shared-memory model "
+                           f"says {want} bytes, the kernel {got}")
     params.flags.writeable = False
     return params
 
@@ -340,19 +348,16 @@ _LIMITS = (KERNEL_MAX_STRIDE, KERNEL_MAX_TAPS, KERNEL_MAX_THREADS,
 
 def library() -> ctypes.CDLL:
     """The library of ``csrc/deconv2d.cu`` (the bf16 dense and zero-skip
-    kernels and the int8 kernel), built at first use; its launch limits
-    are checked against ``core.tiling``'s."""
+    kernels), built at first use; its launch limits are checked against
+    ``core.tiling``'s."""
     if "deconv2d" not in _libs:
         lib = _load("deconv2d", _LIMITS, 4)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         params = ctypes.POINTER(ctypes.c_int)
         lib.deconv2d_forward.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
-        lib.deconv2d_int8_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, params,
-                                              f32, i32, ptr]
         lib.deconv2d_sparse_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                                 ptr, i32, i32, params, ptr]
-        for fn in (lib.deconv2d_forward, lib.deconv2d_int8_forward,
-                   lib.deconv2d_sparse_forward):
+        for fn in (lib.deconv2d_forward, lib.deconv2d_sparse_forward):
             fn.restype = ctypes.c_int
         lib.deconv2d_smem_bytes.argtypes = [params]
         lib.deconv2d_smem_bytes.restype = ctypes.c_longlong
@@ -361,17 +366,21 @@ def library() -> ctypes.CDLL:
 
 def tc_library() -> ctypes.CDLL:
     """The library of ``csrc/deconv2d_tc.cu`` (the fp32 dense and
-    zero-skip kernels on the tensor cores), built at first use; its launch
-    limits are checked against ``core.tiling``'s and ``autotune``'s."""
+    zero-skip kernels and the int8 kernel, on the tensor cores), built at
+    first use; its launch limits are checked against ``core.tiling``'s and
+    ``autotune``'s."""
     if "deconv2d_tc" not in _libs:
         lib = _load("deconv2d_tc", _LIMITS + (MAX_SPLIT,), 5)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         params = ctypes.POINTER(ctypes.c_int)
         lib.deconv2d_tc_forward.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
         lib.deconv2d_tc_sparse_forward.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                                    ptr, ptr, i32, i32, params,
                                                    ptr]
-        for fn in (lib.deconv2d_tc_forward, lib.deconv2d_tc_sparse_forward):
+        lib.deconv2d_tc_int8_forward.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                                 params, f32, i32, ptr]
+        for fn in (lib.deconv2d_tc_forward, lib.deconv2d_tc_sparse_forward,
+                   lib.deconv2d_tc_int8_forward):
             fn.restype = ctypes.c_int
         lib.deconv2d_tc_smem_bytes.argtypes = [params]
         lib.deconv2d_tc_smem_bytes.restype = ctypes.c_longlong

@@ -5,7 +5,10 @@
 quantizes z once, then every deconv layer runs the int8 kernel with its
 fused requant epilogue re-quantizing straight into the next layer's
 calibrated range.  Activations stay int8 on the device between layers;
-only the final tanh layer emits f32 images.
+only the final tanh layer emits f32 images.  The kernel takes its weights
+packed CI-minor (`kernels.deconv2d.int8.pack_int8_weights`):
+`pack_quantized_params` packs every layer once, and the chain uses those
+packed weights where the tree has them.
 """
 from __future__ import annotations
 
@@ -28,6 +31,22 @@ def _check_qcfg(cfg: DcnnConfig, qcfg: Optional[QuantConfig]) -> QuantConfig:
     return qcfg
 
 
+def pack_quantized_params(qp: Dict[str, Dict[str, torch.Tensor]],
+                          cfg: DcnnConfig) -> Dict[str, Dict[str, object]]:
+    """``qp`` with each layer's ``w_q`` also packed for the int8 kernel, as
+    ``"w_packed"``, at channel widths that every tile choice divides
+    (`kernels.deconv2d.int8.packed_width`), so one packing serves every
+    bucket's plan.  ``w_q`` stays in the reference layout."""
+    from ..kernels.deconv2d.int8 import pack_int8_weights, packed_width
+
+    out = {}
+    for i, l in enumerate(cfg.layers):
+        lq = qp[f"l{i}"]
+        out[f"l{i}"] = {**lq, "w_packed": pack_int8_weights(
+            lq["w_q"], packed_width(l.c_in), packed_width(l.c_out))}
+    return out
+
+
 def quantized_generator_apply(
     qp: Dict[str, Dict[str, torch.Tensor]],
     cfg: DcnnConfig,
@@ -39,7 +58,9 @@ def quantized_generator_apply(
     device (``qp`` on the same device).
 
     ``qp`` is the `quant.calibrate.quantize_params` tree (int8 ``w_q``, f32
-    ``b``, f32 per-channel combined ``scale``); ``qcfg`` carries the
+    ``b``, f32 per-channel combined ``scale``), with ``w_packed`` per layer
+    where `pack_quantized_params` added it (else each launch packs
+    ``w_q``); ``qcfg`` carries the
     activation scales that chain the layers.  With ``plan`` (an int8
     `repro_torch.plan.NetworkPlan`), tiles and requant scales come from
     the plan and ``qcfg`` may be None."""
@@ -56,11 +77,12 @@ def quantized_generator_apply(
     x = quantize_symmetric(tower_input(cfg, z), qcfg.layers[0].x_scale)
     for i, l in enumerate(cfg.layers):
         lq = qp[f"l{i}"]
+        w = lq.get("w_packed", lq["w_q"])
         if plan is not None:
-            x = deconv2d_int8(x, lq["w_q"], lq["scale"], lq["b"],
+            x = deconv2d_int8(x, w, lq["scale"], lq["b"],
                               plan=plan.layers[i])
         else:
-            x = deconv2d_int8(x, lq["w_q"], lq["scale"], lq["b"], l.stride,
+            x = deconv2d_int8(x, w, lq["scale"], lq["b"], l.stride,
                               l.padding, activation=l.activation,
                               out_scale=qcfg.out_scale(i))
     return x

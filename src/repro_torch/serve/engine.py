@@ -8,8 +8,9 @@ were resolved for that bucket's batch, and a ``submit``/``collect`` queue
 coalesces small requests into the largest fitting buckets.
 
 Three kernel paths: fp32 on "cuda" (the dense kernel), int8 on "cuda"
-(the int8 kernel chain: params calibrated and quantized once at
-construction and kept on the device) and fp32 on "cuda_sparse" (the
+(the int8 kernel chain: params calibrated, quantized and packed for the
+kernel once at construction and kept on the device) and fp32 on
+"cuda_sparse" (the
 zero-skip kernel on pruned params; schedules built on the host once per
 layer and channel tiles, and copied to the device once per plan).
 ``launch_counts`` maps bucket -> launches of the kernel the engine's path
@@ -130,6 +131,7 @@ class DcnnServeEngine:
             self.plans[plan.batch] = plan
         if self.precision == "int8":
             from ..quant.calibrate import calibrate, quantize_params
+            from ..quant.infer import pack_quantized_params
             from ..workloads import calibration_input
 
             if self.quant_cfg is None:
@@ -138,8 +140,10 @@ class DcnnServeEngine:
                 self.quant_cfg = calibrate(params, self.cfg,
                                            z_cal.to(self.device),
                                            strategy=config.calib_strategy)
-            params = quantize_params(params, self.cfg, self.quant_cfg,
-                                     device=self.device)
+            # the kernel's packed weights, once: no dispatch transposes one
+            params = pack_quantized_params(
+                quantize_params(params, self.cfg, self.quant_cfg,
+                                device=self.device), self.cfg)
         self.params = params
         # queue entries are (ticket, rows, absolute deadline or None).
         # _qlock guards the queue state; _drain_lock serializes drains;

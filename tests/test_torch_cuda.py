@@ -5,7 +5,8 @@ without a card).  Run on a machine with one:
 
 Tolerances as in the CPU tests: fp32 1e-4, bf16 8e-2; the int8 kernel's
 int8 outputs equal its plain version's bit for bit, f32 ones within 1e-6;
-the fp32 kernel's repeated launches equal each other bit for bit."""
+the fp32 and int8 kernels' repeated launches equal each other bit for
+bit."""
 import numpy as np
 import pytest
 import torch
@@ -75,27 +76,69 @@ def test_engine_serves_on_the_card_through_the_kernel(card):
     np.testing.assert_allclose(y, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("out_scale,act", [(0.02, "relu"), (None, "tanh")])
-@pytest.mark.parametrize("geom", CASES)
-def test_int8_kernel_matches_plain_version(card, geom, out_scale, act, rng):
-    ih, iw, ci, co, k, s, p, t = geom
-    x = torch.from_numpy(rng.randint(-127, 128, (3, ih, iw, ci)).astype(np.int8))
+def _int8_check(card, rng, batch, geom, tiles, act, out_scale, split=None):
+    """The int8 kernel against its plain version (at the launch's cluster
+    split) on random int8 data: int8 outputs bit for bit, f32 within 1e-6;
+    two launches bit-identical.  Returns the split."""
+    ih, iw, ci, co, k, s, p = geom
+    x = torch.from_numpy(rng.randint(-127, 128, (batch, ih, iw, ci)).astype(np.int8))
     w = torch.from_numpy(rng.randint(-127, 128, (k, k, ci, co)).astype(np.int8))
     sc = torch.from_numpy((rng.rand(co) * 1e-4 / np.sqrt(ci)).astype(np.float32))
     b = torch.from_numpy((rng.randn(co) * 0.1).astype(np.float32))
-    xp, wp, sp, bp, kw, _ = int8_kernel.launch_args_int8(
-        x.to(card), w.to(card), sc.to(card), b.to(card), s, p, t, t, 4, 8, 2,
-        act, out_scale)
+    xp, wpk, sp, bp, kw, _ = int8_kernel.launch_args_int8(
+        x.to(card), w.to(card), sc.to(card), b.to(card), s, p, *tiles, act,
+        out_scale)
+    got_split = int8_kernel.launch_split_int8(xp, wpk, kw)
+    assert split is None or got_split == split
     before = int8_kernel.LAUNCHES
-    y = int8_kernel.deconv2d_int8_launch(xp, wp, sp, bp, **kw)
+    y = int8_kernel.deconv2d_int8_launch(xp, wpk, sp, bp, **kw)
+    y1 = int8_kernel.deconv2d_int8_launch(xp, wpk, sp, bp, **kw)
     torch.cuda.synchronize()
-    assert int8_kernel.LAUNCHES == before + 1
-    want = int8_kernel.deconv2d_int8_launch_plain(xp, wp, sp, bp, **kw)
+    assert int8_kernel.LAUNCHES == before + 2
+    assert torch.equal(y, y1)
+    want = int8_kernel.deconv2d_int8_launch_plain(
+        xp, int8_kernel.unpack_int8_weights(wpk), sp, bp, split=got_split,
+        **kw)
     assert y.dtype == want.dtype
     if out_scale is None:
         torch.testing.assert_close(y, want, rtol=0, atol=1e-6)
     else:
         torch.testing.assert_close(y, want, rtol=0, atol=0)
+    return got_split
+
+
+@pytest.mark.parametrize("out_scale,act", [(0.02, "relu"), (None, "tanh")])
+@pytest.mark.parametrize("geom", CASES)
+def test_int8_kernel_matches_plain_version(card, geom, out_scale, act, rng):
+    """The synthetic cases at 32-channel CI chunks, 8-channel tiles and a
+    batch tile of 2, each at the split its grid gives."""
+    ih, iw, ci, co, k, s, p, t = geom
+    _int8_check(card, rng, 3, (ih, iw, ci, co, k, s, p), (t, t, 32, 8, 2),
+                act, out_scale)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_int8_kernel_at_each_cluster_split(card, split, rng):
+    """One 16x16 output tile and 64 channels: the grid is one block, so the
+    split is the count of 32-channel CI chunks, up to 8."""
+    _int8_check(card, rng, 1, (8, 8, 32 * split, 64, 4, 2, 1),
+                (16, 16, 32, 64, 1), "relu", 0.05, split)
+
+
+@pytest.mark.parametrize("cfg,layer", [(dcnn.MNIST_DCNN, 2),
+                                       (dcnn.CELEBA_DCNN, 4)],
+                         ids=["mnist_l2", "celeba_l4"])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_kernel_on_thin_tanh_layers(card, cfg, layer, batch, rng):
+    """The 1- and 3-channel tanh layers at their int8 tiles, f32 out: zero
+    weight rows pad the n8 column tile, stores masked to the real
+    channels."""
+    g = cfg.geometries()[layer]
+    t = hopper_tiles(g, batch, "int8")
+    assert t.t_co == g.c_out
+    _int8_check(card, rng, batch, (g.in_h, g.in_w, g.c_in, g.c_out, g.kernel,
+                                   g.stride, g.padding),
+                tuple(t.as_kwargs().values()), "tanh", None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -127,7 +127,7 @@ def test_kernel_smem_bytes_counts_padded_window_and_slab():
         4 * stage
     assert 4 * 4 * (64 * 12 + 8 * 136) < 4 * 64 * 128 == \
         t_tiling.kernel_smem_bytes(root, 1, 1, 8, 128, t_n=64, split=2)
-    # the FMA kernel's model (bf16, int8)
+    # the FMA kernel's model (bf16)
     assert t_tiling.kernel_smem_bytes(g, 8, 8, 16, 64, 2, "simt") == \
         4 * (2 * ht.extent * ht.extent * 17 + 16 * 16 * 64)
     # the window's words round up to 16 bytes: 13 * 13 * 6 = 1014 -> 1016

@@ -13,7 +13,7 @@ from repro.plan import build_network_plan as j_build_network_plan
 from repro_torch.core.tiling import KERNEL_MAX_SMEM as MAX_SMEM
 from repro_torch.core.tiling import KERNEL_MAX_THREADS as MAX_THREADS
 from repro_torch.core.tiling import (DeconvGeometry, block_threads,
-                                     kernel_smem_bytes)
+                                     kernel_for, kernel_smem_bytes)
 from repro_torch.kernels.autotune import (SMS, TileChoice, ci_split,
                                           fill_tiles, grid_blocks,
                                           hopper_tiles)
@@ -95,29 +95,30 @@ def test_port_plan_json_round_trip(cfg):
 @pytest.mark.parametrize("cfg", [dcnn.MNIST_DCNN, dcnn.CELEBA_DCNN],
                          ids=["mnist", "celeba"])
 def test_hopper_tiles_fit_the_kernel(cfg):
-    """Every layer at every bucket, for both kernels: S-aligned tiles, at
+    """Every layer at every bucket, for every kernel: S-aligned tiles, at
     most 512 threads (the kernels' launch bound, within the card's 1024)
-    and 227 KB of shared memory per block.  fp32: CI chunks of a multiple
-    of 8 channels, channel tiles of a multiple of 8 (or C_out itself below
-    8), and at bucket 64 enough blocks, cluster split included, for the
-    card's 132 SMs.  bf16/int8: at bucket 64 enough blocks without one."""
+    and 227 KB of shared memory per block.  fp32 and int8 (the tensor-core
+    kernels): CI chunks of a multiple of 8 channels (int8: 32), channel
+    tiles of a multiple of 8 (or C_out itself below 8), and at bucket 64
+    enough blocks, cluster split included, for the card's 132 SMs.  bf16
+    (the FMA kernel): at bucket 64 enough blocks without one."""
     for g in cfg.geometries():
         for batch in BUCKETS:
-            for dtype in ("float32", "int8"):
-                kern = "tc" if dtype == "float32" else "simt"
+            for dtype in ("float32", "int8", "bfloat16"):
+                kern = kernel_for(dtype)
                 t = hopper_tiles(g, batch, dtype)
                 blocks = grid_blocks(g, batch, t.t_oh, t.t_co, t.t_n)
                 split = (ci_split(blocks, -(-g.c_in // t.t_ci))
                          if kern == "tc" else 1)
                 assert t.t_oh % g.stride == 0 and t.t_ow % g.stride == 0
                 assert kernel_smem_bytes(g, t.t_oh, t.t_ow, t.t_ci, t.t_co,
-                                         t.t_n, kern, split) \
+                                         t.t_n, kern, split, dtype) \
                     <= MAX_SMEM <= 227 * 1024
                 assert block_threads(g.stride, t.t_oh, t.t_ow, t.t_co,
                                      t.t_n, kern) <= MAX_THREADS <= 1024
                 assert 1 <= t.t_n <= batch
                 if kern == "tc":
-                    assert t.t_ci % 8 == 0
+                    assert t.t_ci % (32 if dtype == "int8" else 8) == 0
                     assert t.t_co % 8 == 0 or t.t_co == g.c_out < 8
                 if batch == 64:
                     assert blocks * split >= SMS
@@ -177,7 +178,7 @@ def test_reference_pinned_int8_plan_loads_and_verifies(mnist_params):
     for a, b in zip(plan.layers, hop.layers):
         assert (a.quant, a.out_scale, a.out_dtype_bytes, a.dtype) == \
             (b.quant, b.out_scale, b.out_dtype_bytes, b.dtype)
-        # int8 runs on the FMA kernel, with its own tiles
+        # int8 runs on the tensor cores, with its own tiles
         assert b.tiles == hopper_tiles(b.geometry, batch=4, dtype="int8")
     assert hop.layers[-1].out_dtype_bytes == 4 and hop.layers[0].dtype == "int8"
     # the port plans the same bucket from the same calibration identically

@@ -72,6 +72,7 @@ using std::max; using std::min;
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
 float4 make_float4(float, float, float, float);
+int4 make_int4(int, int, int, int);
 float __fmul_rn(float, float); float __fadd_rn(float, float); float __fdiv_rn(float, float);
 float __int2float_rn(int);
 struct __nv_bfloat16 { unsigned short v; };
