@@ -27,13 +27,18 @@ Phases (any failure raises and the exit code is non-zero):
     bit-identical outputs (the cluster split sums its partials in rank
     order, with no atomics);
  4. serving, both generators at full width through DcnnServeEngine with
-    mixed-size requests, on three paths, each driven with every kernel
-    count at 0 just before and read just after: fp32 on "cuda" (held
-    against reverse_loop and cudnn), int8 (against the int8 plain chain;
-    MMD against the fp32 images; weights packed once by the engine) and
-    "cuda_sparse" on params pruned at 0.9
-    (against reverse_loop and cudnn on the same params); the path's kernel
-    launches == layers x dispatches, the others' 0;
+    mixed-size requests, on three paths, each bucket one captured CUDA
+    graph, each path and net driven under torch.profiler with every count
+    at 0 just before and read just after: fp32 on "cuda" (held against
+    reverse_loop and cudnn), int8 (against the int8 plain chain; MMD
+    against the fp32 images; weights packed once by the engine) and
+    "cuda_sparse" on params pruned at 0.9 (against reverse_loop and cudnn
+    on the same params); the trace's device launches of the path's kernel
+    == layers x dispatches and none of the other two, the engine's
+    launch_counts the same, the Python wrappers' counts 0 (replays only,
+    no eager run), capture_counts 1 per bucket; every bucket's replayed
+    images bit-identical to an eager run of the same plan through the
+    public ops;
  5. times: per kernel, layer and bucket, device time (CUDA events, median
     of 25, launches queued behind a sleep, with a check that the sleep
     outlasted the host's enqueue) and per-call time against its bound (B1
@@ -42,18 +47,26 @@ Phases (any failure raises and the exit code is non-zero):
     version's per-call time and the library call's device time where there
     is one, and each row's cluster split (B2's rows also the registers and
     spills of the instance they launch); per net and path, images/s and
-    run-to-run CV from the engine;
- 6. the kernels line; 7. the result line.
+    run-to-run CV from the engine, and the bucket-64 dispatch split into
+    its host-to-device copy, replay and device-to-host copy (CUDA events);
+ 6. refine: fp32 engines with refine=True at buckets 1 and 64 time the
+    model's pick and the next candidates per layer (tile cache in a fresh
+    temporary file); per layer both picks and times, and the refined
+    engine's images against reverse_loop;
+ 7. the kernels line; 8. the result line.
 
 Imports nothing of JAX: only torch, numpy and the port (src/repro_torch).
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,7 +78,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.core.mmd import mmd  # noqa: E402
 from repro_torch.core.sparsity import magnitude_prune, prune_tree  # noqa: E402
 from repro_torch.core.tiling import DeconvGeometry, tc_warp_tile  # noqa: E402
-from repro_torch.kernels.autotune import fill_tiles, hopper_tiles  # noqa: E402
+from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.kernels.autotune import (SMS, fill_tiles,  # noqa: E402
+                                          grid_blocks, hopper_tiles, time_ms)
 from repro_torch.kernels.deconv2d import int8 as int8_kernel  # noqa: E402
 from repro_torch.kernels.deconv2d import kernel as deconv_kernel  # noqa: E402
 from repro_torch.kernels.deconv2d.ops import launch_args  # noqa: E402
@@ -75,7 +90,8 @@ from repro_torch.kernels.deconv2d_sparse import (make_sparse_plan,  # noqa: E402
 from repro_torch.models.dcnn import (CELEBA_DCNN, MNIST_DCNN,  # noqa: E402
                                      generator_apply, generator_init)
 from repro_torch.quant import (calibrate, quantize_params,  # noqa: E402
-                               quantize_symmetric, quantized_generator_ref)
+                               quantize_symmetric, quantized_generator_apply,
+                               quantized_generator_ref)
 from repro_torch.serve import DcnnServeEngine, EngineConfig  # noqa: E402
 from repro_torch.workloads import calibration_input  # noqa: E402
 
@@ -130,11 +146,17 @@ SERVE_TOL = 1e-4
 INT8_TOL = 1e-6
 SPARSITY_LEVELS = (0.5, 0.9, 0.97, "hand")
 SERVE_SPARSITY = 0.9   # a level of benchmarks/bench_sparsity.py's sweep
-TIMED_RUNS = 25
-BACKLOG_CYCLES = 400_000_000   # ~0.2 s of queued sleep at the H100's clocks
-BACKLOG_TRIES = 3              # the sleep doubles after each try that did not hold
+# what each kernel's instances are called in a profiler trace (demangled)
+TRACE_NAMES = {"deconv2d_kernel": "deconv2d_tc_kernel<false",
+               "deconv2d_int8_kernel": "deconv2d_tc_int8_kernel<",
+               "deconv2d_sparse_kernel": "deconv2d_tc_kernel<true"}
+PATH_KERNEL = {"fp32": "deconv2d_kernel", "int8": "deconv2d_int8_kernel",
+               "cuda_sparse": "deconv2d_sparse_kernel"}
+SPLIT_RUNS = 30
+REFINE_BUCKETS = (1, 64)
 
 
+@functools.lru_cache(maxsize=None)
 def demangle(name):
     """A kernel's C++ name (its mangled one where c++filt is missing),
     without its argument list."""
@@ -361,30 +383,105 @@ def phase_kernel_checks(int8_nets):
 
 
 def drive(engines, requests):
-    """The main path of one kind of engine: every kernel count at 0 just
-    before, each net's requests submitted and collected, the counts read
-    just after.  Returns (outputs, launches per net and kernel, totals)."""
-    for _, mod, _ in KERNELS:
-        mod.LAUNCHES = 0
+    """The main path of one kind of engine, per net under torch.profiler
+    with every count at 0 just before (the engines' ``launch_counts`` and
+    the wrappers' ``LAUNCHES``): the net's requests submitted and
+    collected, the counts read just after.  Returns (outputs, per net: the
+    device launches of each kernel in the trace, the engine's
+    ``launch_counts`` and the wrappers' counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
     outputs, per_net = {}, {}
     for name, eng in engines.items():
-        before = {k: mod.LAUNCHES for k, mod, _ in KERNELS}
-        tickets = [eng.submit(z) for z in requests[name]]
-        outputs[name] = [eng.collect(t) for t in tickets]
-        per_net[name] = {k: mod.LAUNCHES - before[k] for k, mod, _ in KERNELS}
-    return outputs, per_net, {k: mod.LAUNCHES for k, mod, _ in KERNELS}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _, mod, _ in KERNELS:
+                mod.LAUNCHES = 0
+            eng.launch_counts.clear()
+            tickets = [eng.submit(z) for z in requests[name]]
+            outputs[name] = [eng.collect(t) for t in tickets]
+            torch.cuda.synchronize()
+            engine = sum(eng.launch_counts.values())
+            wrappers = {k: mod.LAUNCHES for k, mod, _ in KERNELS}
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_net[name] = {
+            "traced": {k: sum(kernel_of(n) == k for n in device)
+                       for k in TRACE_NAMES},
+            "engine": engine, "wrappers": wrappers}
+    return outputs, per_net
 
 
-def check_launches(kernel, engines, per_net):
+def check_launches(path, engines, per_net):
+    """Per net: the traced device launches of the path's kernel == layers x
+    dispatches and none of the other two; the engine's ``launch_counts``
+    the same; no wrapper launched anything (every dispatch a replay); one
+    executable per bucket.  Returns the traced launches of the path's
+    kernel over both nets."""
+    want_k = PATH_KERNEL[path]
     for name, eng in engines.items():
         dispatches = len(eng.plan_chunks(sum(REQUEST_SIZES)))
         want = len(eng.cfg.layers) * dispatches
         got = per_net[name]
-        print(f"  {name}: {dispatches} dispatches x {len(eng.cfg.layers)} "
-              f"layers, launches {got}", flush=True)
-        if got[kernel] != want or any(v for k, v in got.items() if k != kernel):
-            raise AssertionError(f"{name}: launches {got}, expected {want} of "
-                                 f"{kernel} and none of the others")
+        print(f"  {name} {path}: {dispatches} dispatches x "
+              f"{len(eng.cfg.layers)} layers; traced device launches "
+              f"{got['traced']}, engine launch_counts {got['engine']}, "
+              f"wrapper launches {got['wrappers']}, capture_counts "
+              f"{eng.capture_counts}", flush=True)
+        if (got["traced"][want_k] != want or got["engine"] != want
+                or any(v for k, v in got["traced"].items() if k != want_k)
+                or any(got["wrappers"].values())):
+            raise AssertionError(f"{path} {name}: launches {got}, expected "
+                                 f"{want} of {want_k} traced and counted, "
+                                 "none of the others and none through the "
+                                 "wrappers")
+        if eng.capture_counts != {b: 1 for b in eng.buckets}:
+            raise AssertionError(f"{name}: capture_counts "
+                                 f"{eng.capture_counts}, expected 1 per "
+                                 "bucket")
+    return sum(per_net[name]["traced"][want_k] for name in engines)
+
+
+def eager_images(path, eng, z):
+    """``z`` (one bucket of rows) through the public ops at the bucket's
+    plan, eagerly, every operand prepared per call (int8: from the
+    reference-layout weights, packed per launch)."""
+    plan = eng.plans[z.shape[0]]
+    with torch.no_grad():
+        if path == "int8":
+            qp = {k: {n: v[n] for n in ("w_q", "scale", "b")}
+                  for k, v in eng.params.items()}
+            y = quantized_generator_apply(qp, eng.cfg, None, z, plan=plan)
+        else:
+            y = generator_apply(eng.params, eng.cfg, z, plan=plan)
+    return y.cpu().numpy()
+
+
+def check_replay_equals_eager(path, by_net):
+    """Every bucket's replayed images bit-identical to an eager run of the
+    same plan on the same rows."""
+    rng = np.random.default_rng(5)
+    for name, eng in by_net.items():
+        for b in eng.buckets:
+            z = rng.standard_normal((b, eng.cfg.z_dim)).astype(np.float32)
+            got = eng.generate(z)
+            want = eager_images(path, eng, torch.from_numpy(z).cuda())
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{path} {name} bucket {b}: replayed images differ from "
+                    f"eager ones by {np.abs(got - want).max()}")
+        print(f"  {name} {path}: replayed images bit-identical to eager at "
+              f"buckets {list(eng.buckets)}", flush=True)
+
+
+def kernel_of(trace_name):
+    """Which of the three kernels a traced device kernel is, or None."""
+    name = demangle(trace_name) if trace_name.startswith("_Z") else trace_name
+    for k, pat in TRACE_NAMES.items():
+        if pat in name:
+            return k
+    return None
 
 
 def check_images(name, outputs, refs, tol):
@@ -425,9 +522,10 @@ def phase_serving():
         engines[path] = {cfg.name: DcnnServeEngine.from_config(
             EngineConfig(model=cfg, max_batch=64, warmup=True, **kw),
             tree[cfg.name]) for cfg in NETS}
-        outputs, per_net, totals = drive(engines[path], requests)
-        launches[path] = totals
-        check_launches(kernel, engines[path], per_net)
+        outputs, per_net = drive(engines[path], requests)
+        launches[path] = {kernel: check_launches(path, engines[path],
+                                                 per_net)}
+        check_replay_equals_eager(path, engines[path])
         for cfg in NETS:
             eng = engines[path][cfg.name]
             z = torch.from_numpy(np.concatenate(requests[cfg.name])).cuda()
@@ -435,9 +533,9 @@ def phase_serving():
             images[path, cfg.name] = imgs
             if path == "int8":
                 # the engine packed every layer's weight once, on the card
-                if not all(isinstance(eng.params[f"l{i}"]["w_packed"],
+                if not all(isinstance(eng.params[f"l{i}"]["static"].w,
                                       int8_kernel.PackedInt8Weights)
-                           and eng.params[f"l{i}"]["w_packed"].device.type
+                           and eng.params[f"l{i}"]["static"].w.device.type
                            == "cuda" for i in range(len(cfg.layers))):
                     raise AssertionError(f"{cfg.name}: int8 weights not packed")
                 ref = quantized_generator_ref(eng.params, cfg, eng.quant_cfg, z)
@@ -469,42 +567,6 @@ def phase_serving():
                 print(f"  {cfg.name} pruned {SERVE_SPARSITY}: slabs skipped per "
                       f"layer at bucket 64 {shares}", flush=True)
     return engines, launches
-
-
-def time_ms(fn, runs=TIMED_RUNS, warmup=3, backlog=True):
-    """``(ms, held)``: the median of ``runs`` CUDA-event timings of ``fn``
-    after warm-up.
-
-    With ``backlog`` the card first runs a queued sleep while the host
-    enqueues every timed run, so that each event pair brackets device time
-    only (a short kernel would otherwise be timed together with the host
-    work of its own launch).  ``held`` says whether that worked: the event
-    after the sleep had not completed when the host had enqueued the last
-    run.  If it had, the sleep is doubled and the timing taken again, up to
-    ``BACKLOG_TRIES`` times; a timing that never held is returned with
-    ``held`` False.  Without ``backlog``, ``held`` is None."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    cycles = BACKLOG_CYCLES
-    for _ in range(BACKLOG_TRIES if backlog else 1):
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
-        if backlog:
-            torch.cuda._sleep(cycles)
-            slept = torch.cuda.Event()
-            slept.record()
-        for e0, e1 in events:
-            e0.record()
-            fn()
-            e1.record()
-        held = (not slept.query()) if backlog else None
-        torch.cuda.synchronize()
-        ms = statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
-        if held is not False:
-            break
-        cycles *= 2
-    return ms, held
 
 
 def time_row(kernel, cfg, i, batch, tiles, launch, plain, library, ops, peak,
@@ -711,11 +773,15 @@ def phase_times(smi, peaks, int8_nets, report):
 
 
 def phase_end_to_end(engines, smi):
+    """Per path and net, 30 bucket-64 dispatches (the stats of the checks
+    before, a profiled one among them, cleared first): images/s and CV
+    from the engine, then the dispatch split."""
     rng = np.random.default_rng(3)
     out = {}
     for path, by_net in engines.items():
         for name, eng in by_net.items():
             z = rng.standard_normal((64, eng.cfg.z_dim)).astype(np.float32)
+            eng.bucket_stats.clear()
             for _ in range(30):
                 eng.generate(z)
             tp = eng.throughput()[64]
@@ -724,11 +790,138 @@ def phase_end_to_end(engines, smi):
                                "calls": tp["calls"], "card": smi}
             print(json.dumps({"end_to_end": out[path, name], "net": name,
                               "path": path}), flush=True)
+            print(json.dumps({"dispatch_split": dispatch_split(eng, z, smi),
+                              "net": name, "path": path}), flush=True)
     return out
+
+
+def dispatch_split(eng, z, smi):
+    """A bucket-64 dispatch in parts, medians of SPLIT_RUNS: on the device
+    (CUDA events) the host-to-device copy of z, the replay and the
+    device-to-host copy of the images; on the host clock staging z,
+    enqueueing (the images' pinned tensor allocated), waiting for the
+    stream and handing the images out; and the engine's mean dispatch
+    (``host_ms``: that mean less the three device parts)."""
+    ex = eng._get_fn(64)
+    ex.stage(z)
+    parts = {"h2d_ms": [], "replay_ms": [], "d2h_ms": []}
+    for _ in range(SPLIT_RUNS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        ex.z_dev.copy_(ex.z_host, non_blocking=True)
+        ev[1].record()
+        ex.replay()
+        ev[2].record()
+        ex.fetch(64)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    row = {k: statistics.median(v) for k, v in parts.items()}
+    # the host clock of the dispatch's own steps, as `BucketExecutable`
+    # takes them: staging z, enqueueing the copies and the replay, waiting
+    # for the stream, handing the images out (each result dropped before
+    # the next dispatch, as in the end-to-end runs)
+    host = {"stage_ms": [], "enqueue_ms": [], "wait_ms": [],
+            "images_ms": []}
+    stream = torch.cuda.current_stream()
+    for _ in range(SPLIT_RUNS):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        ex.stage(z)
+        t.append(time.perf_counter())
+        ex.z_dev.copy_(ex.z_host, non_blocking=True)
+        ex.replay()
+        view = ex.fetch(64)
+        t.append(time.perf_counter())
+        stream.synchronize()
+        t.append(time.perf_counter())
+        out = ex.images(view, 64)
+        t.append(time.perf_counter())
+        del out, view
+        for i, k in enumerate(host):
+            host[k].append((t[i + 1] - t[i]) * 1e3)
+    row.update({k: statistics.median(v) for k, v in host.items()})
+    tp = eng.throughput()[64]
+    row["dispatch_ms"] = tp["mean_s"] * 1e3
+    row["host_ms"] = row["dispatch_ms"] - sum(
+        row[k] for k in ("h2d_ms", "replay_ms", "d2h_ms"))
+    row.update(bucket=64, runs=SPLIT_RUNS, card=smi)
+    return row
+
+
+def fills(g, batch, t):
+    """Whether tiles ``t`` give a grid that, split included, fills the
+    card's SMs (the model's preference)."""
+    blocks = grid_blocks(g, batch, t["t_oh"], t["t_co"], t["t_n"])
+    return blocks * autotune.ci_split(blocks, -(-g.c_in // t["t_ci"])) >= SMS
+
+
+def phase_refine(smi):
+    """fp32 engines with refine=True at REFINE_BUCKETS, per net: each
+    layer's model pick and timed pick with their times (from the tile
+    cache the tuning wrote), and the engine's images against reverse_loop
+    (the timed tiles must serve the same function).  The entries' model
+    picks must be the tiles of plans that ignore the cache."""
+    from repro_torch.plan import build_network_plan
+
+    rng = np.random.default_rng(6)
+    for cfg in NETS:
+        params = generator_init(torch.Generator().manual_seed(0), cfg, "cuda")
+        t0 = time.perf_counter()
+        eng = DcnnServeEngine.from_config(
+            EngineConfig(model=cfg, buckets=REFINE_BUCKETS, warmup=True,
+                         refine=True), params)
+        tuned_s = time.perf_counter() - t0
+        for b in REFINE_BUCKETS:
+            model = build_network_plan(cfg, batch=b, autotune=False)
+            for i, l in enumerate(eng.plans[b].layers):
+                g = l.geometry
+                e = autotune.cached_entry(g, "float32", "cuda", b)
+                if e is None or l.tiles.source not in ("timed", "cache"):
+                    raise AssertionError(f"{cfg.name} l{i} bucket {b}: no "
+                                         "timed entry after refine")
+                if e["model"] != model.layers[i].tiles.as_kwargs():
+                    raise AssertionError(f"{cfg.name} l{i} bucket {b}: the "
+                                         "entry's model pick is not the "
+                                         "model's plan")
+                timed = {k: e[k] for k in ("t_oh", "t_ow", "t_ci", "t_co",
+                                           "t_n")}
+                row = {"net": cfg.name, "layer": i, "bucket": b,
+                       "model": e["model"], "model_ms": e["model_ms"],
+                       "model_fills": fills(g, b, e["model"]),
+                       "timed": timed, "timed_ms": e["ms"],
+                       "timed_fills": fills(g, b, timed),
+                       "candidates": e["timed"], "card": smi}
+                print(json.dumps({"refine": row}), flush=True)
+            z = rng.standard_normal((b, cfg.z_dim)).astype(np.float32)
+            got = eng.generate(z)
+            with torch.no_grad():
+                want = generator_apply(eng.params, cfg,
+                                       torch.from_numpy(z).cuda(),
+                                       backend="reverse_loop").cpu().numpy()
+            err = float(np.abs(got - want).max())
+            if err > SERVE_TOL:
+                raise AssertionError(f"{cfg.name} refined bucket {b}: {err} "
+                                     "from reverse_loop")
+        print(f"  {cfg.name}: refine engine built in {tuned_s:.1f} s, "
+              f"images within {SERVE_TOL} of reverse_loop", flush=True)
 
 
 def main() -> int:
     smi, name, peaks = device_info()
+    # no run reads another's tile timings
+    cache_dir = tempfile.mkdtemp(prefix="repro_torch_tiles_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir,
+                                                            "autotune.json")
+    try:
+        return run(smi, name, peaks)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run(smi, name, peaks) -> int:
     print(f"[1] device: {smi} | torch: {name} | peaks: fp32 "
           f"{peaks['fp32'] / 1e12} TFLOP/s, int8 {peaks['int8'] / 1e12} "
           f"TOP/s, memory {peaks['bw'] / 1e12} TB/s", flush=True)
@@ -758,6 +951,9 @@ def main() -> int:
     rows = phase_times(smi, peaks, int8_nets, report)
     phase_end_to_end(engines, smi)
 
+    print(f"[6] refine (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_refine(smi)
+
     errs = {"deconv2d_kernel": (max(dense[torch.float32]),
                                 {"max_abs_err_bf16": max(dense[torch.bfloat16])}),
             "deconv2d_int8_kernel": (max(int8), {}),
@@ -771,7 +967,7 @@ def main() -> int:
         b64 = [r for r in rows if r["kernel"] == kname and r["bucket"] == 64]
         by = {k: sum(r["bound_ms"] for r in b64 if r["bound_by"] == k)
               for k in ("operations", "bytes")}
-        launched = launches[path_of[kname]][kname]
+        launched = launches[path_of[kname]][kname]   # traced on the device
         if launched == 0:
             raise AssertionError(f"the main path launched no {kname}")
         lib = [r["library_ms"] for r in b64]

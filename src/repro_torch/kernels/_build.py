@@ -51,10 +51,16 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu`` and the compiler flags: what the library's
+    file name carries, and what keys a tile timing to the code it timed."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def library_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
 
 
 def _start(name: str):

@@ -30,14 +30,39 @@ large batch the batch tile grows while threads (256), blocks and a 100 KB
 shared-memory target allow.
 
 The TPU tiles do not carry over: the JAX plan picks ``t_ci = t_co = 128`` on
-CelebA's wide layers, a 1 MB weight slab.  Timed tuning and its cache are
-later work.
+CelebA's wide layers, a 1 MB weight slab.
+
+`choose_tiles` puts the JAX package's three stages on top of those models,
+cheapest first:
+
+1. **Cache** -- a JSON store of *timed* choices only, at
+   ``$REPRO_TORCH_AUTOTUNE_CACHE`` (default
+   ``~/.cache/repro_torch/autotune.json``; never the JAX package's file),
+   keyed by the layer's `DeconvPlan.stable_hash(scope="tiles")`, the card's
+   name and the digest of the kernel library's source, so a changed kernel
+   or another card never reuses a time.  ``clear_cache()`` wipes it.
+2. **Model** -- `hopper_tiles`.  A model pick costs microseconds and is
+   never stored: a stored one would hide a later change of the model.
+3. **On-card timing** (``refine=True``, fp32 only) -- the model's pick and
+   the next cheapest candidates by `tc_cost` *without* the fill-the-SMs
+   preference, each launched through the serving launcher and timed with
+   CUDA events (`time_ms`); the fastest is kept and stored.  int8 keeps the
+   model ranking, as in the JAX package; bf16 has one heuristic pick.  On
+   a machine without a card ``refine=True`` raises: the clock of a plain
+   version says nothing about the kernel.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict
+import json
+import os
+import pathlib
+import statistics
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from ..core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_THREADS,
                            DeconvGeometry, block_threads, dtype_name,
@@ -261,25 +286,47 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def _tc_tiles(geom: DeconvGeometry, batch: int,
-              dtype: str = "float32") -> TileChoice:
-    """The cheapest tiles by `tc_cost` among those whose grid, split
-    included, fills the card's SMs; the cheapest of all where none does."""
-    best = None
+def _tc_scored(geom: DeconvGeometry, batch: int,
+               dtype: str = "float32") -> Tuple[Tuple[bool, float,
+                                                      TileChoice], ...]:
+    """Every tile the tensor-core kernel of ``dtype`` takes, in enumeration
+    order, as ``(fills the SMs, modelled clocks, tiles)``."""
+    out = []
     for t, t_n, t_co, t_ci in _tc_candidates(geom, batch, dtype):
         clk = tc_cost(geom, batch, t, t_n, t_co, t_ci, dtype)
         if clk is None:
             continue
         blocks = grid_blocks(geom, batch, t, t_co, t_n)
         split = ci_split(blocks, _round_up(geom.c_in, t_ci) // t_ci)
-        key = (blocks * split < SMS, clk)
-        if best is None or key < best[0]:
-            best = (key, t, t_n, t_co, t_ci)
-    if best is None:
+        out.append((blocks * split >= SMS, clk,
+                    TileChoice(t_oh=t, t_ow=t, t_ci=t_ci, t_co=t_co,
+                               t_n=t_n)))
+    if not out:
         raise ValueError(f"no tile of the {dtype} tensor-core kernel fits "
                          f"{geom}")
-    _, t, t_n, t_co, t_ci = best
-    return TileChoice(t_oh=t, t_ow=t, t_ci=t_ci, t_co=t_co, t_n=t_n)
+    return tuple(out)
+
+
+def _tc_tiles(geom: DeconvGeometry, batch: int,
+              dtype: str = "float32") -> TileChoice:
+    """The cheapest tiles by `tc_cost` among those whose grid, split
+    included, fills the card's SMs; the cheapest of all where none does."""
+    return min(_tc_scored(geom, batch, dtype),
+               key=lambda s: (not s[0], s[1]))[2]
+
+
+# how many candidates ``refine=True`` times per layer
+REFINE_TOP_K = 3
+
+
+def refine_candidates(geom: DeconvGeometry, batch: int, dtype="float32",
+                      k: int = REFINE_TOP_K) -> List[TileChoice]:
+    """What ``refine=True`` times: the model's pick, then the next ``k - 1``
+    tiles by `tc_cost` alone, without the fill-the-SMs preference."""
+    model = hopper_tiles(geom, batch, dtype)
+    ranked = sorted(_tc_scored(geom, batch, dtype_name(dtype)),
+                    key=lambda s: s[1])
+    return [model] + [c for _, _, c in ranked if c != model][:max(0, k - 1)]
 
 
 # -- the FMA kernel -----------------------------------------------------
@@ -321,3 +368,229 @@ def _simt_tiles(geom: DeconvGeometry, batch: int) -> TileChoice:
                                  "simt") <= SMEM_TARGET):
         t_n *= 2
     return TileChoice(t_oh=t, t_ow=t, t_ci=t_ci, t_co=t_co, t_n=t_n)
+
+
+# -- timing on the card -------------------------------------------------
+TIMED_RUNS = 25
+BACKLOG_CYCLES = 400_000_000   # ~0.2 s of queued sleep at the H100's clocks
+BACKLOG_TRIES = 3              # the sleep doubles after each failed try
+
+
+def time_ms(fn: Callable[[], object], runs: int = TIMED_RUNS,
+            warmup: int = 3, backlog: bool = True):
+    """``(ms, held)``: the median of ``runs`` CUDA-event timings of ``fn``
+    after ``warmup`` calls.
+
+    With ``backlog`` the card first runs a queued sleep while the host
+    enqueues every timed run, so that each event pair brackets device time
+    only (a short kernel would otherwise be timed together with the host
+    work of its own launch).  ``held`` says whether that worked: the event
+    after the sleep had not completed when the host had enqueued the last
+    run.  If it had, the sleep is doubled and the timing taken again, up to
+    ``BACKLOG_TRIES`` times; a timing that never held is returned with
+    ``held`` False.  Without ``backlog``, ``held`` is None."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = BACKLOG_CYCLES
+    for _ in range(BACKLOG_TRIES if backlog else 1):
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+        if backlog:
+            torch.cuda._sleep(cycles)
+            slept = torch.cuda.Event()
+            slept.record()
+        for e0, e1 in events:
+            e0.record()
+            fn()
+            e1.record()
+        held = (not slept.query()) if backlog else None
+        torch.cuda.synchronize()
+        ms = statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
+        if held is not False:
+            break
+        cycles *= 2
+    return ms, held
+
+
+def _time_candidate(geom: DeconvGeometry, choice: TileChoice, dtype,
+                    backend: str, batch: int = 1,
+                    runs: int = TIMED_RUNS) -> Optional[float]:
+    """Median device ms of one launch of the serving launcher at
+    ``choice``, on seeded random inputs at the layer's shapes on the card:
+    one warm launch, then `time_ms`.  None where the launcher refuses the
+    tiles before launching (its shape or shared-memory checks); a CUDA
+    error raises.  For "cuda_sparse" the dense random weights keep every
+    slab in the schedule (the JAX package's own caveat): the time is that
+    of the dense walk, not of a pruned network's."""
+    from .deconv2d.kernel import LaunchRefused, deconv2d_launch
+    from .deconv2d.ops import launch_args
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype_name(dtype))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = geom
+    x = torch.randn((batch, g.in_h, g.in_w, g.c_in), generator=gen,
+                    device=dev).to(dt)
+    w = (torch.randn((g.kernel, g.kernel, g.c_in, g.c_out), generator=gen,
+                     device=dev) / (g.c_in * g.kernel ** 2) ** 0.5).to(dt)
+    b = (0.1 * torch.randn((g.c_out,), generator=gen, device=dev)).to(dt)
+    try:
+        xp, wp, bp, kw, _ = launch_args(x, w, b, g.stride, g.padding,
+                                        *choice.as_kwargs().values(), None)
+        if backend == "cuda_sparse":
+            from .deconv2d_sparse import (deconv2d_sparse_launch,
+                                          make_sparse_plan, schedule_tensors)
+
+            sched = schedule_tensors(make_sparse_plan(
+                w, g.stride, g.padding, choice.t_ci, choice.t_co), dev)
+
+            def fn():
+                return deconv2d_sparse_launch(xp, wp, bp, *sched, **kw)
+        else:
+            def fn():
+                return deconv2d_launch(xp, wp, bp, **kw)
+        fn()
+    except (LaunchRefused, ValueError):
+        return None
+    return time_ms(fn, runs=runs, warmup=0)[0]
+
+
+# -- the cache ----------------------------------------------------------
+_CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
+# 1: timed entries only, keyed by plan hash, card name and kernel source
+CACHE_VERSION = 1
+_TILE_FIELDS = ("t_oh", "t_ow", "t_ci", "t_co", "t_n")
+_lock = threading.Lock()
+_cache: Optional[Dict[str, dict]] = None
+
+
+def cache_path() -> pathlib.Path:
+    """``$REPRO_TORCH_AUTOTUNE_CACHE``, default
+    ``~/.cache/repro_torch/autotune.json``."""
+    default = pathlib.Path.home() / ".cache" / "repro_torch" / "autotune.json"
+    return pathlib.Path(os.environ.get(_CACHE_ENV, str(default)))
+
+
+def card_name() -> Optional[str]:
+    """The name of the current CUDA device, None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    return torch.cuda.get_device_name(torch.cuda.current_device())
+
+
+def cache_key(geom: DeconvGeometry, dtype, backend: str, batch: int = 1,
+              out_dtype_bytes: Optional[int] = None) -> str:
+    """``v{CACHE_VERSION}|card|source digest|plan hash``: the plan hash is
+    `DeconvPlan.stable_hash(scope="tiles")` of the request, the source
+    digest that of the library whose kernel runs ``dtype``."""
+    from ..core.tiling import kernel_for
+    from ..plan import DeconvPlan
+    from ._build import source_digest
+
+    plan = DeconvPlan(geometry=geom, batch=batch, dtype=dtype_name(dtype),
+                      backend=backend, out_dtype_bytes=out_dtype_bytes)
+    lib = "deconv2d_tc" if kernel_for(dtype) == "tc" else "deconv2d"
+    return (f"v{CACHE_VERSION}|{card_name() or 'no card'}|"
+            f"{source_digest(lib)}|{plan.stable_hash(scope='tiles')}")
+
+
+def _valid_entry(v) -> bool:
+    return (isinstance(v, dict) and v.get("source") == "timed"
+            and all(isinstance(v.get(f), int) and v[f] > 0
+                    for f in _TILE_FIELDS))
+
+
+def _load_cache() -> Dict[str, dict]:
+    """The cache, read once per process; a corrupt file, a foreign version
+    and malformed entries are dropped."""
+    global _cache
+    if _cache is None:
+        try:
+            raw = json.loads(cache_path().read_text())
+        except (OSError, ValueError):
+            raw = {}
+        if not isinstance(raw, dict):
+            raw = {}
+        prefix = f"v{CACHE_VERSION}|"
+        _cache = {k: v for k, v in raw.items()
+                  if k.startswith(prefix) and _valid_entry(v)}
+    return _cache
+
+
+def _store(key: str, entry: dict) -> None:
+    """Keep ``entry`` and rewrite the file through a temporary one; a file
+    that cannot be written never fails the call."""
+    with _lock:
+        cache = _load_cache()
+        cache[key] = entry
+        path = cache_path()
+        try:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(path.name + ".tmp")
+            tmp.write_text(json.dumps(cache, indent=1, sort_keys=True))
+            os.replace(tmp, path)
+        except OSError:
+            pass
+
+
+def clear_cache() -> None:
+    """Drop the in-memory cache and delete the cache file."""
+    global _cache
+    with _lock:
+        _cache = {}
+        try:
+            cache_path().unlink()
+        except OSError:
+            pass
+
+
+def cached_entry(geom: DeconvGeometry, dtype="float32", backend="cuda",
+                 batch: int = 1,
+                 out_dtype_bytes: Optional[int] = None) -> Optional[dict]:
+    """The stored timed entry of a request, or None: the pick's tiles,
+    ``ms``, ``model`` (the model's pick) and ``model_ms``, ``k`` and every
+    timed candidate under ``timed``."""
+    return _load_cache().get(cache_key(geom, dtype, backend, batch,
+                                       out_dtype_bytes))
+
+
+def choose_tiles(geom: DeconvGeometry, dtype="float32", backend: str = "cuda",
+                 refine: bool = False, batch: int = 1,
+                 out_dtype_bytes: Optional[int] = None) -> TileChoice:
+    """Tiles for one layer at ``batch``: a timed entry of the cache where
+    one exists (``source="cache"``), else with ``refine`` the fastest of
+    `refine_candidates` timed on the card (stored; ``source="timed"``),
+    else the model's pick (`hopper_tiles`, never stored).  int8 and bf16
+    keep the model's pick under ``refine``; without a card ``refine``
+    raises.  The model alone, the cache unread, is `hopper_tiles` (what
+    ``build_layer_plan(autotune=False)`` takes)."""
+    name = dtype_name(dtype)
+    if refine and card_name() is None:
+        raise RuntimeError("refine=True times the kernels on a CUDA card; "
+                           "there is none (the plain version's clock says "
+                           "nothing about the kernel)")
+    refine = refine and name == "float32"
+    key = cache_key(geom, name, backend, batch, out_dtype_bytes)
+    hit = _load_cache().get(key)
+    if hit is not None:
+        return TileChoice(**{f: hit[f] for f in _TILE_FIELDS},
+                          source="cache")
+    model = hopper_tiles(geom, batch, name)
+    if not refine:
+        return model
+    timed = []
+    for c in refine_candidates(geom, batch, name):
+        ms = _time_candidate(geom, c, name, backend, batch=batch)
+        if ms is not None:
+            timed.append((ms, c))
+    if not timed:
+        return model
+    best_ms, best = min(timed, key=lambda t: t[0])
+    model_ms = next((ms for ms, c in timed if c == model), None)
+    _store(key, {**best.as_kwargs(), "source": "timed", "ms": best_ms,
+                 "model": model.as_kwargs(), "model_ms": model_ms,
+                 "k": REFINE_TOP_K,
+                 "timed": [{"tiles": c.as_kwargs(), "ms": ms}
+                           for ms, c in timed]})
+    return dataclasses.replace(best, source="timed")

@@ -36,12 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from ...core.deconv import phase_products
-from ...core.offsets import PhasePlan, make_phase_plan
+from ...core.offsets import PhasePlan
 from ...core.tiling import int8_acc_bound
 from ...quant.qmath import quantize_symmetric
 from .kernel import (_check_shapes, aligned, apply_activation, check_rc,
                      launch_params, launch_split, tc_library)
-from .ops import halo_pad_geometry, pad_channels, resolve_call
+from .ops import StaticOperands, call_args, pad_channels, resolve_call
 
 LAUNCHES = 0
 # Channel multiple of the engine's packed weights: every t_ci and t_co the
@@ -226,6 +226,37 @@ def launch_split_int8(xp: torch.Tensor, wpk: PackedInt8Weights, kw) -> int:
                         kw["t_co"], kw["t_n"])
 
 
+def prepare_int8_static(w, scale: torch.Tensor, b: Optional[torch.Tensor],
+                        cip: int, cop: int) -> StaticOperands:
+    """The static part of an int8 launch: ``w`` packed at ``cip`` /
+    ``cop`` channels (kept as it is when already a `PackedInt8Weights`,
+    whose channels then rule), the scale and the bias (None: zeros) in f32
+    padded to its ``COp``, contiguous."""
+    wpk = w if isinstance(w, PackedInt8Weights) else \
+        pack_int8_weights(w, cip, cop)
+    bp = (b if b is not None else torch.zeros((wpk.c_out,), device=wpk.device))
+    bp = pad_channels(bp.to(torch.float32), wpk.cop).contiguous()
+    sp = pad_channels(scale.to(torch.float32), wpk.cop).contiguous()
+    return StaticOperands(w=wpk, b=bp, scale=sp)
+
+
+def _int8_call(x, w, scale, b, static, stride, padding, t_oh, t_ow, t_ci,
+               t_co, t_n, activation, out_scale):
+    n, ih, iw, ci = x.shape
+    k, _, wci, co = w.shape
+    if wci != ci:
+        raise ValueError(f"w has {wci} input channels, x {ci}")
+    cip = static.w.cip if static is not None else \
+        (w.cip if isinstance(w, PackedInt8Weights) else None)
+    xp, kwargs, crop, (cip_t, cop_t) = call_args(
+        x, k, co, stride, padding, t_oh, t_ow, t_ci, t_co, t_n, activation,
+        cip=cip)
+    if static is None:
+        static = prepare_int8_static(w, scale, b, cip_t, cop_t)
+    kwargs["out_scale"] = out_scale
+    return xp, static, kwargs, crop
+
+
 def launch_args_int8(x, w, scale, b, stride, padding, t_oh, t_ow, t_ci, t_co,
                      t_n, activation, out_scale):
     """The host padding of one int8 launch, as in the JAX package's
@@ -235,26 +266,10 @@ def launch_args_int8(x, w, scale, b, stride, padding, t_oh, t_ow, t_ci, t_co,
     packed here at the launch's padded channels, or a `PackedInt8Weights`
     (packed once), whose channels x is padded to.  int8 zero is real
     zero, so padding needs no offset."""
-    n, ih, iw, ci = x.shape
-    k, _, wci, co = w.shape
-    if wci != ci:
-        raise ValueError(f"w has {wci} input channels, x {ci}")
-    plan = make_phase_plan(k, stride, padding)
-    (oh, ow, ohp, owp, pad_l, pad_rh, pad_rw, cip, cop, t_n,
-     np_) = halo_pad_geometry(n, ih, iw, ci, co, plan, t_oh, t_ow, t_ci,
-                              t_co, t_n)
-    wpk = w if isinstance(w, PackedInt8Weights) else \
-        pack_int8_weights(w, cip, cop)
-    x_pad = (0, wpk.cip - ci, pad_l, pad_rw, pad_l, pad_rh, 0, np_ - n)
-    xp = F.pad(x, x_pad) if any(x_pad) else x
-    bp = (b if b is not None else torch.zeros((co,), device=x.device))
-    bp = pad_channels(bp.to(torch.float32), wpk.cop).contiguous()
-    sp = pad_channels(scale.to(torch.float32), wpk.cop).contiguous()
-    kwargs = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh,
-                  t_ow=t_ow, t_ci=t_ci, t_co=t_co, t_n=t_n,
-                  activation=activation, out_scale=out_scale)
-    crop = (slice(0, n), slice(0, oh), slice(0, ow), slice(0, co))
-    return xp.contiguous(), wpk, sp, bp, kwargs, crop
+    xp, st, kwargs, crop = _int8_call(x, w, scale, b, None, stride, padding,
+                                      t_oh, t_ow, t_ci, t_co, t_n, activation,
+                                      out_scale)
+    return xp, st.w, st.scale, st.b, kwargs, crop
 
 
 def deconv2d_int8(
@@ -272,6 +287,7 @@ def deconv2d_int8(
     activation: Optional[str] = None,
     out_scale: Optional[float] = None,
     plan=None,
+    static: Optional[StaticOperands] = None,
 ) -> torch.Tensor:
     """Quantized transposed conv through the int8 kernel, on x's device.
 
@@ -285,13 +301,16 @@ def deconv2d_int8(
     With ``plan`` (a `repro_torch.plan.DeconvPlan` of an int8 plan on
     backend "cuda"), tiles, activation and ``out_scale`` come from the
     plan.  Without one, ``stride`` and ``padding`` are required and the
-    tiles left out come from `autotune.hopper_tiles` at this batch."""
+    tiles left out come from `autotune.hopper_tiles` at this batch.
+    ``static`` holds the packed weight, scale and bias already padded
+    (`prepare_int8_static`; a serving engine's, once per layer); without
+    it they are prepared here."""
     stride, padding, tiles, activation = resolve_call(
         plan, x, w, "cuda", "deconv2d_int8", stride, padding,
         activation, (t_oh, t_ow, t_ci, t_co, t_n))
     if plan is not None and out_scale is None:
         out_scale = plan.out_scale
-    xp, wpk, sp, bp, kwargs, crop = launch_args_int8(
-        x, w, scale, b, stride, padding, *tiles, activation, out_scale)
-    return deconv2d_int8_launch(xp, wpk, sp, bp, **kwargs)[crop]
+    xp, st, kwargs, crop = _int8_call(x, w, scale, b, static, stride, padding,
+                                      *tiles, activation, out_scale)
+    return deconv2d_int8_launch(xp, st.w, st.scale, st.b, **kwargs)[crop]
 

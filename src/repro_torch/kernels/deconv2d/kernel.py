@@ -241,11 +241,18 @@ def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
               _ACT_CODE[activation], _DTYPE_CODE[xp.dtype])
 
 
+class LaunchRefused(RuntimeError):
+    """The C function refused a launch's arguments: nothing was launched."""
+
+
 def check_rc(name: str, rc: int) -> None:
-    """Raise on a launch the C function refused or CUDA reported."""
+    """Raise on a launch the C function refused (`LaunchRefused`) or CUDA
+    reported (RuntimeError)."""
+    if rc < 0:
+        why = _ARG_ERRORS.get(rc, f"refusal {rc}")
+        raise LaunchRefused(f"{name} kernel launch failed: {why}")
     if rc != 0:
-        why = _ARG_ERRORS.get(rc, f"CUDA error {rc}")
-        raise RuntimeError(f"{name} kernel launch failed: {why}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,

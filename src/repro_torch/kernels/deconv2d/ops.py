@@ -6,17 +6,25 @@ the caller gives or the Hopper heuristic fills.  Both paths pad on the
 host exactly as the JAX package's ``_deconv2d_jit`` does, make one
 `deconv2d_launch`, and slice the padding off again.  The launch runs the
 CUDA kernel on a CUDA tensor and the plain version on a CPU tensor.
+
+A launch's arguments come in two parts: the static part
+(`prepare_static`: w padded to ``(K, K, CIp, COp)`` and the bias to
+``(1, COp)``, contiguous), which a serving engine prepares once per layer
+and channel tiles and passes as ``static=``, and the per-call part
+(`call_args`: x padded).  Called without ``static``, the op prepares both
+per call.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ...core.offsets import make_phase_plan
 from ...core.tiling import DeconvGeometry, out_size
-from .kernel import deconv2d_launch
+from .kernel import aligned, deconv2d_launch
 
 
 def check_layer_plan(plan, x: torch.Tensor, w: torch.Tensor, backend: str,
@@ -68,32 +76,76 @@ def halo_pad_geometry(n: int, ih: int, iw: int, ci: int, co: int,
     return oh, ow, ohp, owp, pad_l, pad_rh, pad_rw, cip, cop, t_n, np_
 
 
-def launch_args(x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co, t_n,
-                activation, bias_dtype=None):
-    """The host padding of one launch: ``(xp, wp, bp, kwargs, crop)`` where
-    ``deconv2d_launch(xp, wp, bp, **kwargs)[crop]`` is the layer's output.
-    The bias is cast to ``bias_dtype`` (default: x's dtype; the int8 kernel
-    takes an f32 bias)."""
+@dataclasses.dataclass(frozen=True)
+class StaticOperands:
+    """The operands of a layer's launch that no call changes: ``w`` padded
+    to ``(K, K, CIp, COp)`` (for int8 a `int8.PackedInt8Weights`), ``b``
+    and, for int8, ``scale`` padded to ``(1, COp)``; all contiguous."""
+
+    w: Any
+    b: torch.Tensor
+    scale: Optional[torch.Tensor] = None
+
+
+def prepare_static(w: torch.Tensor, b: Optional[torch.Tensor], cip: int,
+                   cop: int, bias_dtype=None) -> StaticOperands:
+    """``w`` and ``b`` (None: zeros) zero-padded to ``cip`` / ``cop``
+    channels, the bias in ``bias_dtype`` (default w's), contiguous; a
+    weight that needs no padding is kept as it is."""
+    k, _, ci, co = w.shape
+    wp = F.pad(w, (0, cop - co, 0, cip - ci)) if (cip, cop) != (ci, co) else w
+    bp = (b if b is not None else torch.zeros((co,), device=w.device))
+    bp = pad_channels(bp.to(w.dtype if bias_dtype is None else bias_dtype),
+                      cop)
+    return StaticOperands(w=aligned(wp.contiguous()), b=bp.contiguous())
+
+
+def call_args(x, k, co, stride, padding, t_oh, t_ow, t_ci, t_co, t_n,
+              activation, cip=None):
+    """The per-call part of one launch: ``(xp, kwargs, crop, (cip_t,
+    cop_t))``.  ``xp`` is x padded with the halo rows, the batch tile and
+    its channels up to ``cip`` (default ``cip_t``, the ``t_ci`` multiple;
+    ``cop_t`` is the ``t_co`` multiple), and ``deconv2d_launch(xp, wp, bp,
+    **kwargs)[crop]`` is the layer's output."""
     n, ih, iw, ci = x.shape
-    k, _, _, co = w.shape
     plan = make_phase_plan(k, stride, padding)
-    (oh, ow, ohp, owp, pad_l, pad_rh, pad_rw, cip, cop, t_n,
+    (oh, ow, ohp, owp, pad_l, pad_rh, pad_rw, cip_t, cop_t, t_n,
      np_) = halo_pad_geometry(n, ih, iw, ci, co, plan, t_oh, t_ow, t_ci,
                               t_co, t_n)
+    cip = cip_t if cip is None else cip
     # F.pad lists the last dim first: C, W, H, N; a tensor that needs no
     # padding is passed as it is (F.pad would copy it)
     x_pad = (0, cip - ci, pad_l, pad_rw, pad_l, pad_rh, 0, np_ - n)
     xp = F.pad(x, x_pad) if any(x_pad) else x
-    wp = F.pad(w, (0, cop - co, 0, cip - ci)) if (cip, cop) != (ci, co) else w
-    bias_dtype = x.dtype if bias_dtype is None else bias_dtype
-    bp = (b if b is not None else torch.zeros((co,), device=x.device)).to(
-        bias_dtype)
-    bp = pad_channels(bp, cop)
     kwargs = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh,
                   t_ow=t_ow, t_ci=t_ci, t_co=t_co, t_n=t_n,
                   activation=activation)
     crop = (slice(0, n), slice(0, oh), slice(0, ow), slice(0, co))
-    return (xp.contiguous(), wp.contiguous(), bp.contiguous(), kwargs, crop)
+    return xp.contiguous(), kwargs, crop, (cip_t, cop_t)
+
+
+def launch_args(x, w, b, stride, padding, t_oh, t_ow, t_ci, t_co, t_n,
+                activation):
+    """Both parts of one launch, prepared here: ``(xp, wp, bp, kwargs,
+    crop)`` where ``deconv2d_launch(xp, wp, bp, **kwargs)[crop]`` is the
+    layer's output (the bias in x's dtype)."""
+    k, _, _, co = w.shape
+    xp, kwargs, crop, (cip, cop) = call_args(
+        x, k, co, stride, padding, t_oh, t_ow, t_ci, t_co, t_n, activation)
+    st = prepare_static(w, b, cip, cop, bias_dtype=x.dtype)
+    return xp, st.w, st.b, kwargs, crop
+
+
+def static_for(static: Optional[StaticOperands], w, b, cip: int, cop: int,
+               bias_dtype=None) -> StaticOperands:
+    """``static`` checked against this launch's padded channels, or the
+    static part prepared now when it is None."""
+    if static is None:
+        return prepare_static(w, b, cip, cop, bias_dtype)
+    if tuple(static.w.shape) != (w.shape[0], w.shape[1], cip, cop):
+        raise ValueError(f"prepared weight {tuple(static.w.shape)} does not "
+                         f"fit this launch's {cip}x{cop} channels")
+    return static
 
 
 def pad_channels(v: torch.Tensor, cop: int) -> torch.Tensor:
@@ -142,6 +194,7 @@ def deconv2d(
     t_n: Optional[int] = None,
     activation: Optional[str] = None,
     plan=None,
+    static: Optional[StaticOperands] = None,
 ) -> torch.Tensor:
     """Transposed conv y = act(deconv(x, w) + b) through the reverse-loop
     kernel, on the device of ``x``.
@@ -154,11 +207,14 @@ def deconv2d(
     stride, padding, tiles and activation come from the plan; an explicit
     ``activation`` overrides the plan's.  Without one, ``stride`` and
     ``padding`` are required and unspecified tiles come from
-    `autotune.hopper_tiles` at this batch.
+    `autotune.hopper_tiles` at this batch.  ``static`` holds w and b
+    already padded for these tiles (`prepare_static`; a serving engine's);
+    without it they are padded here.
     """
     stride, padding, tiles, activation = resolve_call(
         plan, x, w, "cuda", "deconv2d", stride, padding, activation,
         (t_oh, t_ow, t_ci, t_co, t_n))
-    xp, wp, bp, kwargs, crop = launch_args(x, w, b, stride, padding, *tiles,
-                                           activation)
-    return deconv2d_launch(xp, wp, bp, **kwargs)[crop]
+    xp, kwargs, crop, (cip, cop) = call_args(
+        x, w.shape[0], w.shape[3], stride, padding, *tiles, activation)
+    st = static_for(static, w, b, cip, cop, x.dtype)
+    return deconv2d_launch(xp, st.w, st.b, **kwargs)[crop]

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ...core.sparsity import block_mask
-from ..deconv2d.ops import _round_up, launch_args, resolve_call
+from ..deconv2d.ops import _round_up, call_args, resolve_call, static_for
 from .kernel import build_schedule, deconv2d_sparse_launch, schedule_tensors
 
 
@@ -48,6 +48,7 @@ def deconv2d_sparse(
     activation: Optional[str] = None,
     plan=None,
     schedule=None,
+    static=None,
 ) -> torch.Tensor:
     """Zero-skip transposed conv y = act(deconv(x, w) + b) on pruned weights,
     on the device of ``x``.
@@ -57,7 +58,10 @@ def deconv2d_sparse(
     come from the plan.  ``schedule`` gives the ``make_sparse_plan`` tables
     (packed here), or a packed `kernel.Schedule` (already on x's device, it
     is not copied); without either, the schedule is built here from ``w``
-    at the tiles, which the caller gives or the Hopper heuristic fills."""
+    at the tiles, which the caller gives or the Hopper heuristic fills.
+    ``static`` holds w and b already padded for these tiles
+    (`deconv2d.ops.prepare_static`; a serving engine's); without it they
+    are padded here."""
     stride, padding, tiles, activation = resolve_call(
         plan, x, w, "cuda_sparse", "deconv2d_sparse", stride, padding,
         activation, (t_oh, t_ow, t_ci, t_co, t_n))
@@ -72,8 +76,9 @@ def deconv2d_sparse(
             f"sparse plan was built for {schedule[0].shape[0]} C_out tiles but"
             f" the resolved t_co={t_co} yields {n_co}; rebuild the plan with "
             "the same channel tiles (or pass matching t_ci/t_co overrides)")
-    xp, wp, bp, kwargs, crop = launch_args(x, w, b, stride, padding, *tiles,
-                                           activation)
-    return deconv2d_sparse_launch(xp, wp, bp,
+    xp, kwargs, crop, (cip, cop) = call_args(
+        x, w.shape[0], w.shape[3], stride, padding, *tiles, activation)
+    st = static_for(static, w, b, cip, cop, x.dtype)
+    return deconv2d_sparse_launch(xp, st.w, st.b,
                                   *schedule_tensors(schedule, x.device),
                                   **kwargs)[crop]

@@ -184,6 +184,7 @@ def generator_apply(
     return_intermediates: bool = False,
     plan=None,
     sparse_plans=None,
+    prepared=None,
 ):
     """z: (B, z_dim) latents -> images (B, H, W, C) in [-1, 1], on the
     device of ``z`` (the params must be on the same device).
@@ -194,7 +195,11 @@ def generator_apply(
     the kernel; the other backends apply the activation afterwards.
     ``sparse_plans`` maps layer index -> ``make_sparse_plan`` tables for
     "cuda_sparse" (int32 tensors already on z's device are used without a
-    copy; a serving engine keeps them there).  ``return_intermediates=True``
+    copy; a serving engine keeps them there).  ``prepared`` maps layer
+    index -> `kernels.deconv2d.ops.StaticOperands`, the layer's weight and
+    bias already padded for the plan's tiles (a serving engine prepares
+    them once); on "cuda" and "cuda_sparse" they are passed to the kernel
+    as they are, else padded per call.  ``return_intermediates=True``
     also returns the per-layer *inputs*: ``(images, [x_0, ..., x_{L-1}])``.
     Nothing on "cuda_sparse" takes a gradient: its schedule is built from
     frozen weights.
@@ -215,6 +220,7 @@ def generator_apply(
         if return_intermediates:
             inters.append(x)
         w, b = p[f"l{i}"]["w"], p[f"l{i}"]["b"]
+        static = (prepared or {}).get(i)
         if backend == "reverse_loop":
             x = deconv2d_reverse_loop(x, w, b, l.stride, l.padding)
         elif backend == "cudnn":
@@ -226,19 +232,19 @@ def generator_apply(
             with torch.no_grad():
                 if plan is not None:
                     x = deconv2d_sparse(x, w, b, plan=plan.layers[i],
-                                        schedule=schedule)
+                                        schedule=schedule, static=static)
                 else:
                     x = deconv2d_sparse(x, w, b, l.stride, l.padding,
                                         activation=l.activation,
-                                        schedule=schedule)
+                                        schedule=schedule, static=static)
         else:
             from ..kernels.deconv2d import deconv2d
 
             if plan is not None:
-                x = deconv2d(x, w, b, plan=plan.layers[i])
+                x = deconv2d(x, w, b, plan=plan.layers[i], static=static)
             else:
                 x = deconv2d(x, w, b, l.stride, l.padding,
-                             activation=l.activation)
+                             activation=l.activation, static=static)
         if backend not in _FUSED:
             x = torch.tanh(x) if l.activation == "tanh" else torch.relu(x)
     if return_intermediates:

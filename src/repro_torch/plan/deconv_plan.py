@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from ..core.tiling import DeconvGeometry
-from ..kernels.autotune import TileChoice, hopper_tiles
+from ..kernels.autotune import TileChoice, choose_tiles, hopper_tiles
 
 # Bump when the serialized plan layout changes incompatibly (the same
 # version as the JAX package's, whose documents this package loads).
@@ -168,10 +168,15 @@ def build_layer_plan(
     weights=None,
     sparse_table_cache: Optional[Dict] = None,
     sparse_cache_key=None,
+    autotune: bool = True,
+    refine: bool = False,
 ) -> DeconvPlan:
-    """Resolve one layer's `DeconvPlan`; tiles come from the Hopper
-    heuristic of the kernel that runs ``dtype``.  Non-tiled backends ("reverse_loop", "cudnn") get
-    ``tiles=None``.
+    """Resolve one layer's `DeconvPlan`.  Tiles come from
+    `autotune.choose_tiles` (a timed entry of the tile cache, else the
+    model of the kernel that runs ``dtype``; ``refine=True`` times
+    candidates on the card), or with ``autotune=False`` from the model
+    alone (`autotune.hopper_tiles`; the cache is not read).  Non-tiled
+    backends ("reverse_loop", "cudnn") get ``tiles=None``.
 
     ``weights`` (the pruned static weights) build the zero-skip schedule
     for backend "cuda_sparse"; ``sparse_table_cache`` memoises the tables
@@ -182,7 +187,11 @@ def build_layer_plan(
     if backend not in TILED_BACKENDS:
         return DeconvPlan(geometry=geom, batch=batch, dtype=dtype_name,
                           backend=backend, activation=activation)
-    tiles = hopper_tiles(geom, batch=batch, dtype=dtype_name)
+    if autotune:
+        tiles = choose_tiles(geom, dtype_name, backend, refine=refine,
+                             batch=batch, out_dtype_bytes=out_dtype_bytes)
+    else:
+        tiles = hopper_tiles(geom, batch=batch, dtype=dtype_name)
     sparse_tables = digest = None
     if backend == "cuda_sparse" and weights is not None:
         from ..kernels.deconv2d_sparse import make_sparse_plan

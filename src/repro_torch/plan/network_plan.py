@@ -120,9 +120,10 @@ class NetworkPlan:
 
     def for_hopper(self, params=None) -> "NetworkPlan":
         """This plan for the H100 kernels: the backend mapped to its
-        counterpart here and every tiled layer's tiles re-resolved by
-        `autotune.hopper_tiles` for the kernel that runs the layer's dtype;
-        epilogues, int8 scales and the rest kept.
+        counterpart here and every tiled layer's tiles re-resolved for the
+        kernel that runs the layer's dtype (`build_layer_plan`: a timed
+        entry of the tile cache, else `autotune.hopper_tiles`); epilogues,
+        int8 scales and the rest kept.
 
         A zero-skip plan's schedules were built at the TPU's channel tiles,
         so they are rebuilt (tables and digest) at the Hopper tiles from
@@ -218,9 +219,12 @@ def build_network_plan(
     calib_seed: int = 0,
     calib_strategy: str = "mean_ksigma",
     sparse_table_cache: Optional[Dict] = None,
+    autotune: bool = True,
+    refine: bool = False,
 ) -> NetworkPlan:
     """Plan a whole generator (``cfg`` is a `models.dcnn.DcnnConfig`) at
-    the batch every layer's kernel will see (a serving bucket).
+    the batch every layer's kernel will see (a serving bucket).  Each
+    layer's tiles follow ``autotune`` and ``refine`` (`build_layer_plan`).
 
     For precision "int8" (backend "cuda" only) a ``quant_cfg`` pins
     calibrated scales; without one, ``params`` are calibrated here on
@@ -263,7 +267,8 @@ def build_network_plan(
             quant=quant_cfg.layers[i] if int8 else None,
             weights=(_weights(params, i) if backend == "cuda_sparse"
                      else None),
-            sparse_table_cache=sparse_table_cache, sparse_cache_key=i)
+            sparse_table_cache=sparse_table_cache, sparse_cache_key=i,
+            autotune=autotune, refine=refine)
         for i, (g, l) in enumerate(zip(geoms, cfg.layers)))
     return NetworkPlan(name=cfg.name, backend=backend, precision=precision,
                        batch=batch, layers=layers,

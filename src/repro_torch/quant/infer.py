@@ -7,8 +7,11 @@ fused requant epilogue re-quantizing straight into the next layer's
 calibrated range.  Activations stay int8 on the device between layers;
 only the final tanh layer emits f32 images.  The kernel takes its weights
 packed CI-minor (`kernels.deconv2d.int8.pack_int8_weights`):
-`pack_quantized_params` packs every layer once, and the chain uses those
-packed weights where the tree has them.
+`pack_quantized_params` prepares every layer's static operands once (the
+packed weight, the scale and the bias padded to its channels, as
+``"static"``), and the chain passes them to the kernel where the tree has
+them, so that no launch of the chain prepares an operand that does not
+change.
 """
 from __future__ import annotations
 
@@ -33,18 +36,18 @@ def _check_qcfg(cfg: DcnnConfig, qcfg: Optional[QuantConfig]) -> QuantConfig:
 
 def pack_quantized_params(qp: Dict[str, Dict[str, torch.Tensor]],
                           cfg: DcnnConfig) -> Dict[str, Dict[str, object]]:
-    """``qp`` with each layer's ``w_q`` also packed for the int8 kernel, as
-    ``"w_packed"``, at channel widths that every tile choice divides
+    """``qp`` with each layer's static operands for the int8 kernel as
+    ``"static"`` (`kernels.deconv2d.int8.prepare_int8_static`): ``w_q``
+    packed at channel widths that every tile choice divides
     (`kernels.deconv2d.int8.packed_width`), so one packing serves every
-    bucket's plan.  ``w_q`` stays in the reference layout."""
-    from ..kernels.deconv2d.int8 import pack_int8_weights, packed_width
+    bucket's plan, and the scale and bias padded to them.  ``w_q`` stays
+    in the reference layout."""
+    from ..kernels.deconv2d.int8 import packed_width, prepare_int8_static
 
-    out = {}
-    for i, l in enumerate(cfg.layers):
-        lq = qp[f"l{i}"]
-        out[f"l{i}"] = {**lq, "w_packed": pack_int8_weights(
-            lq["w_q"], packed_width(l.c_in), packed_width(l.c_out))}
-    return out
+    return {f"l{i}": {**qp[f"l{i}"], "static": prepare_int8_static(
+        qp[f"l{i}"]["w_q"], qp[f"l{i}"]["scale"], qp[f"l{i}"]["b"],
+        packed_width(l.c_in), packed_width(l.c_out))}
+        for i, l in enumerate(cfg.layers)}
 
 
 def quantized_generator_apply(
@@ -58,9 +61,10 @@ def quantized_generator_apply(
     device (``qp`` on the same device).
 
     ``qp`` is the `quant.calibrate.quantize_params` tree (int8 ``w_q``, f32
-    ``b``, f32 per-channel combined ``scale``), with ``w_packed`` per layer
-    where `pack_quantized_params` added it (else each launch packs
-    ``w_q``); ``qcfg`` carries the
+    ``b``, f32 per-channel combined ``scale``), with ``static`` per layer
+    where `pack_quantized_params` added it (passed to the kernel as it is;
+    else each launch packs ``w_q`` and pads the scale and bias); ``qcfg``
+    carries the
     activation scales that chain the layers.  With ``plan`` (an int8
     `repro_torch.plan.NetworkPlan`), tiles and requant scales come from
     the plan and ``qcfg`` may be None."""
@@ -77,14 +81,14 @@ def quantized_generator_apply(
     x = quantize_symmetric(tower_input(cfg, z), qcfg.layers[0].x_scale)
     for i, l in enumerate(cfg.layers):
         lq = qp[f"l{i}"]
-        w = lq.get("w_packed", lq["w_q"])
+        static = lq.get("static")
         if plan is not None:
-            x = deconv2d_int8(x, w, lq["scale"], lq["b"],
-                              plan=plan.layers[i])
+            x = deconv2d_int8(x, lq["w_q"], lq["scale"], lq["b"],
+                              plan=plan.layers[i], static=static)
         else:
-            x = deconv2d_int8(x, w, lq["scale"], lq["b"], l.stride,
+            x = deconv2d_int8(x, lq["w_q"], lq["scale"], lq["b"], l.stride,
                               l.padding, activation=l.activation,
-                              out_scale=qcfg.out_scale(i))
+                              out_scale=qcfg.out_scale(i), static=static)
     return x
 
 

@@ -32,10 +32,14 @@ def symmetric_scale(amax, qmax: int = QMAX):
 
 def scale_tensor(scale: Scale, device) -> torch.Tensor:
     """``scale`` as a float32 tensor on ``device`` (a Python float is
-    rounded to float32 once, here)."""
+    rounded to float32 once, here).  A scalar is filled in on the device,
+    not copied there, so the int8 chain can be captured in a CUDA graph."""
     if isinstance(scale, torch.Tensor):
         return scale.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(scale, np.float32), device=device)
+    a = np.asarray(scale, np.float32)
+    if a.ndim == 0:
+        return torch.full((), float(a), dtype=torch.float32, device=device)
+    return torch.as_tensor(a, device=device)
 
 
 def quantize_symmetric(x: torch.Tensor, scale: Scale,

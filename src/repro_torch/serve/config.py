@@ -27,7 +27,14 @@ class EngineConfig:
                       calibration pinned in a provided int8 plan).
     * ``buckets``/``max_batch`` — explicit bucket set, or power-of-two
                       buckets up to ``max_batch``.
-    * ``warmup``    — run every bucket once at construction.
+    * ``warmup``    — build every bucket's executable (its plan and, on a
+                      card, its CUDA graph) at construction.
+    * ``refine``    — tiles when a bucket is planned
+                      (`kernels.autotune.choose_tiles`): a timed entry of
+                      the tile cache where there is one, else the model's
+                      pick (False) or candidates timed on the card, the
+                      fastest stored (True).  A pinned plan keeps its
+                      tiles.
     * ``call_overhead_rows`` — chunk-planning cost of one extra dispatch.
     * ``default_deadline_s`` — queue deadline applied to `submit` when the
                       caller gives none (`DeadlineExceeded` when missed).
@@ -49,6 +56,7 @@ class EngineConfig:
     call_overhead_rows: int = 8
     default_deadline_s: Optional[float] = None
     device: str = "cuda"
+    refine: bool = False
 
     def __post_init__(self):
         if self.precision not in ("fp32", "int8"):

@@ -12,15 +12,35 @@ Three kernel paths: fp32 on "cuda" (the dense kernel), int8 on "cuda"
 kernel once at construction and kept on the device) and fp32 on
 "cuda_sparse" (the
 zero-skip kernel on pruned params; schedules built on the host once per
-layer and channel tiles, and copied to the device once per plan).
-``launch_counts`` maps bucket -> launches of the kernel the engine's path
-uses, made by that bucket's dispatches, so a run can show that serving
-went through it.
+layer and channel tiles, and copied to the device once per plan).  The
+layers' static operands (weights, biases, int8 scales, padded for the
+plan's channel tiles) are prepared once per layer and tiles and held.
+
+Each bucket runs one `BucketExecutable`, built once from its pinned plan
+(the counterpart of the JAX engine's per-bucket ``jax.jit``): on a card,
+after one eager pass, everything from the static input z to the cropped
+images in a static output is captured in one CUDA graph, and a dispatch
+is a pinned host-to-device copy, one replay and a device-to-host copy of
+the images into pinned memory of their own, within a process-wide bound
+(`PINNED_RESULT_BYTES`), else into the bucket's pinned buffer and a copy
+out of it.  Capture or replay
+failures raise; nothing falls back to eager execution on the card.  A
+capture runs alone among the process's engines: their construction and
+dispatches wait for it (`CAPTURE_GATE`).  On the CPU (when the caller asks for it) the same
+executable runs eagerly.
+``capture_counts`` maps bucket -> executables built (``total_captures``
+sums them; the counterparts of ``trace_counts`` and ``total_compiles``);
+``launch_counts`` maps bucket -> launches of the kernel of the engine's
+path made by that bucket's dispatches, so a run can show that serving went
+through it.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -33,6 +53,170 @@ from ..models.dcnn import generator_apply
 from ..workloads import resolve_model, workload_name_for
 from .config import EngineConfig
 from .errors import AdmissionRejected, DeadlineExceeded
+
+
+class _CaptureGate:
+    """Lets a CUDA graph capture run alone among the process's engines.
+    While a stream captures, a device-wide synchronise in any thread breaks
+    the capture, and in the capturing thread CUDA refuses the calls a
+    dispatch makes (synchronising, cudaMalloc, pinned allocations).  Every
+    engine's construction and dispatch holds the gate shared; a build
+    (planning, the eager pass, the capture) holds it exclusive: it waits
+    for the holders in flight and holds new ones back until it ends.
+    Other code's CUDA work in other threads is not held back: the capture
+    runs in thread-local mode, which lets work on other streams through,
+    but not a device-wide synchronise or a draw from the default CUDA
+    generator."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._active = 0
+        self._building = False
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            self._cond.wait_for(lambda: not self._building)
+            self._active += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._active -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._cond.wait_for(lambda: not self._building)
+            self._building = True
+            self._cond.wait_for(lambda: self._active == 0)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._building = False
+                self._cond.notify_all()
+
+
+CAPTURE_GATE = _CaptureGate()
+
+# Pinned host bytes that the images handed out may hold at once, over every
+# engine of the process.  Within it a dispatch's images come back into a
+# pinned tensor of their own and no host copy is made; past it they come
+# back into the bucket's pinned buffer and are copied out of it (on an
+# H100's host that copy took 0.5 ms of a 1.3 ms CelebA int8 dispatch).
+PINNED_RESULT_BYTES = 128 << 20
+
+
+class _PinnedBudget:
+    """Pinned bytes held by images handed out and not yet dropped, counted
+    at the host allocator's power-of-two block sizes, so the pinned memory
+    that results keep (and the allocator caches after them) stays below
+    ``limit``."""
+
+    def __init__(self, limit: int):
+        self.limit, self.held = limit, 0
+        self._lock = threading.Lock()
+
+    def take(self, nbytes: int) -> bool:
+        with self._lock:
+            if self.held + nbytes > self.limit:
+                return False
+            self.held += nbytes
+            return True
+
+    def give(self, nbytes: int) -> None:
+        with self._lock:
+            self.held -= nbytes
+
+
+PINNED_RESULTS = _PinnedBudget(PINNED_RESULT_BYTES)
+
+
+class BucketExecutable:
+    """The device side of one bucket's dispatch, built once.
+
+    ``z_dev`` is the static input ``(bucket, *input_shape)`` and ``out_dev``
+    the static output ``(bucket, H, W, C)``; ``z_host`` and ``out_host``
+    their host staging buffers (pinned on a card; on the CPU ``z_dev`` and
+    ``out_dev`` themselves).  ``graph`` is the captured
+    `torch.cuda.CUDAGraph` (None on the CPU, where ``body`` runs eagerly),
+    and ``launches`` the launches of the path's kernel one replay makes
+    (counted while capturing; None on the CPU).
+
+    The next dispatch reuses the staging buffers, so no result aliases
+    them: the images come back into a pinned tensor of their own while
+    `PINNED_RESULTS` allows, else into ``out_host`` and are copied out."""
+
+    def __init__(self, bucket, body, z_dev, out_dev, z_host, out_host,
+                 graph=None, launches=None):
+        self.bucket = bucket
+        self.body = body
+        self.z_dev, self.out_dev = z_dev, out_dev
+        self.z_host, self.out_host = z_host, out_host
+        self.graph = graph
+        self.launches = launches
+
+    def stage(self, rows: np.ndarray) -> None:
+        """``rows`` into the host staging input, the rows past them zero
+        (the JAX engine pads with zeros)."""
+        take = rows.shape[0]
+        self.z_host[:take].copy_(torch.from_numpy(rows))
+        self.z_host[take:].zero_()
+
+    def replay(self) -> None:
+        """The captured graph once, on the current stream."""
+        try:
+            self.graph.replay()
+        except RuntimeError as e:
+            raise RuntimeError(f"bucket {self.bucket}: CUDA graph replay "
+                               f"failed: {e}") from e
+
+    def fetch(self, take: int) -> Optional[np.ndarray]:
+        """Enqueue the copy of the first ``take`` images (read it after the
+        stream has synchronised).  While `PINNED_RESULTS` allows they land
+        in a new pinned tensor, returned as its numpy view (the budget gets
+        its bytes back when the view and every slice of it are dropped);
+        else in ``out_host``, and None is returned."""
+        src = self.out_dev[:take]
+        block = 1 << max(0, src.nbytes - 1).bit_length()
+        if not PINNED_RESULTS.take(block):
+            self.out_host[:take].copy_(src, non_blocking=True)
+            return None
+        try:
+            dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        except Exception:
+            PINNED_RESULTS.give(block)
+            raise
+        dst.copy_(src, non_blocking=True)
+        # the view holds the memory but not ``dst`` itself: watch the view
+        view = dst.numpy()
+        weakref.finalize(view, PINNED_RESULTS.give, block)
+        return view
+
+    def images(self, view: Optional[np.ndarray], take: int) -> np.ndarray:
+        """``fetch``'s images in memory of their own: its pinned view, or
+        one thread's copy out of ``out_host`` (spread over torch's intra-op
+        threads, the copy waited on straggling threads often enough to
+        raise the mean and the CV; ``tools/probe_dispatch.py``)."""
+        if view is not None:
+            return view
+        return self.out_host[:take].numpy().copy()
+
+    def __call__(self, rows: np.ndarray) -> np.ndarray:
+        """Images of ``rows`` (at most ``bucket`` of them), in memory of
+        their own."""
+        self.stage(rows)
+        take = rows.shape[0]
+        if self.graph is None:
+            self.body()
+            return self.out_dev[:take].numpy().copy()
+        self.z_dev.copy_(self.z_host, non_blocking=True)
+        self.replay()
+        view = self.fetch(take)
+        torch.cuda.current_stream(self.out_dev.device).synchronize()
+        return self.images(view, take)
 
 
 def pow2_buckets(max_batch: int) -> Tuple[int, ...]:
@@ -51,9 +235,10 @@ class DcnnServeEngine:
 
     * **Bucketing** — `plan_chunks` decomposes a request batch into bucket
       calls, trading padded rows against per-call overhead.
-    * **Plan/execute** — each bucket's `NetworkPlan` is built once (lazily,
-      or at construction with ``warmup=True``) and every dispatch executes
-      it unchanged; ``plan_stats`` counts builds.
+    * **Plan/execute** — each bucket's `NetworkPlan` and `BucketExecutable`
+      are built once (lazily, or at construction with ``warmup=True``) and
+      every dispatch executes them unchanged; ``plan_stats`` counts plan
+      builds, ``capture_counts`` executables.
     * **Queue** — ``submit`` enqueues rows, ``drain`` runs everything
       pending as one coalesced `generate`, ``collect`` hands a ticket's
       images out exactly once (or raises its typed failure).
@@ -74,7 +259,13 @@ class DcnnServeEngine:
         ``cfg.quant_cfg`` is None, so a pinned deployment never
         re-calibrates."""
         self = cls.__new__(cls)
-        self._setup(cfg, params, plan)
+        # the device work of construction (params moved, calibrated,
+        # quantized) stays out of other engines' captures
+        with CAPTURE_GATE.shared():
+            self._setup(cfg, params, plan)
+        if cfg.warmup:
+            for b in self.buckets:
+                self._warmup_bucket(b)
         return self
 
     def _setup(self, config: EngineConfig, params, plan) -> None:
@@ -96,7 +287,23 @@ class DcnnServeEngine:
             raise ValueError(f"buckets must be positive: {self.buckets}")
         self.max_bucket = self.buckets[-1]
         self.plans: Dict[int, object] = {}
+        # launch_counts: per bucket, launches of the path's kernel by its
+        # dispatches (on a card: per replay, the launches its capture
+        # recorded; on the CPU: the wrapper's count over each eager run).
+        # capture_counts: per bucket, executables built (one, ever).
         self.launch_counts: Dict[int, int] = {}
+        self.capture_counts: Dict[int, int] = {}
+        self._fns: Dict[int, BucketExecutable] = {}
+        # the launches' static operands under (layer, CIp, COp), across
+        # buckets; they live as long as the engine (graphs hold their
+        # addresses)
+        self._static: Dict[tuple, object] = {}
+        # all buckets' graphs share one memory pool: dispatches never overlap
+        self._pool = None
+        # guards every bucket's static buffers: generate may be called
+        # outside drain, from another thread (CAPTURE_GATE orders it
+        # against other engines' captures)
+        self._dispatch_lock = threading.Lock()
         self._kernel = {("cuda", "fp32"): deconv_kernel,
                         ("cuda", "int8"): int8_kernel,
                         ("cuda_sparse", "fp32"): sparse_kernel}.get(
@@ -159,9 +366,6 @@ class DcnnServeEngine:
         self.stats = {"generate_calls": 0, "images": 0, "padded_images": 0}
         self.fault_stats = {"deadline_expired": 0, "shed": 0}
         self.bucket_stats: Dict[int, Dict[str, float]] = {}
-        if config.warmup:
-            for b in self.buckets:
-                self._warmup_bucket(b)
 
     # -- per-bucket plans -----------------------------------------------
     def _plan_for(self, bucket: int):
@@ -175,13 +379,15 @@ class DcnnServeEngine:
                 precision=self.precision, quant_cfg=self.quant_cfg,
                 params=(self.params if self.backend == "cuda_sparse"
                         else None),
-                sparse_table_cache=self._sparse_tables)
+                sparse_table_cache=self._sparse_tables,
+                refine=self.config.refine)
             self.plan_stats["builds"] += 1
             self.plan_stats["build_seconds"] += time.perf_counter() - t0
         return self.plans[bucket]
 
     def _apply(self, bucket: int, plan, z: torch.Tensor) -> torch.Tensor:
-        """The generator of the engine's path on one padded bucket."""
+        """The generator of the engine's path on one padded bucket, on the
+        engine's prepared static operands."""
         if self.precision == "int8":
             from ..quant.infer import quantized_generator_apply
 
@@ -197,7 +403,96 @@ class DcnnServeEngine:
                     i: schedule_tensors(t, self.device)
                     for i, t in plan.sparse_plans().items()}
         return generator_apply(self.params, self.cfg, z, plan=plan,
-                               sparse_plans=sparse)
+                               sparse_plans=sparse,
+                               prepared=self._prepared(plan))
+
+    def _prepared(self, plan) -> Optional[Dict[int, object]]:
+        """Per layer the `StaticOperands` of ``plan``'s tiles, prepared at
+        the first plan that needs them and held (None on untiled
+        backends)."""
+        if self.backend not in ("cuda", "cuda_sparse"):
+            return None
+        from ..kernels.deconv2d.ops import _round_up, prepare_static
+
+        out = {}
+        for i, l in enumerate(plan.layers):
+            g, t = l.geometry, l.tiles
+            key = (i, _round_up(g.c_in, t.t_ci), _round_up(g.c_out, t.t_co))
+            st = self._static.get(key)
+            if st is None:
+                p = self.params[f"l{i}"]
+                st = self._static[key] = prepare_static(p["w"], p["b"],
+                                                        *key[1:])
+            out[i] = st
+        return out
+
+    def _get_fn(self, bucket: int) -> BucketExecutable:
+        """The bucket's executable, built once from its pinned plan, with
+        `CAPTURE_GATE` held exclusive (planning may time tiles on the
+        card)."""
+        ex = self._fns.get(bucket)
+        if ex is None:
+            with CAPTURE_GATE.exclusive():
+                ex = self._fns[bucket] = self._build(bucket,
+                                                     self._plan_for(bucket))
+            self.capture_counts[bucket] = \
+                self.capture_counts.get(bucket, 0) + 1
+        return ex
+
+    def _build(self, bucket: int, plan) -> BucketExecutable:
+        """On a card: one eager pass (it builds the kernel library, sets the
+        kernels' shared-memory attribute, copies the schedules, prepares the
+        static operands and warms the allocator), then the capture of
+        everything from the static input to the static output on a side
+        stream, in thread-local mode (`CAPTURE_GATE` keeps the engines'
+        dispatches out of it; other threads' CUDA work does not break it).
+        On the CPU the body runs eagerly at each dispatch."""
+        dtype = self.cfg.torch_dtype
+        z_dev = torch.zeros((bucket,) + self.cfg.input_shape, dtype=dtype,
+                            device=self.device)
+        out_dev = torch.empty((bucket,) + self.output_shape, dtype=dtype,
+                              device=self.device)
+
+        def body():
+            with torch.no_grad():
+                out_dev.copy_(self._apply(bucket, plan, z_dev))
+
+        if self.device.type == "cpu":
+            return BucketExecutable(bucket, body, z_dev, out_dev, z_dev,
+                                    out_dev)
+        try:
+            with torch.cuda.device(self.device):
+                body()
+                torch.cuda.synchronize(self.device)
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                graph = torch.cuda.CUDAGraph()
+                before = self._launches()
+                # a collection inside the capture could free a dropped
+                # engine's graph or pinned buffers: calls a capture refuses
+                # (torch.cuda.graph collects before it begins)
+                gc_on = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, pool=self._pool,
+                                          capture_error_mode="thread_local"):
+                        body()
+                finally:
+                    if gc_on:
+                        gc.enable()
+                launches = self._launches() - before
+        except Exception as e:
+            raise RuntimeError(f"bucket {bucket}: capturing its CUDA graph "
+                               f"failed: {e}") from e
+        z_host = torch.zeros(z_dev.shape, dtype=dtype, pin_memory=True)
+        out_host = torch.empty(out_dev.shape, dtype=dtype, pin_memory=True)
+        return BucketExecutable(bucket, body, z_dev, out_dev, z_host,
+                                out_host, graph, launches)
+
+    @property
+    def total_captures(self) -> int:
+        """Executables built over all buckets."""
+        return sum(self.capture_counts.values())
 
     def _warmup_bucket(self, bucket: int) -> None:
         z = np.zeros((bucket,) + self.cfg.input_shape, self.cfg.dtype)
@@ -210,32 +505,32 @@ class DcnnServeEngine:
     def _dispatch(self, bucket: int, rows: np.ndarray):
         """One bucket call on ``rows`` (at most ``bucket`` of them):
         ``(images, seconds, steady)``.  ``seconds`` is the wall clock of the
-        whole call: padding the rows to the bucket, the host-to-device copy,
-        the generator and the device-to-host copy of the images.  The first
-        call of a bucket (which may build the kernel library) is not steady
-        and stays out of the timing stats."""
-        plan = self._plan_for(bucket)
-        take = rows.shape[0]
-        launches0 = self._launches()
-        self._sync()
-        t0 = time.perf_counter()
-        if take < bucket:
-            rows = np.concatenate(
-                [rows, np.zeros((bucket - take,) + rows.shape[1:], rows.dtype)],
-                axis=0)
-        z = torch.from_numpy(rows).to(self.device)
-        y = self._apply(bucket, plan, z)
-        images = y[:take].cpu().numpy()   # returns once the copy is done
-        dt = time.perf_counter() - t0
-        self.launch_counts[bucket] = (self.launch_counts.get(bucket, 0)
-                                      + self._launches() - launches0)
-        steady = bucket in self._warm
-        self._warm.add(bucket)
+        whole call: staging the rows (padded with zeros to the bucket), the
+        host-to-device copy, the replay (on the CPU the eager run) and the
+        device-to-host copy of the images.  The first call of a bucket
+        (which builds its executable) is not steady and stays out of the
+        timing stats.  ``images`` is a new array each call."""
+        with self._dispatch_lock:
+            ex = self._get_fn(bucket)
+            with CAPTURE_GATE.shared():
+                launches0 = self._launches()
+                self._sync()
+                t0 = time.perf_counter()
+                images = ex(rows)
+                dt = time.perf_counter() - t0
+                made = (ex.launches if ex.launches is not None
+                        else self._launches() - launches0)
+            self.launch_counts[bucket] = self.launch_counts.get(bucket,
+                                                                0) + made
+            steady = bucket in self._warm
+            self._warm.add(bucket)
         return images, dt, steady
 
     def _launches(self) -> int:
-        """Launches so far of the kernel of the engine's path (0 on the
-        backends without one)."""
+        """Launches so far of the kernel of the engine's path through its
+        Python wrapper (the module's ``LAUNCHES``: eager runs and captures;
+        a replay does not pass through it).  0 on the backends without
+        one."""
         return self._kernel.LAUNCHES if self._kernel is not None else 0
 
     def bucket_for(self, n: int) -> int:

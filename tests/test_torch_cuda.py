@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.core.sparsity import magnitude_prune, prune_tree
+from repro_torch.kernels import autotune
 from repro_torch.kernels.autotune import hopper_tiles
 from repro_torch.kernels.deconv2d import int8 as int8_kernel
 from repro_torch.kernels.deconv2d import kernel as deconv_kernel
@@ -20,7 +21,7 @@ from repro_torch.kernels.deconv2d_sparse import kernel as sparse_kernel
 from repro_torch.kernels.deconv2d_sparse import (make_sparse_plan,
                                                  schedule_tensors)
 from repro_torch.models import dcnn
-from repro_torch.quant import quantized_generator_ref
+from repro_torch.quant import quantized_generator_apply, quantized_generator_ref
 from repro_torch.serve import DcnnServeEngine, EngineConfig
 
 pytestmark = pytest.mark.cuda
@@ -183,8 +184,11 @@ def test_int8_and_sparse_engines_launch_their_kernel(card, kind):
     y = eng.generate(z)
     want_launches = len(cfg.layers) * len(eng.plan_chunks(11))
     assert sum(eng.launch_counts.values()) == want_launches
+    # the wrappers see each built bucket's eager pass and capture only;
+    # its dispatches are replays
+    built = len(cfg.layers) * 2 * len(eng.capture_counts)
     for m, n in counts.items():
-        assert m.LAUNCHES - n == (want_launches if m is mod else 0)
+        assert m.LAUNCHES - n == (built if m is mod else 0)
     zt = torch.from_numpy(z).to(card)
     if kind == "int8":
         want = quantized_generator_ref(eng.params, cfg, eng.quant_cfg, zt)
@@ -250,3 +254,206 @@ def test_tc_kernel_on_thin_tanh_layers(card, cfg, layer, batch, rng):
     torch.cuda.synchronize()
     want = deconv_kernel.deconv2d_launch_plain(xp, wp, bp, **kw)
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+# -- the per-bucket CUDA graphs ------------------------------------------
+PATHS = {"fp32": {}, "int8": {"precision": "int8"},
+         "cuda_sparse": {"backend": "cuda_sparse"}}
+
+
+def _eager(path, eng, z):
+    """One bucket of rows through the public ops at the bucket's plan,
+    eagerly, every operand prepared per call (int8 from ``w_q``)."""
+    plan = eng.plans[z.shape[0]]
+    with torch.no_grad():
+        if path == "int8":
+            qp = {k: {n: v[n] for n in ("w_q", "scale", "b")}
+                  for k, v in eng.params.items()}
+            return quantized_generator_apply(qp, eng.cfg, None, z,
+                                             plan=plan).cpu().numpy()
+        return dcnn.generator_apply(eng.params, eng.cfg, z,
+                                    plan=plan).cpu().numpy()
+
+
+@pytest.mark.parametrize("net", ["mnist", "celeba"])
+@pytest.mark.parametrize("bucket", [1, 2, 64])
+@pytest.mark.parametrize("path", list(PATHS))
+def test_replayed_graph_equals_an_eager_run_of_the_same_plan(card, path,
+                                                             bucket, net):
+    """Replayed images bit-identical to the eager ops at the same plan (at
+    bucket 1 the cluster splits of 4 and 8 run inside the graph), one
+    capture per bucket, and the launches of layers x dispatches."""
+    cfg = {"mnist": dcnn.MNIST_DCNN, "celeba": dcnn.CELEBA_DCNN}[net]
+    params = dcnn.generator_init(torch.Generator().manual_seed(0), cfg, card)
+    if path == "cuda_sparse":
+        params = prune_tree(params, 0.9)
+    eng = DcnnServeEngine.from_config(
+        EngineConfig(model=net, buckets=(bucket,), **PATHS[path]), params)
+    rng = np.random.RandomState(bucket)
+    for _ in range(3):
+        z = rng.randn(bucket, cfg.z_dim).astype(np.float32)
+        got = eng.generate(z)
+        want = _eager(path, eng, torch.from_numpy(z).to(card))
+        np.testing.assert_array_equal(got, want)
+    assert eng.capture_counts == {bucket: 1} and eng.total_captures == 1
+    assert eng.launch_counts == {bucket: 3 * len(cfg.layers)}
+
+
+def test_refine_writes_a_timed_entry_that_a_second_engine_serves(
+        card, tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "t.json"))
+    monkeypatch.setattr(autotune, "_cache", None)
+    cfg = dcnn.MNIST_DCNN
+    params = dcnn.generator_init(torch.Generator().manual_seed(0), cfg, card)
+    eng = DcnnServeEngine.from_config(EngineConfig(
+        model="mnist", buckets=(1,), warmup=True, refine=True), params)
+    tiles = [l.tiles for l in eng.plans[1].layers]
+    assert all(t.source == "timed" for t in tiles)
+    for l in eng.plans[1].layers:
+        e = autotune.cached_entry(l.geometry, "float32", "cuda", 1)
+        assert e["model"] == hopper_tiles(l.geometry, 1).as_kwargs()
+        assert e["model_ms"] > 0 and len(e["timed"]) >= 2
+        assert e["ms"] == min(c["ms"] for c in e["timed"])
+    assert (tmp_path / "t.json").exists()
+
+    def timed_again(*a, **k):
+        raise AssertionError("a cached choice was timed again")
+
+    monkeypatch.setattr(autotune, "_time_candidate", timed_again)
+    monkeypatch.setattr(autotune, "_cache", None)      # read the file back
+    again = DcnnServeEngine.from_config(EngineConfig(
+        model="mnist", buckets=(1,), warmup=True), params)
+    assert [l.tiles for l in again.plans[1].layers] == tiles
+    assert all(l.tiles.source == "cache" for l in again.plans[1].layers)
+    z = np.random.RandomState(1).randn(1, cfg.z_dim).astype(np.float32)
+    want = dcnn.generator_apply(again.params, cfg,
+                                torch.from_numpy(z).to(card),
+                                backend="reverse_loop").cpu().numpy()
+    np.testing.assert_allclose(again.generate(z), want, rtol=1e-4, atol=1e-4)
+
+
+def _run_threads(targets, timeout=300):
+    """Start one thread per ``(function, args)``; the errors they raised."""
+    import threading
+
+    errors = []
+
+    def guarded(fn, *a):
+        try:
+            fn(*a)
+        except Exception as e:   # reported by the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=guarded, args=(fn, *a))
+               for fn, *a in targets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    assert not any(t.is_alive() for t in threads)
+    return errors
+
+
+def test_engines_capture_lazily_on_two_threads(card):
+    """Two engines capturing their buckets lazily on two threads, while a
+    third thread builds int8 engines (calibrating on the card), serves one
+    request on each and drops it (garbage holding a graph and pinned
+    buffers): no capture or dispatch fails, each bucket is captured once,
+    and the images equal those of the same engines run one at a time."""
+    cfg = dcnn.MNIST_DCNN
+    params = dcnn.generator_init(torch.Generator().manual_seed(0), cfg, card)
+    kinds = {"fp32": {}, "int8": {"precision": "int8"}}
+
+    def engine(kind):
+        return DcnnServeEngine.from_config(EngineConfig(
+            model="mnist", buckets=(1, 2, 4, 8), **kinds[kind]), params)
+
+    zs = [np.random.RandomState(i).randn(1 + 3 * i % 8, cfg.z_dim)
+          .astype(np.float32) for i in range(8)]
+    want = {k: [engine(k).generate(z) for z in zs] for k in kinds}
+    engines = {k: engine(k) for k in kinds}
+
+    def serve(k):
+        for z, w in zip(zs, want[k]):
+            np.testing.assert_array_equal(engines[k].generate(z), w)
+
+    def construct():
+        for z, w in zip(zs[:4], want["int8"]):
+            np.testing.assert_array_equal(engine("int8").generate(z), w)
+
+    errors = _run_threads([(serve, "fp32"), (serve, "int8"), (construct,)])
+    assert errors == []
+    for eng in engines.values():
+        assert eng.capture_counts == {b: 1 for b in eng.buckets}
+
+
+def test_other_threads_stream_work_does_not_break_a_capture(card):
+    """A capture runs in thread-local mode: another thread allocating,
+    launching and synchronising on a stream of its own (no random draws:
+    the default generator belongs to the capture) meanwhile breaks
+    neither the captures nor its own work, and the captured images equal
+    those of engines captured with the card to themselves."""
+    import threading
+
+    cfg = dcnn.MNIST_DCNN
+    params = dcnn.generator_init(torch.Generator().manual_seed(0), cfg, card)
+    z = np.random.RandomState(0).randn(8, cfg.z_dim).astype(np.float32)
+    buckets = (1, 2, 4, 8)
+
+    def engine(b):
+        return DcnnServeEngine.from_config(EngineConfig(
+            model="mnist", buckets=(b,)), params)
+
+    want = {b: engine(b).generate(z[:b]) for b in buckets}
+    done = threading.Event()
+
+    def stream_work():
+        s = torch.cuda.Stream(card)
+        with torch.cuda.stream(s):
+            while not done.is_set():
+                y = torch.full((1 << 16,), 0.5, device=card)
+                y.mul_(2).add_(1)
+                s.synchronize()
+
+    def serve():
+        try:
+            for b in buckets:
+                eng = engine(b)
+                np.testing.assert_array_equal(eng.generate(z[:b]), want[b])
+                assert eng.capture_counts == {b: 1}
+        finally:
+            done.set()
+
+    assert _run_threads([(stream_work,), (serve,)]) == []
+
+
+def test_results_past_the_pinned_budget_are_copies(card, monkeypatch):
+    """Within the process-wide pinned budget a result keeps a pinned tensor
+    of its own; past it the images are copied out of the bucket's pinned
+    buffer.  Either way a kept result never changes after later
+    dispatches, and dropping the results gives their bytes back."""
+    import gc
+
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = dcnn.MNIST_DCNN
+    params = dcnn.generator_init(torch.Generator().manual_seed(0), cfg, card)
+    eng = DcnnServeEngine.from_config(EngineConfig(
+        model="mnist", buckets=(4,), warmup=True), params)
+    block = 1 << (4 * 28 * 28 * 4 - 1).bit_length()
+    budget = engine_mod._PinnedBudget(block)
+    monkeypatch.setattr(engine_mod, "PINNED_RESULTS", budget)
+    rng = np.random.RandomState(0)
+    zs = [rng.randn(4, cfg.z_dim).astype(np.float32) for _ in range(4)]
+    kept = [eng.generate(z) for z in zs[:2]]
+    want = [k.copy() for k in kept]
+    assert budget.held == block                 # the first one is pinned
+    out_host = eng._fns[4].out_host.numpy()
+    assert not any(np.shares_memory(k, out_host) for k in kept)
+    for z in zs[2:]:
+        eng.generate(z)
+    for k, w in zip(kept, want):
+        np.testing.assert_array_equal(k, w)
+    del kept
+    gc.collect()
+    assert budget.held == 0

@@ -483,7 +483,7 @@ def test_int8_layers_through_packed_weights_match_reference(mnist_q):
         lq = packed[f"l{i}"]
         t = hopper_tiles(g, 1, "int8")
         xp, wpk, sp, bp, kw, crop = launch_args_int8(
-            x, lq["w_packed"], lq["scale"], lq["b"], g.stride, g.padding,
+            x, lq["static"].w, lq["scale"], lq["b"], g.stride, g.padding,
             *t.as_kwargs().values(), l.activation, qcfg.out_scale(i))
         split = min(launch_split_int8(xp, wpk, kw), wpk.cip // t.t_ci)
         got = deconv2d_int8_launch_plain(xp, unpack_int8_weights(wpk), sp, bp,
@@ -510,7 +510,7 @@ def test_int8_chain_through_packed_weights_matches_reference(mnist_q):
     as the test above shows)."""
     jq, jqp, qcfg, qp, z = mnist_q
     packed = pack_quantized_params(qp, dcnn.MNIST_DCNN)
-    assert all(isinstance(packed[f"l{i}"]["w_packed"], PackedInt8Weights)
+    assert all(isinstance(packed[f"l{i}"]["static"].w, PackedInt8Weights)
                for i in range(3))
     assert torch.equal(packed["l0"]["w_q"], qp["l0"]["w_q"])
     got = quantized_generator_apply(packed, dcnn.MNIST_DCNN, qcfg,
@@ -532,9 +532,9 @@ def test_engine_packs_int8_weights_once():
     eng = DcnnServeEngine.from_config(
         EngineConfig(model="mnist", device="cpu", precision="int8",
                      max_batch=2), params)
-    packs = {i: eng.params[f"l{i}"]["w_packed"] for i in range(3)}
+    packs = {i: eng.params[f"l{i}"]["static"].w for i in range(3)}
     assert [(p.cip, p.cop) for p in packs.values()] == \
         [(128, 256), (256, 128), (128, 1)]
     eng.generate(np.zeros((3, 100), np.float32))
-    assert all(eng.params[f"l{i}"]["w_packed"] is packs[i] for i in range(3))
+    assert all(eng.params[f"l{i}"]["static"].w is packs[i] for i in range(3))
     assert int8_kernel.PACK_ALIGN % max(INT8_T_CI) == 0
