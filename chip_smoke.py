@@ -18,37 +18,48 @@ Phases (any failure raises and the exit code is non-zero):
     of every kernel instance are printed;
  3. each kernel vs its plain version, on the card: the JAX package's kernel
     sweep, ragged and batch-tiled shapes, several CI chunks, and every
-    layer of both generators at buckets 1 and 64.  B1 fp32 tol 1e-4, bf16
-    8e-2; B2 int8 outputs bit-equal, f32 outputs 1e-6, with real requant
-    scales on the generator layers, each at its launch's cluster split; B3
-    as B1, under magnitude pruning at 0.5 / 0.9 / 0.97 and hand-zeroed
-    slabs, and some case must skip slabs; then B1, B2 and B3 launched twice
-    on the same inputs at every generator layer at bucket 1 must give
-    bit-identical outputs (the cluster split sums its partials in rank
-    order, with no atomics);
- 4. serving, both generators at full width through DcnnServeEngine with
-    mixed-size requests, on three paths, each bucket one captured CUDA
-    graph, each path and net driven under torch.profiler with every count
-    at 0 just before and read just after: fp32 on "cuda" (held against
-    reverse_loop and cudnn), int8 (against the int8 plain chain; MMD
-    against the fp32 images; weights packed once by the engine) and
-    "cuda_sparse" on params pruned at 0.9 (against reverse_loop and cudnn
-    on the same params); the trace's device launches of the path's kernel
-    == layers x dispatches and none of the other two, the engine's
-    launch_counts the same, the Python wrappers' counts 0 (replays only,
-    no eager run), capture_counts 1 per bucket; every bucket's replayed
-    images bit-identical to an eager run of the same plan through the
-    public ops;
+    layer of both generators and of the workload zoo's image-rooted towers
+    (the super-resolution head "sr" and the denoiser "denoise": stride 1,
+    K = 5 with padding 2, C_in = 1 and C_out = 1, 14x14 and 28x28 roots) at
+    buckets 1 and 64.  B1 fp32 tol 1e-4, bf16 8e-2; B2 int8 outputs
+    bit-equal, f32 outputs 1e-6, with real requant scales on the towers'
+    layers (calibrated on each tower's own calibration batch), each at its
+    launch's cluster split; B3 as B1, under magnitude pruning at 0.5 / 0.9
+    / 0.97 and hand-zeroed slabs, and some case must skip slabs; then B1,
+    B2 and B3 launched twice on the same inputs at every tower layer at
+    bucket 1 must give bit-identical outputs (the cluster split sums its
+    partials in rank order, with no atomics);
+ 4. serving through DcnnServeEngine with mixed-size requests, every tower
+    at full width, each bucket one captured CUDA graph, each path and
+    tower driven under torch.profiler with every count at 0 just before
+    and read just after: fp32 on "cuda" (held against reverse_loop and
+    cudnn), int8 (against the int8 plain chain; MMD against the fp32
+    images; weights packed once by the engine) and "cuda_sparse" on params
+    pruned at 0.9 (against reverse_loop and cudnn on the same params), for
+    both generators (latent requests) and both zoo towers (requests of
+    images from the towers' own pair synthesizers); and bf16 generators on
+    "cuda" and "cuda_sparse" (pruned 0.9; float32 in and out, bf16 on the
+    card), against reverse_loop and cudnn in bf16 at 8e-2, with the
+    largest error against the fp32 images of the same params reported;
+    the trace's device launches of the path's kernel instance == layers x
+    dispatches and none of the others, the engine's launch_counts the
+    same, the Python wrappers' counts 0 (replays only, no eager run),
+    capture_counts 1 per bucket; every bucket's replayed images
+    bit-identical to an eager run of the same plan through the public ops;
  5. times: per kernel, layer and bucket, device time (CUDA events, median
     of 25, launches queued behind a sleep, with a check that the sleep
     outlasted the host's enqueue) and per-call time against its bound (B1
     and B3: the 3xTF32 rate, a third of the TF32 tensor-core peak, with the
-    bound at the fp32 FMA peak beside it; B2: the int8 peak), the plain
-    version's per-call time and the library call's device time where there
-    is one, and each row's cluster split (B2's rows also the registers and
-    spills of the instance they launch); per net and path, images/s and
-    run-to-run CV from the engine, and the bucket-64 dispatch split into
-    its host-to-device copy, replay and device-to-host copy (CUDA events);
+    bound at the fp32 FMA peak beside it; B2: the int8 peak; bf16 B1 and
+    B3: 2 bytes per element, operations at the bf16 tensor-core peak, with
+    the bound at the fp32 FMA peak, the rate of the FMA kernel's own f32
+    products, beside it), the plain version's per-call time and the
+    library call's device time where there is one (cuDNN in the layer's
+    dtype), and each row's cluster split (B2's rows also the registers and
+    spills of the instance they launch), for every tower; per path and
+    tower, images/s and run-to-run CV from the engine, and the bucket-64
+    dispatch split into its host-to-device copy, replay and device-to-host
+    copy (CUDA events);
  6. refine: fp32 engines with refine=True at buckets 1 and 64 time the
     model's pick and the next candidates per layer (tile cache in a fresh
     temporary file); per layer both picks and times, and the refined
@@ -59,9 +70,11 @@ Imports nothing of JAX: only torch, numpy and the port (src/repro_torch).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -75,6 +88,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.core.dse import H100_SXM  # noqa: E402
 from repro_torch.core.mmd import mmd  # noqa: E402
 from repro_torch.core.sparsity import magnitude_prune, prune_tree  # noqa: E402
 from repro_torch.core.tiling import DeconvGeometry, tc_warp_tile  # noqa: E402
@@ -93,17 +107,20 @@ from repro_torch.quant import (calibrate, quantize_params,  # noqa: E402
                                quantize_symmetric, quantized_generator_apply,
                                quantized_generator_ref)
 from repro_torch.serve import DcnnServeEngine, EngineConfig  # noqa: E402
-from repro_torch.workloads import calibration_input  # noqa: E402
+from repro_torch.workloads import (DAE_DENOISE, SR_X2,  # noqa: E402
+                                   calibration_input, workload_for)
 
 # Published peaks (NVIDIA data sheets, dense): fp32 outside the tensor
-# cores, int8 and TF32 on the tensor cores (the data sheets' figures with
-# sparsity, halved), and device-memory bandwidth.  Keyed by a substring of
-# the card's name.
+# cores, int8, TF32 and bf16 on the tensor cores (the data sheets' figures
+# with sparsity, halved), and device-memory bandwidth.  Keyed by a
+# substring of the card's name; the H100 SXM's are the port's
+# `core.dse.H100_SXM`.
 PEAKS = (
-    ("H100 PCIe", 51e12, 1513e12, 378e12, 2.0e12),
-    ("H100 NVL", 60e12, 1671e12, 418e12, 3.9e12),
-    ("H100", 67e12, 1979e12, 495e12, 3.35e12),      # SXM5, HBM3
-    ("H200", 67e12, 1979e12, 495e12, 4.8e12),
+    ("H100 PCIe", 51e12, 1513e12, 378e12, 756e12, 2.0e12),
+    ("H100 NVL", 60e12, 1671e12, 418e12, 835e12, 3.9e12),
+    ("H100", H100_SXM.peak_ops, H100_SXM.int8_peak_ops,      # SXM5, HBM3
+     H100_SXM.tf32_peak_ops, H100_SXM.bf16_peak_ops, H100_SXM.bandwidth),
+    ("H200", 67e12, 1979e12, 495e12, 989e12, 4.8e12),
 )
 # (name, module, source, the TPU kernel it replaces)
 KERNELS = (
@@ -137,21 +154,43 @@ ALG1_GEOMS = [
 ]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 NETS = (MNIST_DCNN, CELEBA_DCNN)
+# the workload zoo's image-rooted towers (super-resolution, denoising)
+ZOO = (SR_X2, DAE_DENOISE)
+TOWERS = NETS + ZOO
+# the generators with their chains in bf16 (same widths, same params)
+BF16_NETS = tuple(dataclasses.replace(c, dtype="bfloat16") for c in NETS)
 REQUEST_SIZES = (64, 37, 5, 1, 64)
 # serving outputs are tanh images in [-1, 1]; the backends sum the same
 # fp32 products in different orders, which moves them by ~1e-6
 SERVE_TOL = 1e-4
+# bf16 chains round every layer's output to bf16 (PERF.md section 2)
+BF16_SERVE_TOL = 8e-2
 # int8: the int8 activations agree bit for bit, so the images differ only
 # by tanh on the card (tanhf in the kernel, torch.tanh in the plain chain)
 INT8_TOL = 1e-6
 SPARSITY_LEVELS = (0.5, 0.9, 0.97, "hand")
 SERVE_SPARSITY = 0.9   # a level of benchmarks/bench_sparsity.py's sweep
-# what each kernel's instances are called in a profiler trace (demangled)
-TRACE_NAMES = {"deconv2d_kernel": "deconv2d_tc_kernel<false",
-               "deconv2d_int8_kernel": "deconv2d_tc_int8_kernel<",
-               "deconv2d_sparse_kernel": "deconv2d_tc_kernel<true"}
-PATH_KERNEL = {"fp32": "deconv2d_kernel", "int8": "deconv2d_int8_kernel",
-               "cuda_sparse": "deconv2d_sparse_kernel"}
+# what each kernel's instances are called in a profiler trace (demangled),
+# per (kernel, dtype): fp32 and int8 on the tensor-core library, bf16 on
+# the FMA template of csrc/deconv2d.cu (its T, then kSparse)
+TRACE_NAMES = {
+    ("deconv2d_kernel", "fp32"): r"deconv2d_tc_kernel<false",
+    ("deconv2d_kernel", "bf16"): r"(?<!tc_)deconv2d_kernel<[^,]*bfloat16[^,]*, false",
+    ("deconv2d_int8_kernel", "int8"): r"deconv2d_tc_int8_kernel<",
+    ("deconv2d_sparse_kernel", "fp32"): r"deconv2d_tc_kernel<true",
+    ("deconv2d_sparse_kernel", "bf16"): r"(?<!tc_)deconv2d_kernel<[^,]*bfloat16[^,]*, true",
+}
+# serving paths: (kernel instance, engine options, towers, pruned params)
+PATHS = {
+    "fp32": (("deconv2d_kernel", "fp32"), {}, TOWERS, False),
+    "int8": (("deconv2d_int8_kernel", "int8"), {"precision": "int8"}, TOWERS,
+             False),
+    "cuda_sparse": (("deconv2d_sparse_kernel", "fp32"),
+                    {"backend": "cuda_sparse"}, TOWERS, True),
+    "bf16": (("deconv2d_kernel", "bf16"), {}, BF16_NETS, False),
+    "bf16_sparse": (("deconv2d_sparse_kernel", "bf16"),
+                    {"backend": "cuda_sparse"}, BF16_NETS, True),
+}
 SPLIT_RUNS = 30
 REFINE_BUCKETS = (1, 64)
 
@@ -175,10 +214,10 @@ def device_info():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    for key, fp32, int8, tf32, bw in PEAKS:
+    for key, fp32, int8, tf32, bf16, bw in PEAKS:
         if key in name:
             return smi, name, {"fp32": fp32, "int8": int8, "tf32": tf32,
-                               "bw": bw}
+                               "bf16": bf16, "bw": bw}
     raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
@@ -198,7 +237,8 @@ def check_cases(dtype):
     """``(label, geometry, batch, tiles, activation)`` of every kernel
     check, at the tiles of the kernel that runs ``dtype``: the JAX
     package's sweep, ragged and batch-tiled shapes, several CI chunks, and
-    every generator layer at buckets 1 and 64."""
+    every layer of every tower at buckets 1 and 64 (labelled by the
+    tower's name)."""
     out = []
     for (ih, iw, ci, co, k, s, p, t) in SWEEP:
         g = DeconvGeometry(ih, iw, ci, co, k, s, p)
@@ -217,7 +257,7 @@ def check_cases(dtype):
     g = DeconvGeometry(6, 6, 3 * t_ci, 40, 4, 2, 1)
     out.append((f"ci-chunks t_ci={t_ci} t_co=16", g, 3,
                 fill_tiles(g, 3, dtype, t_ci=t_ci, t_co=16), None))
-    for cfg in NETS:
+    for cfg in TOWERS:
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             for batch in (1, 64):
                 t = hopper_tiles(g, batch, dtype)
@@ -308,9 +348,20 @@ def check_sparse(label, x, w, b, s, p, tiles, activation, results):
     return skipped
 
 
+def tower_inputs(cfg, n, rng):
+    """``n`` input rows of ``cfg`` as float32 numpy: N(0, 1) latents for a
+    generator, and for an image-rooted tower images from its workload's
+    own pair synthesizer (at a seed drawn from ``rng``)."""
+    w = workload_for(cfg)
+    if cfg.is_latent or w is None or w.pair_fn is None:
+        return rng.standard_normal((n,) + cfg.input_shape).astype(np.float32)
+    return np.asarray(w.training_pairs(int(rng.integers(1 << 16)), n)[0],
+                      np.float32)
+
+
 def int8_net(cfg):
-    """Seeded params of ``cfg``, calibrated on `calibration_input` and
-    quantized: ``(params, qcfg, qp)``."""
+    """Seeded params of ``cfg``, calibrated on `calibration_input` (the
+    tower's own calibration batch) and quantized: ``(params, qcfg, qp)``."""
     params = generator_init(torch.Generator().manual_seed(0), cfg, "cuda")
     qcfg = calibrate(params, cfg, calibration_input(cfg).cuda())
     return params, qcfg, quantize_params(params, cfg, qcfg)
@@ -320,7 +371,7 @@ def int8_layer_inputs(cfg, net, batch, rng):
     """Each layer's real int8 input at ``batch``: the fp32 chain's layer
     inputs quantized at their calibrated scales (``net`` from `int8_net`)."""
     params, qcfg, qp = net
-    z = rand(rng, (batch, cfg.z_dim), torch.float32)
+    z = torch.from_numpy(tower_inputs(cfg, batch, rng)).cuda()
     with torch.no_grad():
         _, inters = generator_apply(params, cfg, z, backend="reverse_loop",
                                     return_intermediates=True)
@@ -343,7 +394,7 @@ def phase_kernel_checks(int8_nets):
     # epilogue lands on O(1) values and requant rounds at every step;
     # the generator layers get their real inputs and calibrated scales
     for label, g, batch, t, act in cases[torch.int8]:
-        if label.startswith("dcnn-"):
+        if label.split(" ")[0] in {c.name for c in TOWERS}:
             continue
         x = torch.from_numpy(rng.integers(-127, 128, (batch, g.in_h, g.in_w,
                                                       g.c_in), dtype=np.int8)).cuda()
@@ -357,7 +408,7 @@ def phase_kernel_checks(int8_nets):
                    int8)
         check_int8(label, x, w, sc, b, g.stride, g.padding, t, "tanh", None,
                    int8)
-    for cfg in NETS:
+    for cfg in TOWERS:
         for batch in (1, 64):
             for i, (x, lq, out_scale) in enumerate(
                     int8_layer_inputs(cfg, int8_nets[cfg.name], batch, rng)):
@@ -414,20 +465,21 @@ def drive(engines, requests):
 
 
 def check_launches(path, engines, per_net):
-    """Per net: the traced device launches of the path's kernel == layers x
-    dispatches and none of the other two; the engine's ``launch_counts``
-    the same; no wrapper launched anything (every dispatch a replay); one
-    executable per bucket.  Returns the traced launches of the path's
-    kernel over both nets."""
-    want_k = PATH_KERNEL[path]
+    """Per tower: the traced device launches of the path's kernel instance
+    == layers x dispatches and none of the others; the engine's
+    ``launch_counts`` the same; no wrapper launched anything (every
+    dispatch a replay); one executable per bucket.  Returns the traced
+    launches of the path's kernel over its towers."""
+    want_k = PATHS[path][0]
     for name, eng in engines.items():
         dispatches = len(eng.plan_chunks(sum(REQUEST_SIZES)))
         want = len(eng.cfg.layers) * dispatches
         got = per_net[name]
+        traced = {"/".join(k): v for k, v in got["traced"].items()}
         print(f"  {name} {path}: {dispatches} dispatches x "
               f"{len(eng.cfg.layers)} layers; traced device launches "
-              f"{got['traced']}, engine launch_counts {got['engine']}, "
-              f"wrapper launches {got['wrappers']}, capture_counts "
+              f"{traced}, engine launch_counts {got['engine']}, wrapper "
+              f"launches {got['wrappers']}, capture_counts "
               f"{eng.capture_counts}", flush=True)
         if (got["traced"][want_k] != want or got["engine"] != want
                 or any(v for k, v in got["traced"].items() if k != want_k)
@@ -446,7 +498,7 @@ def check_launches(path, engines, per_net):
 def eager_images(path, eng, z):
     """``z`` (one bucket of rows) through the public ops at the bucket's
     plan, eagerly, every operand prepared per call (int8: from the
-    reference-layout weights, packed per launch)."""
+    reference-layout weights, packed per launch), as float32."""
     plan = eng.plans[z.shape[0]]
     with torch.no_grad():
         if path == "int8":
@@ -455,7 +507,7 @@ def eager_images(path, eng, z):
             y = quantized_generator_apply(qp, eng.cfg, None, z, plan=plan)
         else:
             y = generator_apply(eng.params, eng.cfg, z, plan=plan)
-    return y.cpu().numpy()
+    return y.float().cpu().numpy()
 
 
 def check_replay_equals_eager(path, by_net):
@@ -464,7 +516,7 @@ def check_replay_equals_eager(path, by_net):
     rng = np.random.default_rng(5)
     for name, eng in by_net.items():
         for b in eng.buckets:
-            z = rng.standard_normal((b, eng.cfg.z_dim)).astype(np.float32)
+            z = tower_inputs(eng.cfg, b, rng)
             got = eng.generate(z)
             want = eager_images(path, eng, torch.from_numpy(z).cuda())
             if not np.array_equal(got, want):
@@ -476,10 +528,11 @@ def check_replay_equals_eager(path, by_net):
 
 
 def kernel_of(trace_name):
-    """Which of the three kernels a traced device kernel is, or None."""
+    """Which kernel instance, ``(kernel, dtype)``, a traced device kernel
+    is, or None."""
     name = demangle(trace_name) if trace_name.startswith("_Z") else trace_name
     for k, pat in TRACE_NAMES.items():
-        if pat in name:
+        if re.search(pat, name):
             return k
     return None
 
@@ -489,8 +542,10 @@ def check_images(name, outputs, refs, tol):
     of each reference; returns the largest error per reference."""
     ofs = 0
     for n, img in zip(REQUEST_SIZES, outputs):
-        if img.shape[0] != n or not np.isfinite(img).all():
-            raise AssertionError(f"{name}: bad output {img.shape}")
+        if img.shape[0] != n or img.dtype != np.float32 \
+                or not np.isfinite(img).all():
+            raise AssertionError(f"{name}: bad output {img.shape} "
+                                 f"{img.dtype}")
         for be, ref in refs.items():
             err = float(np.abs(img - ref[ofs:ofs + n]).max())
             if err > tol:
@@ -501,32 +556,28 @@ def check_images(name, outputs, refs, tol):
 
 
 def phase_serving():
-    """Both generators through the engine on the three paths; returns
-    (engines per path, launches per path and kernel)."""
+    """Every path's towers through the engine (`PATHS`); returns (engines
+    per path, traced launches per path and kernel)."""
     rng = np.random.default_rng(1)
-    requests = {cfg.name: [rng.standard_normal((n, cfg.z_dim))
-                           .astype(np.float32) for n in REQUEST_SIZES]
-                for cfg in NETS}
+    requests = {cfg.name: [tower_inputs(cfg, n, rng) for n in REQUEST_SIZES]
+                for cfg in TOWERS}
     params = {cfg.name: generator_init(torch.Generator().manual_seed(0), cfg,
-                                       "cuda") for cfg in NETS}
+                                       "cuda") for cfg in TOWERS}
     pruned = {n: prune_tree(p, SERVE_SPARSITY) for n, p in params.items()}
-    paths = {
-        "fp32": ("deconv2d_kernel", {}, params),
-        "int8": ("deconv2d_int8_kernel", {"precision": "int8"}, params),
-        "cuda_sparse": ("deconv2d_sparse_kernel", {"backend": "cuda_sparse"},
-                        pruned),
-    }
     engines, launches, images = {}, {}, {}
-    for path, (kernel, kw, tree) in paths.items():
+    for path, (kernel, kw, towers, prune_params) in PATHS.items():
         print(f"  path {path}", flush=True)
+        tree = pruned if prune_params else params
         engines[path] = {cfg.name: DcnnServeEngine.from_config(
             EngineConfig(model=cfg, max_batch=64, warmup=True, **kw),
-            tree[cfg.name]) for cfg in NETS}
-        outputs, per_net = drive(engines[path], requests)
+            tree[cfg.name]) for cfg in towers}
+        outputs, per_net = drive(engines[path],
+                                 {c.name: requests[c.name] for c in towers})
         launches[path] = {kernel: check_launches(path, engines[path],
                                                  per_net)}
         check_replay_equals_eager(path, engines[path])
-        for cfg in NETS:
+        bf16 = path.startswith("bf16")
+        for cfg in towers:
             eng = engines[path][cfg.name]
             z = torch.from_numpy(np.concatenate(requests[cfg.name])).cuda()
             imgs = np.concatenate(outputs[cfg.name])
@@ -552,11 +603,24 @@ def phase_serving():
                 continue
             with torch.no_grad():
                 refs = {be: generator_apply(eng.params, cfg, z, backend=be)
-                        .cpu().numpy() for be in ("reverse_loop", "cudnn")}
-            errs = check_images(cfg.name, outputs[cfg.name], refs, SERVE_TOL)
+                        .float().cpu().numpy()
+                        for be in ("reverse_loop", "cudnn")}
+            tol = BF16_SERVE_TOL if bf16 else SERVE_TOL
+            errs = check_images(cfg.name, outputs[cfg.name], refs, tol)
+            extra = ""
+            if bf16:
+                if not np.array_equal(imgs, torch.from_numpy(imgs).to(
+                        torch.bfloat16).float().numpy()):
+                    raise AssertionError(f"{cfg.name} {path}: images are not "
+                                         "bf16 values")
+                same = "cuda_sparse" if path == "bf16_sparse" else "fp32"
+                fp32 = images[same, cfg.name]
+                extra = (f"; vs the fp32 images of the same params (path "
+                         f"{same}): largest pixel error "
+                         f"{float(np.abs(imgs - fp32).max()):.4f}")
             print(f"  {cfg.name} {path}: max |kernel - ref| {errs} "
-                  f"(tol {SERVE_TOL})", flush=True)
-            if path == "cuda_sparse":
+                  f"(tol {tol}){extra}", flush=True)
+            if "sparse" in path:
                 plan = eng.plans[64]
                 shares = []
                 for l in plan.layers:
@@ -618,11 +682,11 @@ def kept_work(g, tables, t_ci, t_co):
 
 
 def phase_bit_identity(int8_nets):
-    """B1, B2 and B3 launched twice on the same inputs at every generator
-    layer at bucket 1 (where the grid splits the CI reduction over
+    """B1, B2 and B3 launched twice on the same inputs at every tower's
+    layers at bucket 1 (where the grid splits the CI reduction over
     clusters) must agree bit for bit; B2 on the layer's real int8 input."""
     rng = np.random.default_rng(4)
-    for cfg in NETS:
+    for cfg in TOWERS:
         q_inputs = int8_layer_inputs(cfg, int8_nets[cfg.name], 1, rng)
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             t = hopper_tiles(g, 1)
@@ -689,7 +753,7 @@ def phase_times(smi, peaks, int8_nets, report):
     torch.backends.cuda.matmul.allow_tf32 = False
     # B1 and B3 compute 3xTF32: three tensor-core products per product
     tf32x3 = peaks["tf32"] / 3
-    for cfg in NETS:
+    for cfg in TOWERS:
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             for batch in (1, 64):
                 t = hopper_tiles(g, batch)
@@ -715,7 +779,7 @@ def phase_times(smi, peaks, int8_nets, report):
                         x_nchw, w.permute(2, 3, 0, 1).contiguous(), b,
                         stride=g.stride, padding=g.padding),
                     ops, tf32x3, nbytes, peaks["bw"], smi,
-                    split=split_of(dense),
+                    split=split_of(dense), dtype="float32",
                     bound_fp32_fma_ms=max(ops / peaks["fp32"],
                                           nbytes / peaks["bw"]) * 1e3))
                 # B2: int8 in and weights, f32 scale and bias, int8 out (f32
@@ -737,7 +801,7 @@ def phase_times(smi, peaks, int8_nets, report):
                     None, ops, peaks["int8"],
                     n_in + n_w + 8 * g.c_out
                     + n_out * (1 if out_scale is not None else 4),
-                    peaks["bw"], smi, split=split8, instance=inst,
+                    peaks["bw"], smi, split=split8, dtype="int8", instance=inst,
                     registers=regs, spill_bytes=spill,
                     library_note="no PyTorch call computes an int8 "
                                  "transposed convolution on CUDA"))
@@ -764,11 +828,72 @@ def phase_times(smi, peaks, int8_nets, report):
                                                stride=g.stride,
                                                padding=g.padding),
                     2 * macs * batch, tf32x3, kept_bytes, peaks["bw"], smi,
-                    split=split_of(sp),
+                    split=split_of(sp), dtype="float32",
                     bound_fp32_fma_ms=max(2 * macs * batch / peaks["fp32"],
                                           kept_bytes / peaks["bw"]) * 1e3,
                     sparsity=SERVE_SPARSITY, slabs_skipped=f"{skipped}/{slabs}",
                     kept_mac_share=macs / g.output_macs))
+                if cfg in NETS:
+                    rows += bf16_rows(cfg, i, g, l, batch, x, w, b, smi,
+                                      peaks)
+    return rows
+
+
+def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks):
+    """B1 and B3 in bf16 on the FMA kernel at one generator layer and
+    bucket (``x``, ``w``, ``b``: the fp32 rows' inputs, cast), beside cuDNN
+    in bf16.  The bound: 2 bytes per element, and the operations at the
+    card's bf16 tensor-core peak; ``bound_fp32_fma_ms`` beside it takes
+    them at the fp32 FMA peak, the rate of this kernel's own instructions
+    (it converts on staging and computes in f32)."""
+    bf = torch.bfloat16
+    t = hopper_tiles(g, batch, bf)
+    xb, wb, bb = x.to(bf), w.to(bf), b.to(bf)
+    n_out = batch * g.out_h * g.out_w * g.c_out
+    n_in = batch * g.in_h * g.in_w * g.c_in
+    xb_nchw = xb.permute(0, 3, 1, 2).contiguous()
+    xp, wp, bp, kw, _ = launch_args(xb, wb, bb, g.stride, g.padding,
+                                    *t.as_kwargs().values(), l.activation)
+
+    def fma_ms(ops, nbytes):
+        return max(ops / peaks["fp32"], nbytes / peaks["bw"]) * 1e3
+
+    ops = 2 * g.output_macs * batch
+    nbytes = 2 * (n_in + g.kernel ** 2 * g.c_in * g.c_out + g.c_out + n_out)
+    rows = [time_row(
+        "deconv2d_kernel", cfg, i, batch, t,
+        lambda: deconv_kernel.deconv2d_launch(xp, wp, bp, **kw),
+        lambda: deconv_kernel.deconv2d_launch_plain(xp, wp, bp, **kw),
+        lambda: F.conv_transpose2d(xb_nchw, wb.permute(2, 3, 0, 1)
+                                   .contiguous(), bb, stride=g.stride,
+                                   padding=g.padding),
+        ops, peaks["bf16"], nbytes, peaks["bw"], smi, dtype="bfloat16",
+        kernel_file="csrc/deconv2d.cu",
+        bound_fp32_fma_ms=fma_ms(ops, nbytes))]
+    wq = prune(w, SERVE_SPARSITY).to(bf)
+    tables = make_sparse_plan(wq, g.stride, g.padding, t.t_ci, t.t_co)
+    sched = schedule_tensors(tables, "cuda")
+    macs, kept_w = kept_work(g, tables, t.t_ci, t.t_co)
+    sp = launch_args(xb, wq, bb, g.stride, g.padding,
+                     *t.as_kwargs().values(), l.activation)
+    wq_lib = wq.permute(2, 3, 0, 1).contiguous()
+    skipped, slabs, _, _ = schedule_stats(tables, sp[1].shape[2] // t.t_ci,
+                                          g.kernel)
+    rows.append(time_row(
+        "deconv2d_sparse_kernel", cfg, i, batch, t,
+        lambda: sparse_kernel.deconv2d_sparse_launch(*sp[:3], *sched,
+                                                     **sp[3]),
+        lambda: sparse_kernel.deconv2d_sparse_launch_plain(*sp[:3], *sched,
+                                                           **sp[3]),
+        lambda: F.conv_transpose2d(xb_nchw, wq_lib, bb, stride=g.stride,
+                                   padding=g.padding),
+        2 * macs * batch, peaks["bf16"],
+        2 * (n_in + kept_w + g.c_out + n_out), peaks["bw"], smi,
+        dtype="bfloat16", kernel_file="csrc/deconv2d.cu",
+        bound_fp32_fma_ms=fma_ms(2 * macs * batch,
+                                 2 * (n_in + kept_w + g.c_out + n_out)),
+        sparsity=SERVE_SPARSITY, slabs_skipped=f"{skipped}/{slabs}",
+        kept_mac_share=macs / g.output_macs))
     return rows
 
 
@@ -780,7 +905,7 @@ def phase_end_to_end(engines, smi):
     out = {}
     for path, by_net in engines.items():
         for name, eng in by_net.items():
-            z = rng.standard_normal((64, eng.cfg.z_dim)).astype(np.float32)
+            z = tower_inputs(eng.cfg, 64, rng)
             eng.bucket_stats.clear()
             for _ in range(30):
                 eng.generate(z)
@@ -924,7 +1049,8 @@ def main() -> int:
 def run(smi, name, peaks) -> int:
     print(f"[1] device: {smi} | torch: {name} | peaks: fp32 "
           f"{peaks['fp32'] / 1e12} TFLOP/s, int8 {peaks['int8'] / 1e12} "
-          f"TOP/s, memory {peaks['bw'] / 1e12} TB/s", flush=True)
+          f"TOP/s, bf16 {peaks['bf16'] / 1e12} TFLOP/s, memory "
+          f"{peaks['bw'] / 1e12} TB/s", flush=True)
 
     t0 = time.perf_counter()
     report = deconv_kernel.build()
@@ -939,7 +1065,7 @@ def run(smi, name, peaks) -> int:
 
     print(f"[3] each kernel vs its plain version on the card (at "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    int8_nets = {cfg.name: int8_net(cfg) for cfg in NETS}
+    int8_nets = {cfg.name: int8_net(cfg) for cfg in TOWERS}
     dense, int8, sparse = phase_kernel_checks(int8_nets)
 
     phase_bit_identity(int8_nets)
@@ -954,46 +1080,78 @@ def run(smi, name, peaks) -> int:
     print(f"[6] refine (at {time.perf_counter() - t0:.1f} s)", flush=True)
     phase_refine(smi)
 
+    print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,
+                                                sparse, smi)}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def kernel_entries(rows, launches, dense, int8, sparse, smi):
+    """The kernels line: per kernel its traced launches over every serving
+    path, its largest error against its plain version, and its times
+    summed at bucket 64 (the generators' fp32 or int8 rows; bf16 and the
+    zoo towers' rows under their own keys)."""
     errs = {"deconv2d_kernel": (max(dense[torch.float32]),
                                 {"max_abs_err_bf16": max(dense[torch.bfloat16])}),
             "deconv2d_int8_kernel": (max(int8), {}),
             "deconv2d_sparse_kernel": (max(sparse[torch.float32]),
                                        {"max_abs_err_bf16":
                                         max(sparse[torch.bfloat16])})}
-    path_of = {"deconv2d_kernel": "fp32", "deconv2d_int8_kernel": "int8",
-               "deconv2d_sparse_kernel": "cuda_sparse"}
+    gens, zoo = {c.name for c in NETS}, {c.name for c in ZOO}
+
+    def at64(kname, nets, dtypes):
+        return [r for r in rows if r["kernel"] == kname and r["bucket"] == 64
+                and r["net"] in nets and r["dtype"] in dtypes]
+
+    def sums(prefix, b64):
+        lib = [r["library_ms"] for r in b64]
+        return {f"{prefix}ms": sum(r["ms"] for r in b64),
+                f"{prefix}plain_ms": sum(r["plain_call_ms"] for r in b64),
+                f"{prefix}bound_ms": sum(r["bound_ms"] for r in b64),
+                f"{prefix}library_ms": None if None in lib else sum(lib)}
+
     entries = []
     for kname, _, replaces in KERNELS:
-        b64 = [r for r in rows if r["kernel"] == kname and r["bucket"] == 64]
+        b64 = at64(kname, gens, ("float32", "int8"))
         by = {k: sum(r["bound_ms"] for r in b64 if r["bound_by"] == k)
               for k in ("operations", "bytes")}
-        launched = launches[path_of[kname]][kname]   # traced on the device
+        # traced on the device, over every path that runs one of its
+        # instances
+        by_path = {path: n for path, got in launches.items()
+                   for (k, _), n in got.items() if k == kname}
+        launched = sum(by_path.values())
         if launched == 0:
             raise AssertionError(f"the main path launched no {kname}")
-        lib = [r["library_ms"] for r in b64]
+        bf16 = at64(kname, gens, ("bfloat16",))
         entries.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": launched,
+            "launches_by_path": by_path,
             "max_abs_err": errs[kname][0], **errs[kname][1],
-            "ms": sum(r["ms"] for r in b64),
-            "plain_ms": sum(r["plain_call_ms"] for r in b64),
-            "bound_ms": sum(r["bound_ms"] for r in b64),
+            **sums("", b64),
             "bound_by": max(by, key=by.get),
             **({"bound_fp32_fma_ms": sum(r["bound_fp32_fma_ms"] for r in b64)}
                if "bound_fp32_fma_ms" in b64[0] else {}),
-            "splits": [r["split"] for r in rows if r["kernel"] == kname],
-            "library_ms": None if None in lib else sum(lib),
-            **({"library_note": b64[0]["library_note"]} if None in lib else {}),
-            "times_are": "sum over every layer of both generators at bucket 64",
-            "ms_is_device_time": all(r["ms_is_device_time"] for r in b64),
+            "splits": [r["split"] for r in rows if r["kernel"] == kname
+                       and "split" in r],
+            **({"library_note": b64[0]["library_note"]}
+               if "library_note" in b64[0] else {}),
+            "times_are": "sum over every layer of both generators at bucket "
+                         "64 (fp32, or int8 for B2)",
+            **({"bf16_source": "src/repro_torch/csrc/deconv2d.cu",
+                **sums("bf16_", bf16),
+                "bf16_bound_fp32_fma_ms": sum(r["bound_fp32_fma_ms"]
+                                              for r in bf16)}
+               if bf16 else {}),
+            **sums("zoo_", at64(kname, zoo, ("float32", "int8"))),
+            "ms_is_device_time": all(r["ms_is_device_time"] for r in rows
+                                     if r["kernel"] == kname),
             "card": smi,
         })
-    print(json.dumps({"kernels": entries}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return entries
 
 
 if __name__ == "__main__":

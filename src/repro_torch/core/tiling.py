@@ -17,7 +17,8 @@ in place of the TPU VMEM model.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import List, Optional, Tuple
 
 from .offsets import PhasePlan, make_phase_plan
 
@@ -33,6 +34,17 @@ KERNEL_MAX_SMEM = 232448 - 4096  # 227 KB of opt-in shared memory less the stati
 def out_size(in_size: int, kernel: int, stride: int, padding: int) -> int:
     """Transposed-conv output extent (PyTorch ConvTranspose2d convention)."""
     return (in_size - 1) * stride + kernel - 2 * padding
+
+
+def in_size_for(out_size_: int, kernel: int, stride: int, padding: int) -> int:
+    n = out_size_ - kernel + 2 * padding
+    assert n % stride == 0, "inconsistent deconv geometry"
+    return n // stride + 1
+
+
+def input_tile_extent(t_oh: int, kernel: int, stride: int) -> int:
+    """Paper Eq. 5 (an upper bound on the exact extent; see tests)."""
+    return math.ceil(t_oh / stride) + math.ceil(kernel / stride)
 
 
 def exact_input_extent(
@@ -164,6 +176,232 @@ def _contributions(in_size: int, kernel: int, stride: int,
                if 0 <= i * stride + k - padding < out)
 
 
+# ---------------------------------------------------------------------------
+# The paper's models of the TPU kernel: its VMEM footprint, its HBM traffic
+# and the legal tiling factors of the DSE (`core.dse`), as the JAX package
+# defines them (copied, under the same names).  No tile choice of the port
+# reads them; the CUDA kernels' own resources follow further down.
+# ---------------------------------------------------------------------------
+def kernel_vmem_bytes(
+    geom: DeconvGeometry,
+    t_oh: int,
+    t_ow: int,
+    t_ci: int,
+    t_co: int,
+    dtype_bytes: int = 4,
+    t_n: int = 1,
+    out_dtype_bytes: Optional[int] = None,
+) -> int:
+    """Precise VMEM footprint of the halo-streaming Pallas kernel.
+
+    Input/weight/bias blocks are double-buffered by the Mosaic pipeline
+    (x2); the 4-byte accumulator scratch (f32 for the dense/sparse
+    kernels, int32 for the int8 kernel) and the output block are single.
+    ``t_n`` is the batch tile: each grid program owns ``t_n`` images' halo
+    windows / output blocks (the weight slab is batch-stationary).
+    ``dtype_bytes`` is the streamed element width (1 for the int8 kernel);
+    ``out_dtype_bytes`` overrides the output block's width when it differs
+    from the inputs' (an int8 layer whose epilogue emits f32)."""
+    ht_h = halo_tile(t_oh, geom.kernel, geom.stride, geom.padding)
+    ht_w = halo_tile(t_ow, geom.kernel, geom.stride, geom.padding)
+    out_b = dtype_bytes if out_dtype_bytes is None else out_dtype_bytes
+    x_bytes = t_n * ht_h.extent * ht_w.extent * t_ci * dtype_bytes
+    w_bytes = geom.kernel * geom.kernel * t_ci * t_co * dtype_bytes
+    # epilogue vectors stream as f32: bias for the float kernels, bias AND
+    # the per-channel requant scale for the int8 kernel (two in_specs)
+    b_bytes = (2 if dtype_bytes == 1 else 1) * t_co * max(dtype_bytes, 4)
+    y_bytes = t_n * t_oh * t_ow * t_co * out_b
+    acc_bytes = t_n * t_oh * t_ow * t_co * 4
+    return 2 * (x_bytes + w_bytes + b_bytes) + y_bytes + acc_bytes
+
+
+
+@dataclasses.dataclass(frozen=True)
+class DeconvTraffic:
+    """Modeled HBM traffic of the halo-streaming kernel for one layer
+    (per batch element).  ``in_bytes_per_tile`` is the Eq. 5 window — a
+    constant per tile, independent of image size (the paper's point).
+    Bytes only; CTC / attainable throughput live in `dse.tile_attainable`.
+    """
+
+    n_tiles: int              # spatial x C_out output tiles
+    n_ci_steps: int           # C_in grid steps per output tile
+    in_bytes_per_tile: int    # halo window bytes per (tile, ci step)
+    w_bytes_per_tile: int     # weight slab bytes per (tile, ci step)
+    out_bytes_per_tile: int   # one-shot output block bytes
+    total_bytes: int
+
+
+def deconv_traffic(
+    geom: DeconvGeometry,
+    t_oh: int,
+    t_ow: int,
+    t_ci: int,
+    t_co: int,
+    dtype_bytes: int = 4,
+) -> DeconvTraffic:
+    """HBM bytes moved by the halo-streaming kernel (per batch element).
+
+    Per output tile the CI grid re-streams one Eq. 5 input window and one
+    weight slab per CI step; the output block is written once.  This is the
+    modeled side of the modeled-vs-measured accounting in
+    benchmarks/bench_deconv.py."""
+    ht_h = halo_tile(t_oh, geom.kernel, geom.stride, geom.padding)
+    ht_w = halo_tile(t_ow, geom.kernel, geom.stride, geom.padding)
+    n_h = -(-geom.out_h // t_oh)
+    n_w = -(-geom.out_w // t_ow)
+    n_co = -(-geom.c_out // t_co)
+    n_ci = -(-geom.c_in // t_ci)
+    in_b = ht_h.extent * ht_w.extent * t_ci * dtype_bytes
+    w_b = geom.kernel * geom.kernel * t_ci * t_co * dtype_bytes
+    out_b = t_oh * t_ow * t_co * dtype_bytes
+    n_tiles = n_h * n_w * n_co
+    total = n_tiles * (n_ci * (in_b + w_b) + out_b)
+    return DeconvTraffic(
+        n_tiles=n_tiles,
+        n_ci_steps=n_ci,
+        in_bytes_per_tile=in_b,
+        w_bytes_per_tile=w_b,
+        out_bytes_per_tile=out_b,
+        total_bytes=total,
+    )
+
+
+def deconv_traffic_batched(
+    geom: DeconvGeometry,
+    batch: int,
+    t_n: int,
+    t_oh: int,
+    t_ow: int,
+    t_ci: int,
+    t_co: int,
+    dtype_bytes: int = 4,
+    out_dtype_bytes: Optional[int] = None,
+) -> DeconvTraffic:
+    """HBM bytes moved for a *batch* under the batch-fused kernel.
+
+    The batch dimension is tiled by ``t_n`` (batch folded into the MXU row
+    dimension): each grid program streams ``t_n`` halo windows but only ONE
+    weight slab per CI step, so weight traffic per image falls by ``t_n`` —
+    the spatio-temporal amortization that makes the batched path win on the
+    fat-channel early layers.  ``dtype_bytes`` is the streamed element
+    width — 1 on the int8 path, where the quartered stream is half the
+    paper's low-precision advantage — and ``out_dtype_bytes`` overrides
+    the written block's width when the epilogue changes precision."""
+    ht_h = halo_tile(t_oh, geom.kernel, geom.stride, geom.padding)
+    ht_w = halo_tile(t_ow, geom.kernel, geom.stride, geom.padding)
+    o_bytes = dtype_bytes if out_dtype_bytes is None else out_dtype_bytes
+    n_n = -(-batch // t_n)
+    n_h = -(-geom.out_h // t_oh)
+    n_w = -(-geom.out_w // t_ow)
+    n_co = -(-geom.c_out // t_co)
+    n_ci = -(-geom.c_in // t_ci)
+    in_b = t_n * ht_h.extent * ht_w.extent * t_ci * dtype_bytes
+    w_b = geom.kernel * geom.kernel * t_ci * t_co * dtype_bytes
+    out_b = t_n * t_oh * t_ow * t_co * o_bytes
+    n_tiles = n_n * n_h * n_w * n_co
+    total = n_tiles * (n_ci * (in_b + w_b) + out_b)
+    return DeconvTraffic(
+        n_tiles=n_tiles,
+        n_ci_steps=n_ci,
+        in_bytes_per_tile=in_b,
+        w_bytes_per_tile=w_b,
+        out_bytes_per_tile=out_b,
+        total_bytes=total,
+    )
+
+
+def full_image_traffic(
+    geom: DeconvGeometry,
+    t_oh: int,
+    t_ow: int,
+    t_ci: int,
+    t_co: int,
+    dtype_bytes: int = 4,
+) -> DeconvTraffic:
+    """HBM traffic of the pre-halo pipeline (every grid program re-streamed
+    the whole padded input per CI step) — the baseline the tentpole kills.
+    Same structure as `deconv_traffic`; only ``in_bytes_per_tile`` differs
+    (the whole padded image instead of the Eq. 5 window)."""
+    pad_l, pad_r = geom.halo_padding()
+    ihp = geom.in_h + pad_l + pad_r
+    iwp = geom.in_w + pad_l + pad_r
+    n_h = -(-geom.out_h // t_oh)
+    n_w = -(-geom.out_w // t_ow)
+    n_co = -(-geom.c_out // t_co)
+    n_ci = -(-geom.c_in // t_ci)
+    in_b = ihp * iwp * t_ci * dtype_bytes
+    w_b = geom.kernel * geom.kernel * t_ci * t_co * dtype_bytes
+    out_b = t_oh * t_ow * t_co * dtype_bytes
+    n_tiles = n_h * n_w * n_co
+    return DeconvTraffic(
+        n_tiles=n_tiles,
+        n_ci_steps=n_ci,
+        in_bytes_per_tile=in_b,
+        w_bytes_per_tile=w_b,
+        out_bytes_per_tile=out_b,
+        total_bytes=n_tiles * (n_ci * (in_b + w_b) + out_b),
+    )
+
+
+def legal_tile_factors(
+    geom: DeconvGeometry,
+    vmem_budget_bytes: int = 12 * 1024 * 1024,
+    dtype_bytes: int = 4,
+    co_tile: int = 128,
+    model: str = "full_spatial",
+) -> List[int]:
+    """Enumerate legal square output tiling factors T_OH = T_OW (the paper
+    explores square tiles).  Legality (the paper's Fig. 5 'legal solutions'):
+
+    * S | T_OH       — tiles are stride-aligned so the phase structure is
+                        identical for every tile (uniform CU workloads);
+    * on-chip fit    — input block + weight block + output block + f32
+                        accumulator fit the budget (VMEM / BRAM).
+
+    `model`: "full_spatial" budgets our Pallas kernel (whole input spatial
+    resident per C_in tile); "eq5" budgets the paper's FPGA dataflow (an
+    Eq.-5 T_IH x T_IW input tile per output tile)."""
+    out: List[int] = []
+    s = geom.stride
+    for t in range(s, geom.out_h + s, s):
+        if t % s:
+            continue
+        t_oh = min(t, geom.out_h)
+        footprint = _vmem_footprint(geom, t_oh, co_tile, dtype_bytes, model)
+        if footprint <= vmem_budget_bytes:
+            out.append(t)
+        if t >= geom.out_h:
+            break
+    return sorted(set(out))
+
+
+def _vmem_footprint(
+    geom: DeconvGeometry, t_oh: int, co_tile: int, dtype_bytes: int,
+    model: str = "full_spatial",
+) -> int:
+    co_t = min(co_tile, geom.c_out)
+    if model == "eq5":
+        # the FPGA dataflow streams Eq.-5 input tiles AND input-channel
+        # blocks (Algorithm 1's i_c loop) through BRAM
+        t_ih = input_tile_extent(t_oh, geom.kernel, geom.stride)
+        in_spatial = t_ih * t_ih
+        ci_t = min(32, geom.c_in)
+    else:
+        pad_l, pad_r = geom.halo_padding()
+        in_spatial = ((geom.in_h + pad_l + pad_r)
+                      * (geom.in_w + pad_l + pad_r))
+        ci_t = geom.c_in
+    x_bytes = in_spatial * ci_t * dtype_bytes
+    w_bytes = geom.kernel * geom.kernel * ci_t * co_t * dtype_bytes
+    y_bytes = t_oh * t_oh * co_t * dtype_bytes
+    acc_bytes = t_oh * t_oh * co_t * 4  # f32 accumulator scratch
+    return x_bytes + w_bytes + y_bytes + acc_bytes
+
+
+def vmem_footprint(geom: DeconvGeometry, t_oh: int, co_tile: int = 128,
+                   dtype_bytes: int = 4, model: str = "full_spatial") -> int:
+    return _vmem_footprint(geom, t_oh, co_tile, dtype_bytes, model)
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +416,11 @@ KERNELS = ("tc", "simt")
 
 
 def dtype_name(dtype) -> str:
-    """A torch or numpy dtype, or its name, as "float32", "int8", ...."""
+    """A torch or numpy dtype (or scalar type), or its name, as "float32",
+    "bfloat16", "int8", ...: the JAX package's names, without numpy, which
+    knows no bfloat16."""
+    if isinstance(dtype, type):          # np.float32 and the like
+        dtype = dtype.__name__
     name = str(dtype).replace("torch.", "")
     return {"fp32": "float32", "bf16": "bfloat16"}.get(name, name)
 

@@ -155,6 +155,7 @@ INT8_MMA_CLK = 2.0      # SM clocks per m16n8k32 s8 mma.sync, as sustained
 INT8_CHUNK_CLK = 750    # SM clocks per block and chunk not hidden (int8)
 INT8_REDUCE_CLK = 5000  # the int8 split's cluster barriers and int32 sums
 INT8_T_CI = (32, 64, 128)  # the int8 kernel's CI chunks (whole k32 steps)
+TC_T_CO = (8, 16, 32, 64, 128)  # channel tiles of C_out >= 8 (n8 columns)
 COPY_INSTR = 12         # instructions per bulk copy (a staged row)
 COPY_CLK = 4.0          # SM clocks of the copy engine per bulk copy
 COPY4_INSTR = 10        # instructions per 4-byte cp.async (thin weight rows)
@@ -179,8 +180,7 @@ def _tc_candidates(geom: DeconvGeometry, batch: int, dtype="float32"):
     if geom.c_out < 8:
         t_cos = [geom.c_out]
     else:
-        t_cos = [c for c in (8, 16, 32, 64, 128)
-                 if c <= _round_up(geom.c_out, 8)]
+        t_cos = [c for c in TC_T_CO if c <= _round_up(geom.c_out, 8)]
     # 8-channel chunks pay a barrier and a partial sum per 8 channels and
     # stage 32-byte input rows: on the wide layers they ran slower than 16
     # or 32 at every tile timed

@@ -39,15 +39,12 @@ from ...core.deconv import phase_products
 from ...core.offsets import PhasePlan
 from ...core.tiling import int8_acc_bound
 from ...quant.qmath import quantize_symmetric
+from ..autotune import INT8_T_CI, TC_T_CO
 from .kernel import (_check_shapes, aligned, apply_activation, check_rc,
                      launch_params, launch_split, tc_library)
 from .ops import StaticOperands, call_args, pad_channels, resolve_call
 
 LAUNCHES = 0
-# Channel multiple of the engine's packed weights: every t_ci and t_co the
-# int8 tiles take (`autotune.INT8_T_CI`; t_co 8..128, or C_out below 8)
-# divides it, so one packing serves every bucket's plan.
-PACK_ALIGN = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,11 +93,30 @@ def pack_int8_weights(w: torch.Tensor, cip: int, cop: int) -> PackedInt8Weights:
     return PackedInt8Weights(data.contiguous(), ci, co)
 
 
+def _pack_to(c: int, chunks, align: int) -> int:
+    """``c`` rounded up to a multiple of the largest of ``chunks`` (powers
+    of two, each dividing the next) that a tile of ``c`` channels can take,
+    at most ``c`` rounded up to ``align``: every smaller chunk divides it."""
+    m = max(t for t in chunks if t <= -(-c // align) * align)
+    return -(-c // m) * m
+
+
 def packed_width(c: int) -> int:
-    """The channels a layer's weight is packed to once for every plan:
-    ``c`` below 8 (a thin layer's t_co is C_out itself), else the next
-    multiple of `PACK_ALIGN`."""
-    return c if c < 8 else -(-c // PACK_ALIGN) * PACK_ALIGN
+    """The output channels a layer's weight is packed to once for every
+    plan: ``c`` below 8 (a thin layer's t_co is C_out itself), else a
+    multiple of the largest CO tile its tiles can take (`autotune.TC_T_CO`,
+    at most ``c`` rounded up to 8): 32 for 24 channels, multiples of 128
+    for the generators' layers."""
+    return c if c < 8 else _pack_to(c, TC_T_CO, 8)
+
+
+def packed_ci_width(c: int) -> int:
+    """The input channels a layer's weight is packed to once for every
+    plan: a multiple of the largest int8 CI chunk its tiles can take
+    (`autotune.INT8_T_CI`, at most ``c`` rounded up to 32).  A thin layer
+    (C_in = 1) packs to 32 channels; C_in = 100 and the wider layers to
+    multiples of 128."""
+    return _pack_to(c, INT8_T_CI, 32)
 
 
 def unpack_int8_weights(pk: PackedInt8Weights) -> torch.Tensor:
@@ -246,8 +262,14 @@ def _int8_call(x, w, scale, b, static, stride, padding, t_oh, t_ow, t_ci,
     k, _, wci, co = w.shape
     if wci != ci:
         raise ValueError(f"w has {wci} input channels, x {ci}")
-    cip = static.w.cip if static is not None else \
-        (w.cip if isinstance(w, PackedInt8Weights) else None)
+    packed = static.w if static is not None else \
+        (w if isinstance(w, PackedInt8Weights) else None)
+    # x at a packed weight's channels, which every CI chunk its tiles can
+    # take divides (`packed_ci_width`)
+    cip = None if packed is None else packed.cip
+    if cip is not None and cip % t_ci:
+        raise ValueError(f"a weight packed at {cip} input channels does not "
+                         f"split into CI chunks of {t_ci}")
     xp, kwargs, crop, (cip_t, cop_t) = call_args(
         x, k, co, stride, padding, t_oh, t_ow, t_ci, t_co, t_n, activation,
         cip=cip)

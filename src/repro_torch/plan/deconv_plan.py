@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from ..core.tiling import DeconvGeometry
+from ..core.tiling import DeconvGeometry, dtype_name
 from ..kernels.autotune import TileChoice, choose_tiles, hopper_tiles
 
 # Bump when the serialized plan layout changes incompatibly (the same
@@ -48,7 +48,8 @@ class DeconvPlan:
     """One layer's pinned execution configuration.
 
     Planning inputs: ``geometry``, ``batch`` (the batch the tiles are
-    fitted to: a serving bucket), ``dtype`` ("float32" or "int8"),
+    fitted to: a serving bucket), ``dtype`` ("float32", "bfloat16" or
+    "int8", the JAX package's names),
     ``backend`` ("cuda"/"cuda_sparse" are tiled; "reverse_loop"/"cudnn"
     leave ``tiles`` None), the fused epilogue (``activation``; for int8
     ``out_scale``, the requant scale of the next layer's input, and
@@ -183,15 +184,15 @@ def build_layer_plan(
     across plans that share (``sparse_cache_key``, t_ci, t_co), e.g. a
     serving engine's buckets, which key by layer index.  The memo is used
     only when the caller names a ``sparse_cache_key``."""
-    dtype_name = np.dtype(dtype).name
+    name = dtype_name(dtype)
     if backend not in TILED_BACKENDS:
-        return DeconvPlan(geometry=geom, batch=batch, dtype=dtype_name,
+        return DeconvPlan(geometry=geom, batch=batch, dtype=name,
                           backend=backend, activation=activation)
     if autotune:
-        tiles = choose_tiles(geom, dtype_name, backend, refine=refine,
+        tiles = choose_tiles(geom, name, backend, refine=refine,
                              batch=batch, out_dtype_bytes=out_dtype_bytes)
     else:
-        tiles = hopper_tiles(geom, batch=batch, dtype=dtype_name)
+        tiles = hopper_tiles(geom, batch=batch, dtype=name)
     sparse_tables = digest = None
     if backend == "cuda_sparse" and weights is not None:
         from ..kernels.deconv2d_sparse import make_sparse_plan
@@ -209,7 +210,7 @@ def build_layer_plan(
                 sparse_table_cache[memo_key] = sparse_tables
         digest = _sparse_digest(sparse_tables)
     return DeconvPlan(
-        geometry=geom, batch=batch, dtype=dtype_name, backend=backend,
+        geometry=geom, batch=batch, dtype=name, backend=backend,
         activation=activation, out_scale=out_scale,
         out_dtype_bytes=out_dtype_bytes, quant=quant, sparse_digest=digest,
         tiles=tiles, sparse_tables=sparse_tables)

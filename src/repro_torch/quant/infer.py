@@ -39,14 +39,15 @@ def pack_quantized_params(qp: Dict[str, Dict[str, torch.Tensor]],
     """``qp`` with each layer's static operands for the int8 kernel as
     ``"static"`` (`kernels.deconv2d.int8.prepare_int8_static`): ``w_q``
     packed at channel widths that every tile choice divides
-    (`kernels.deconv2d.int8.packed_width`), so one packing serves every
-    bucket's plan, and the scale and bias padded to them.  ``w_q`` stays
-    in the reference layout."""
-    from ..kernels.deconv2d.int8 import packed_width, prepare_int8_static
+    (`kernels.deconv2d.int8.packed_ci_width` and ``packed_width``), so one
+    packing serves every bucket's plan, and the scale and bias padded to
+    them.  ``w_q`` stays in the reference layout."""
+    from ..kernels.deconv2d.int8 import (packed_ci_width, packed_width,
+                                         prepare_int8_static)
 
     return {f"l{i}": {**qp[f"l{i}"], "static": prepare_int8_static(
         qp[f"l{i}"]["w_q"], qp[f"l{i}"]["scale"], qp[f"l{i}"]["b"],
-        packed_width(l.c_in), packed_width(l.c_out))}
+        packed_ci_width(l.c_in), packed_width(l.c_out))}
         for i, l in enumerate(cfg.layers)}
 
 

@@ -14,9 +14,10 @@ class EngineConfig:
     """Everything a `DcnnServeEngine` needs besides params and plans.
 
     * ``model``     — the tower being served: a `models.dcnn.DcnnConfig`
-                      or a registered `repro_torch.workloads` name
-                      ("mnist", "celeba"); unknown names raise a typed
-                      `UnknownWorkloadError`.
+                      (its ``dtype`` "float32" or "bfloat16") or a
+                      registered `repro_torch.workloads` name ("mnist",
+                      "celeba", "sr", "denoise", or an alias); unknown
+                      names raise a typed `UnknownWorkloadError`.
     * ``backend``   — deconv formulation: "cuda" (the hand-written kernel),
                       "cuda_sparse" (the zero-skip kernel on pruned
                       params; fp32), "cudnn" or "reverse_loop".

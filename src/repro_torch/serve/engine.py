@@ -7,14 +7,20 @@ pinned `plan.NetworkPlan` whose tiles (including the batch tile ``t_n``)
 were resolved for that bucket's batch, and a ``submit``/``collect`` queue
 coalesces small requests into the largest fitting buckets.
 
-Three kernel paths: fp32 on "cuda" (the dense kernel), int8 on "cuda"
-(the int8 kernel chain: params calibrated, quantized and packed for the
-kernel once at construction and kept on the device) and fp32 on
-"cuda_sparse" (the
-zero-skip kernel on pruned params; schedules built on the host once per
-layer and channel tiles, and copied to the device once per plan).  The
-layers' static operands (weights, biases, int8 scales, padded for the
-plan's channel tiles) are prepared once per layer and tiles and held.
+Three kernel paths: fp32 or bf16 on "cuda" (the dense kernel), int8 on
+"cuda" (the int8 kernel chain: params calibrated, quantized and packed for
+the kernel once at construction and kept on the device) and fp32 or bf16
+on "cuda_sparse" (the zero-skip kernel on pruned params; schedules built
+on the host once per layer and channel tiles, and copied to the device
+once per plan).  The layers' static operands (weights, biases, int8
+scales, padded for the plan's channel tiles) are prepared once per layer
+and tiles and held.  The tower's dtype (`DcnnConfig.dtype`, "float32" or
+"bfloat16") is the dtype of its params and of the chain on the device;
+the host side is float32 whatever it is: a bf16 tower's inputs are cast
+to bf16 on the device and its images cast up to float32 there (exactly),
+so it returns float32 arrays whose values are all bf16 values.  (The JAX
+package returns bfloat16 arrays, which numpy cannot hold without
+``ml_dtypes``.)
 
 Each bucket runs one `BucketExecutable`, built once from its pinned plan
 (the counterpart of the JAX engine's per-bucket ``jax.jit``): on a card,
@@ -251,13 +257,13 @@ class DcnnServeEngine:
     @classmethod
     def from_config(cls, cfg: EngineConfig, params,
                     plan=None) -> "DcnnServeEngine":
-        """``params`` is a ``{"l{i}": {"w", "b"}}`` tree of fp32 tensors
-        (moved to the engine's device; pruned for "cuda_sparse"); ``plan``
-        an optional pinned `NetworkPlan` (for example a JAX-pinned document
-        after `for_hopper`) for the bucket whose batch matches
-        ``plan.batch``.  An int8 plan also supplies the calibration when
-        ``cfg.quant_cfg`` is None, so a pinned deployment never
-        re-calibrates."""
+        """``params`` is a ``{"l{i}": {"w", "b"}}`` tree of float tensors
+        (moved to the engine's device and cast to the tower's dtype; pruned
+        for "cuda_sparse"); ``plan`` an optional pinned `NetworkPlan` (for
+        example a JAX-pinned document after `for_hopper`) for the bucket
+        whose batch matches ``plan.batch``.  An int8 plan also supplies the
+        calibration when ``cfg.quant_cfg`` is None, so a pinned deployment
+        never re-calibrates."""
         self = cls.__new__(cls)
         # the device work of construction (params moved, calibrated,
         # quantized) stays out of other engines' captures
@@ -299,7 +305,8 @@ class DcnnServeEngine:
         # addresses)
         self._static: Dict[tuple, object] = {}
         # all buckets' graphs share one memory pool: dispatches never overlap
-        self._pool = None
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
         # guards every bucket's static buffers: generate may be called
         # outside drain, from another thread (CAPTURE_GATE orders it
         # against other engines' captures)
@@ -446,8 +453,10 @@ class DcnnServeEngine:
         everything from the static input to the static output on a side
         stream, in thread-local mode (`CAPTURE_GATE` keeps the engines'
         dispatches out of it; other threads' CUDA work does not break it).
-        On the CPU the body runs eagerly at each dispatch."""
-        dtype = self.cfg.torch_dtype
+        On the CPU the body runs eagerly at each dispatch.  The static
+        input and output are float32 whatever the tower's dtype: the body
+        casts z to it and the images back."""
+        dtype = torch.float32
         z_dev = torch.zeros((bucket,) + self.cfg.input_shape, dtype=dtype,
                             device=self.device)
         out_dev = torch.empty((bucket,) + self.output_shape, dtype=dtype,
@@ -464,8 +473,6 @@ class DcnnServeEngine:
             with torch.cuda.device(self.device):
                 body()
                 torch.cuda.synchronize(self.device)
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
                 before = self._launches()
                 # a collection inside the capture could free a dropped
@@ -495,7 +502,7 @@ class DcnnServeEngine:
         return sum(self.capture_counts.values())
 
     def _warmup_bucket(self, bucket: int) -> None:
-        z = np.zeros((bucket,) + self.cfg.input_shape, self.cfg.dtype)
+        z = np.zeros((bucket,) + self.cfg.input_shape, np.float32)
         self._dispatch(bucket, z)
 
     def _sync(self) -> None:
@@ -579,9 +586,11 @@ class DcnnServeEngine:
 
     # -- synchronous path ----------------------------------------------
     def generate(self, z: np.ndarray) -> np.ndarray:
-        """z: (B, z_dim) for ANY B, chunked/padded to the bucket set via
-        `plan_chunks`."""
-        z = np.asarray(z, dtype=self.cfg.dtype)
+        """Images of z: (B, *input_shape) for ANY B, any float dtype,
+        chunked and padded to the bucket set via `plan_chunks`.  Returns
+        float32 ``(B, H, W, C)``; for a bf16 tower every value is a bf16
+        value (the JAX package returns the bf16 array itself)."""
+        z = np.asarray(z, dtype=np.float32)
         n = z.shape[0]
         outs: List[np.ndarray] = []
         i = 0
@@ -601,7 +610,7 @@ class DcnnServeEngine:
         self.stats["generate_calls"] += 1
         self.stats["images"] += n
         if not outs:
-            return np.zeros((0,) + self.output_shape, self.cfg.dtype)
+            return np.zeros((0,) + self.output_shape, np.float32)
         return np.concatenate(outs, axis=0) if len(outs) != 1 else outs[0]
 
     @property
@@ -645,8 +654,9 @@ class DcnnServeEngine:
         """Enqueue a request of one or more z rows; returns a ticket id.
         ``deadline_s`` (default: `EngineConfig.default_deadline_s`) bounds
         how long the ticket may wait: a drain that reaches it later fails
-        it with `DeadlineExceeded` instead of executing stale work."""
-        z = np.asarray(z, dtype=self.cfg.dtype)
+        it with `DeadlineExceeded` instead of executing stale work.  z is
+        any float array, taken as float32 (as in `generate`)."""
+        z = np.asarray(z, dtype=np.float32)
         if z.ndim == len(self.cfg.input_shape):
             z = z[None]
         if deadline_s is None:

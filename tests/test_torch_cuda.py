@@ -272,7 +272,7 @@ def _eager(path, eng, z):
             return quantized_generator_apply(qp, eng.cfg, None, z,
                                              plan=plan).cpu().numpy()
         return dcnn.generator_apply(eng.params, eng.cfg, z,
-                                    plan=plan).cpu().numpy()
+                                    plan=plan).float().cpu().numpy()
 
 
 @pytest.mark.parametrize("net", ["mnist", "celeba"])
@@ -297,6 +297,64 @@ def test_replayed_graph_equals_an_eager_run_of_the_same_plan(card, path,
         np.testing.assert_array_equal(got, want)
     assert eng.capture_counts == {bucket: 1} and eng.total_captures == 1
     assert eng.launch_counts == {bucket: 3 * len(cfg.layers)}
+
+
+@pytest.mark.parametrize("bucket", [1, 64])
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("tower", ["sr", "denoise"])
+def test_zoo_towers_serve_from_graphs_like_eager(card, tower, path, bucket):
+    """The image-rooted towers (stride 1, K = 5, one-channel roots) on each
+    path: replay bit-identical to eager, images within 1e-4 of
+    reverse_loop (fp32 paths)."""
+    from repro_torch.workloads import get
+
+    w = get(tower)
+    params = w.init(torch.Generator().manual_seed(0), card)
+    if path == "cuda_sparse":
+        params = prune_tree(params, 0.9)
+    eng = DcnnServeEngine.from_config(
+        EngineConfig(model=tower, buckets=(bucket,), **PATHS[path]), params)
+    x = np.asarray(w.training_pairs(bucket, bucket)[0], np.float32)
+    got = eng.generate(x)
+    xt = torch.from_numpy(x).to(card)
+    np.testing.assert_array_equal(got, _eager(path, eng, xt))
+    if path != "int8":
+        with torch.no_grad():
+            want = w.ref(eng.params, xt).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert eng.capture_counts == {bucket: 1}
+    assert eng.launch_counts == {bucket: len(w.cfg.layers)}
+
+
+@pytest.mark.parametrize("bucket", [1, 64])
+@pytest.mark.parametrize("backend", ["cuda", "cuda_sparse"])
+@pytest.mark.parametrize("net", ["mnist", "celeba"])
+def test_bf16_towers_serve_from_graphs_like_eager(card, net, backend,
+                                                  bucket):
+    """bf16 chains on the FMA kernel: float32 results of bf16 values,
+    replay bit-identical to eager, within 8e-2 of bf16 reverse_loop."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        {"mnist": dcnn.MNIST_DCNN, "celeba": dcnn.CELEBA_DCNN}[net],
+        dtype="bfloat16")
+    params = dcnn.generator_init(torch.Generator().manual_seed(0), cfg, card)
+    if backend == "cuda_sparse":
+        params = prune_tree(params, 0.9)
+    eng = DcnnServeEngine.from_config(
+        EngineConfig(model=cfg, backend=backend, buckets=(bucket,)), params)
+    z = np.random.RandomState(bucket).randn(bucket, 100).astype(np.float32)
+    got = eng.generate(z)
+    assert got.dtype == np.float32
+    zt = torch.from_numpy(z).to(card)
+    np.testing.assert_array_equal(got, _eager("fp32", eng, zt))
+    np.testing.assert_array_equal(
+        got, torch.from_numpy(got).to(torch.bfloat16).float().numpy())
+    with torch.no_grad():
+        want = dcnn.generator_apply(eng.params, cfg, zt,
+                                    backend="reverse_loop").float()
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=8e-2, atol=8e-2)
+    assert eng.launch_counts == {bucket: len(cfg.layers)}
 
 
 def test_refine_writes_a_timed_entry_that_a_second_engine_serves(

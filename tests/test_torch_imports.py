@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package."""
+"""The port imports neither JAX nor the JAX package, nor ml_dtypes (a
+JAX dependency that the card's machine need not have)."""
 import ast
 import os
 import pathlib
@@ -8,7 +9,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_modules(path):

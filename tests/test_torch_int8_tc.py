@@ -40,6 +40,7 @@ from repro_torch.kernels.deconv2d.int8 import (PackedInt8Weights,
                                                launch_args_int8,
                                                launch_split_int8,
                                                pack_int8_weights,
+                                               packed_ci_width,
                                                packed_width,
                                                unpack_int8_weights)
 from repro_torch.kernels.deconv2d.kernel import _tap_words
@@ -87,7 +88,7 @@ def test_plain_version_on_unpacked_weights_equals_reference_layout(rng):
     w = torch.from_numpy(_int8(rng, (4, 4, 40, 12)))
     sc = torch.from_numpy((rng.rand(12) * 1e-4).astype(np.float32))
     b = torch.from_numpy((rng.randn(12) * 0.1).astype(np.float32))
-    pk = pack_int8_weights(w, packed_width(40), packed_width(12))
+    pk = pack_int8_weights(w, 128, 128)
     outs = []
     for wt in (w, pk):
         xp, wpk, sp, bp, kw, crop = launch_args_int8(
@@ -384,7 +385,7 @@ def test_int8_tiles_are_taken_by_the_kernel(cfg):
     for g in cfg.geometries():
         for batch in (1, 64):
             t = hopper_tiles(g, batch, "int8")
-            cip, cop = packed_width(g.c_in), packed_width(g.c_out)
+            cip, cop = packed_ci_width(g.c_in), packed_width(g.c_out)
             assert t.t_ci % 32 == 0 and cip % t.t_ci == 0
             assert cop % t.t_co == 0
             blocks = grid_blocks(g, batch, t.t_oh, t.t_co, t.t_n)
@@ -537,4 +538,4 @@ def test_engine_packs_int8_weights_once():
         [(128, 256), (256, 128), (128, 1)]
     eng.generate(np.zeros((3, 100), np.float32))
     assert all(eng.params[f"l{i}"]["static"].w is packs[i] for i in range(3))
-    assert int8_kernel.PACK_ALIGN % max(INT8_T_CI) == 0
+    assert all(p.cip % max(INT8_T_CI) == 0 for p in packs.values())

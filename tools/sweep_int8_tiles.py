@@ -79,7 +79,7 @@ def main() -> int:
                     -127, 128, (g.kernel, g.kernel, g.c_in, g.c_out),
                     dtype=np.int8)).cuda()
                 wpk = int8_kernel.pack_int8_weights(
-                    w, int8_kernel.packed_width(g.c_in),
+                    w, int8_kernel.packed_ci_width(g.c_in),
                     int8_kernel.packed_width(g.c_out))
                 sc = torch.full((g.c_out,), 3.0 / (127 * 127 * g.c_in * 4),
                                 device="cuda")
