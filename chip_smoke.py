@@ -5,30 +5,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Three kernels, one per TPU kernel of the JAX package: B1 the dense
 reverse-loop deconv (fp32/bf16), B2 the int8 one with its requant epilogue,
-B3 the zero-skip one.  fp32 B1 and B3 (3xTF32 mma) and B2 (s8 mma into
-exact int32 sums, weights packed CI-minor) run on the tensor cores, with
+B3 the zero-skip one (fp32/bf16).  All run on the tensor cores, with
 bulk-copy staging and a cluster split of the CI reduction, in
-src/repro_torch/csrc/deconv2d_tc.cu; bf16 B1/B3 on the FMA kernel of
-src/repro_torch/csrc/deconv2d.cu.
+src/repro_torch/csrc/deconv2d_tc.cu: fp32 B1 and B3 on 3xTF32 mma, bf16 B1
+and B3 on bf16 mma (m16n8k16, ldmatrix fragments), B2 on s8 mma into exact
+int32 sums (weights packed CI-minor).
 
 Phases (any failure raises and the exit code is non-zero):
  1. device: the card's name and power limit (nvidia-smi), torch's name;
- 2. build: nvcc builds the two kernel libraries from src/repro_torch/csrc,
-    one process each, started together, and ptxas's registers and spills
-    of every kernel instance are printed;
+ 2. build: nvcc builds the kernel library from src/repro_torch/csrc, and
+    ptxas's registers and spills of every kernel instance (fp32, bf16 and
+    int8) are printed;
  3. each kernel vs its plain version, on the card: the JAX package's kernel
     sweep, ragged and batch-tiled shapes, several CI chunks, and every
     layer of both generators and of the workload zoo's image-rooted towers
     (the super-resolution head "sr" and the denoiser "denoise": stride 1,
     K = 5 with padding 2, C_in = 1 and C_out = 1, 14x14 and 28x28 roots) at
-    buckets 1 and 64.  B1 fp32 tol 1e-4, bf16 8e-2; B2 int8 outputs
-    bit-equal, f32 outputs 1e-6, with real requant scales on the towers'
-    layers (calibrated on each tower's own calibration batch), each at its
-    launch's cluster split; B3 as B1, under magnitude pruning at 0.5 / 0.9
-    / 0.97 and hand-zeroed slabs, and some case must skip slabs; then B1,
-    B2 and B3 launched twice on the same inputs at every tower layer at
-    bucket 1 must give bit-identical outputs (the cluster split sums its
-    partials in rank order, with no atomics);
+    buckets 1 and 64 (the thin C_out 1 and 3 heads among them).  B1 fp32
+    tol 1e-4, bf16 8e-2; B2 int8 outputs bit-equal, f32 outputs 1e-6, with
+    real requant scales on the towers' layers (calibrated on each tower's
+    own calibration batch); B3 as B1, under magnitude pruning at 0.5 / 0.9
+    / 0.97 and hand-zeroed slabs, and some case must skip slabs; every
+    plain version at its launch's cluster split; then B1, B2 and B3 (B1 and
+    B3 in fp32 and bf16) launched twice on the same inputs at every tower
+    layer at bucket 1 must give bit-identical outputs (the cluster split
+    sums its partials in rank order, with no atomics);
  4. serving through DcnnServeEngine with mixed-size requests, every tower
     at full width, each bucket one captured CUDA graph, each path and
     tower driven under torch.profiler with every count at 0 just before
@@ -51,12 +52,11 @@ Phases (any failure raises and the exit code is non-zero):
     outlasted the host's enqueue) and per-call time against its bound (B1
     and B3: the 3xTF32 rate, a third of the TF32 tensor-core peak, with the
     bound at the fp32 FMA peak beside it; B2: the int8 peak; bf16 B1 and
-    B3: 2 bytes per element, operations at the bf16 tensor-core peak, with
-    the bound at the fp32 FMA peak, the rate of the FMA kernel's own f32
-    products, beside it), the plain version's per-call time and the
-    library call's device time where there is one (cuDNN in the layer's
-    dtype), and each row's cluster split (B2's rows also the registers and
-    spills of the instance they launch), for every tower; per path and
+    B3: 2 bytes per element, operations at the bf16 tensor-core peak), the
+    plain version's per-call time and the library call's device time where
+    there is one (cuDNN in the layer's dtype), and each row's cluster split
+    (B2's and the bf16 rows also the registers and spills of the instance
+    they launch), for every tower; per path and
     tower, images/s and run-to-run CV from the engine, and the bucket-64
     dispatch split into its host-to-device copy, replay and device-to-host
     copy (CUDA events);
@@ -171,14 +171,14 @@ INT8_TOL = 1e-6
 SPARSITY_LEVELS = (0.5, 0.9, 0.97, "hand")
 SERVE_SPARSITY = 0.9   # a level of benchmarks/bench_sparsity.py's sweep
 # what each kernel's instances are called in a profiler trace (demangled),
-# per (kernel, dtype): fp32 and int8 on the tensor-core library, bf16 on
-# the FMA template of csrc/deconv2d.cu (its T, then kSparse)
+# per (kernel, dtype): every one a template of the tensor-core library,
+# its first argument kSparse (fp32, bf16) or kRequant (int8)
 TRACE_NAMES = {
     ("deconv2d_kernel", "fp32"): r"deconv2d_tc_kernel<false",
-    ("deconv2d_kernel", "bf16"): r"(?<!tc_)deconv2d_kernel<[^,]*bfloat16[^,]*, false",
+    ("deconv2d_kernel", "bf16"): r"deconv2d_tc_bf16_kernel<false",
     ("deconv2d_int8_kernel", "int8"): r"deconv2d_tc_int8_kernel<",
     ("deconv2d_sparse_kernel", "fp32"): r"deconv2d_tc_kernel<true",
-    ("deconv2d_sparse_kernel", "bf16"): r"(?<!tc_)deconv2d_kernel<[^,]*bfloat16[^,]*, true",
+    ("deconv2d_sparse_kernel", "bf16"): r"deconv2d_tc_bf16_kernel<true",
 }
 # serving paths: (kernel instance, engine options, towers, pruned params)
 PATHS = {
@@ -251,9 +251,9 @@ def check_cases(dtype):
                         f"t_n={t_n}", g, batch,
                         fill_tiles(g, batch, dtype, t_oh=t, t_ow=t, t_n=t_n),
                         "tanh"))
-    # three CI chunks of the kernel's smallest (int8: 32 channels, fp32 and
-    # bf16: 8)
-    t_ci = 32 if dtype == torch.int8 else 8
+    # three CI chunks of the kernel's smallest (int8: 32 channels, bf16:
+    # 16, fp32: 8)
+    t_ci = {torch.int8: 32, torch.bfloat16: 16}.get(dtype, 8)
     g = DeconvGeometry(6, 6, 3 * t_ci, 40, 4, 2, 1)
     out.append((f"ci-chunks t_ci={t_ci} t_co=16", g, 3,
                 fill_tiles(g, 3, dtype, t_ci=t_ci, t_co=16), None))
@@ -277,16 +277,20 @@ def disagree(label, y, y_ref, tol):
 
 
 def check_dense(label, x, w, b, s, p, tiles, activation, results):
-    """B1 against its plain version on the same padded inputs."""
-    xp, wp, bp, kw, _ = launch_args(x, w, b, s, p, activation=activation,
-                                    **tiles.as_kwargs())
+    """B1 against its plain version on the same padded inputs, at the
+    launch's cluster split."""
+    args = launch_args(x, w, b, s, p, activation=activation,
+                       **tiles.as_kwargs())
+    xp, wp, bp, kw, _ = args
+    split = split_of(args)
     y = deconv_kernel.deconv2d_launch(xp, wp, bp, **kw)
     torch.cuda.synchronize()
-    y_ref = deconv_kernel.deconv2d_launch_plain(xp, wp, bp, **kw)
+    y_ref = deconv_kernel.deconv2d_launch_plain(xp, wp, bp, split=split,
+                                                **kw)
     torch.cuda.synchronize()
     err = disagree(label, y, y_ref, TOL[x.dtype])
-    print(f"  B1 {label} {str(x.dtype)[6:]} max_abs_err={err:.3e} "
-          f"tol={TOL[x.dtype]}", flush=True)
+    print(f"  B1 {label} {str(x.dtype)[6:]} split {split} max_abs_err="
+          f"{err:.3e} tol={TOL[x.dtype]}", flush=True)
     results.setdefault(x.dtype, []).append(err)
 
 
@@ -330,20 +334,25 @@ def schedule_stats(tables, n_ci, k):
 
 
 def check_sparse(label, x, w, b, s, p, tiles, activation, results):
-    """B3 against its plain version; returns the slabs it skipped."""
+    """B3 against its plain version at the launch's cluster split; returns
+    the slabs it skipped."""
     tables = make_sparse_plan(w, s, p, tiles.t_ci, tiles.t_co)
-    xp, wp, bp, kw, _ = launch_args(x, w, b, s, p, activation=activation,
-                                    **tiles.as_kwargs())
+    args = launch_args(x, w, b, s, p, activation=activation,
+                       **tiles.as_kwargs())
+    xp, wp, bp, kw, _ = args
+    split = split_of(args)
     sched = schedule_tensors(tables, x.device)
     y = sparse_kernel.deconv2d_sparse_launch(xp, wp, bp, *sched, **kw)
     torch.cuda.synchronize()
-    y_ref = sparse_kernel.deconv2d_sparse_launch_plain(xp, wp, bp, *sched, **kw)
+    y_ref = sparse_kernel.deconv2d_sparse_launch_plain(xp, wp, bp, *sched,
+                                                       split=split, **kw)
     torch.cuda.synchronize()
     err = disagree(label, y, y_ref, TOL[x.dtype])
     skipped, slabs, off, taps = schedule_stats(tables, wp.shape[2] // tiles.t_ci,
                                                w.shape[0])
-    print(f"  B3 {label} {str(x.dtype)[6:]} max_abs_err={err:.3e} slabs "
-          f"skipped {skipped}/{slabs} tap bits off {off}/{taps}", flush=True)
+    print(f"  B3 {label} {str(x.dtype)[6:]} split {split} max_abs_err="
+          f"{err:.3e} slabs skipped {skipped}/{slabs} tap bits off "
+          f"{off}/{taps}", flush=True)
     results.setdefault(x.dtype, []).append(err)
     return skipped
 
@@ -682,9 +691,10 @@ def kept_work(g, tables, t_ci, t_co):
 
 
 def phase_bit_identity(int8_nets):
-    """B1, B2 and B3 launched twice on the same inputs at every tower's
-    layers at bucket 1 (where the grid splits the CI reduction over
-    clusters) must agree bit for bit; B2 on the layer's real int8 input."""
+    """B1, B2 and B3 (B1 and B3 in fp32 and bf16) launched twice on the
+    same inputs at every tower's layers at bucket 1 (where the grid splits
+    the CI reduction over clusters) must agree bit for bit; B2 on the
+    layer's real int8 input."""
     rng = np.random.default_rng(4)
     for cfg in TOWERS:
         q_inputs = int8_layer_inputs(cfg, int8_nets[cfg.name], 1, rng)
@@ -699,6 +709,15 @@ def phase_bit_identity(int8_nets):
                                 *t.as_kwargs().values(), l.activation)
             sparse = launch_args(x, wq, b, g.stride, g.padding,
                                  *t.as_kwargs().values(), l.activation)
+            bf, tb = torch.bfloat16, hopper_tiles(g, 1, torch.bfloat16)
+            dense_bf = launch_args(x.to(bf), w.to(bf), b.to(bf), g.stride,
+                                   g.padding, *tb.as_kwargs().values(),
+                                   l.activation)
+            sparse_bf = launch_args(x.to(bf), wq.to(bf), b.to(bf), g.stride,
+                                    g.padding, *tb.as_kwargs().values(),
+                                    l.activation)
+            sched_bf = schedule_tensors(make_sparse_plan(
+                wq.to(bf), g.stride, g.padding, tb.t_ci, tb.t_co), "cuda")
             xq, lq, out_scale = q_inputs[i]
             t8 = hopper_tiles(g, 1, "int8")
             qa = int8_kernel.launch_args_int8(
@@ -710,7 +729,11 @@ def phase_bit_identity(int8_nets):
                 "B2": lambda: int8_kernel.deconv2d_int8_launch(*qa[:4],
                                                                **qa[4]),
                 "B3": lambda: sparse_kernel.deconv2d_sparse_launch(
-                    *sparse[:3], *sched, **sparse[3])}
+                    *sparse[:3], *sched, **sparse[3]),
+                "B1 bf16": lambda: deconv_kernel.deconv2d_launch(
+                    *dense_bf[:3], **dense_bf[3]),
+                "B3 bf16": lambda: sparse_kernel.deconv2d_sparse_launch(
+                    *sparse_bf[:3], *sched_bf, **sparse_bf[3])}
             for name, fn in runs.items():
                 y0 = fn()
                 y1 = fn()
@@ -719,27 +742,28 @@ def phase_bit_identity(int8_nets):
                     raise AssertionError(f"{name} {cfg.name} l{i} bucket 1: two "
                                          "launches on the same inputs differ")
             print(f"  B1, B3 {cfg.name} l{i} bucket 1 {t.as_kwargs()} split "
-                  f"{split_of(dense)}; B2 {t8.as_kwargs()} split "
+                  f"{split_of(dense)}; bf16 {tb.as_kwargs()} split "
+                  f"{split_of(dense_bf)}; B2 {t8.as_kwargs()} split "
                   f"{int8_kernel.launch_split_int8(qa[0], qa[1], qa[4])}: "
                   "repeated launches bit-identical", flush=True)
 
 
 def split_of(args):
-    """The fp32 kernel's cluster split for ``launch_args`` output."""
+    """The fp32 or bf16 kernel's cluster split for ``launch_args`` output."""
     xp, wp, _, kw, _ = args
     return deconv_kernel.launch_split(
         xp.shape[0], xp.shape[3], wp.shape[3], kw["ohp"], kw["owp"],
         kw["t_oh"], kw["t_ow"], kw["t_ci"], kw["t_co"], kw["t_n"])
 
 
-def int8_instance(report, tiles, stride, requant):
-    """(name, registers, spill bytes) from ``ptxas`` of the B2 instance a
+def kernel_instance(report, template, tiles, stride, flag):
+    """(name, registers, spill bytes) from ``ptxas`` of the instance of
+    ``template`` (its first argument ``flag``: kRequant or kSparse) that a
     launch at ``tiles`` runs; registers and spills None where the report
     lacks it."""
     pix = tiles.t_n * (tiles.t_oh // stride) * (tiles.t_ow // stride)
     wm, wn = tc_warp_tile(pix, tiles.t_co)
-    want = (f"deconv2d_tc_int8_kernel<{'true' if requant else 'false'}, "
-            f"{wm}, {wn}>")
+    want = f"{template}<{'true' if flag else 'false'}, {wm}, {wn}>"
     for r in report.get("deconv2d_tc", []):
         if want in demangle(r["kernel"]):
             return want, r["registers"], r["spill_stores"] + r["spill_loads"]
@@ -791,8 +815,9 @@ def phase_times(smi, peaks, int8_nets, report):
                     *t8.as_kwargs().values(), l.activation, out_scale)
                 split8 = int8_kernel.launch_split_int8(qa[0], qa[1], qa[4])
                 w_ref = int8_kernel.unpack_int8_weights(qa[1])
-                inst, regs, spill = int8_instance(report, t8, g.stride,
-                                                  out_scale is not None)
+                inst, regs, spill = kernel_instance(
+                    report, "deconv2d_tc_int8_kernel", t8, g.stride,
+                    out_scale is not None)
                 rows.append(time_row(
                     "deconv2d_int8_kernel", cfg, i, batch, t8,
                     lambda: int8_kernel.deconv2d_int8_launch(*qa[:4], **qa[4]),
@@ -835,41 +860,40 @@ def phase_times(smi, peaks, int8_nets, report):
                     kept_mac_share=macs / g.output_macs))
                 if cfg in NETS:
                     rows += bf16_rows(cfg, i, g, l, batch, x, w, b, smi,
-                                      peaks)
+                                      peaks, report)
     return rows
 
 
-def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks):
-    """B1 and B3 in bf16 on the FMA kernel at one generator layer and
+def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks, report):
+    """B1 and B3 in bf16 on the tensor cores at one generator layer and
     bucket (``x``, ``w``, ``b``: the fp32 rows' inputs, cast), beside cuDNN
     in bf16.  The bound: 2 bytes per element, and the operations at the
-    card's bf16 tensor-core peak; ``bound_fp32_fma_ms`` beside it takes
-    them at the fp32 FMA peak, the rate of this kernel's own instructions
-    (it converts on staging and computes in f32)."""
+    card's bf16 tensor-core peak."""
     bf = torch.bfloat16
     t = hopper_tiles(g, batch, bf)
     xb, wb, bb = x.to(bf), w.to(bf), b.to(bf)
     n_out = batch * g.out_h * g.out_w * g.c_out
     n_in = batch * g.in_h * g.in_w * g.c_in
     xb_nchw = xb.permute(0, 3, 1, 2).contiguous()
-    xp, wp, bp, kw, _ = launch_args(xb, wb, bb, g.stride, g.padding,
-                                    *t.as_kwargs().values(), l.activation)
-
-    def fma_ms(ops, nbytes):
-        return max(ops / peaks["fp32"], nbytes / peaks["bw"]) * 1e3
-
+    dense = launch_args(xb, wb, bb, g.stride, g.padding,
+                        *t.as_kwargs().values(), l.activation)
+    xp, wp, bp, kw, _ = dense
+    split = split_of(dense)
     ops = 2 * g.output_macs * batch
     nbytes = 2 * (n_in + g.kernel ** 2 * g.c_in * g.c_out + g.c_out + n_out)
+    inst, regs, spill = kernel_instance(report, "deconv2d_tc_bf16_kernel", t,
+                                        g.stride, False)
     rows = [time_row(
         "deconv2d_kernel", cfg, i, batch, t,
         lambda: deconv_kernel.deconv2d_launch(xp, wp, bp, **kw),
-        lambda: deconv_kernel.deconv2d_launch_plain(xp, wp, bp, **kw),
+        lambda: deconv_kernel.deconv2d_launch_plain(xp, wp, bp, split=split,
+                                                    **kw),
         lambda: F.conv_transpose2d(xb_nchw, wb.permute(2, 3, 0, 1)
                                    .contiguous(), bb, stride=g.stride,
                                    padding=g.padding),
         ops, peaks["bf16"], nbytes, peaks["bw"], smi, dtype="bfloat16",
-        kernel_file="csrc/deconv2d.cu",
-        bound_fp32_fma_ms=fma_ms(ops, nbytes))]
+        kernel_file="csrc/deconv2d_tc.cu", split=split, instance=inst,
+        registers=regs, spill_bytes=spill)]
     wq = prune(w, SERVE_SPARSITY).to(bf)
     tables = make_sparse_plan(wq, g.stride, g.padding, t.t_ci, t.t_co)
     sched = schedule_tensors(tables, "cuda")
@@ -879,19 +903,20 @@ def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks):
     wq_lib = wq.permute(2, 3, 0, 1).contiguous()
     skipped, slabs, _, _ = schedule_stats(tables, sp[1].shape[2] // t.t_ci,
                                           g.kernel)
+    inst, regs, spill = kernel_instance(report, "deconv2d_tc_bf16_kernel", t,
+                                        g.stride, True)
     rows.append(time_row(
         "deconv2d_sparse_kernel", cfg, i, batch, t,
         lambda: sparse_kernel.deconv2d_sparse_launch(*sp[:3], *sched,
                                                      **sp[3]),
-        lambda: sparse_kernel.deconv2d_sparse_launch_plain(*sp[:3], *sched,
-                                                           **sp[3]),
+        lambda: sparse_kernel.deconv2d_sparse_launch_plain(
+            *sp[:3], *sched, split=split, **sp[3]),
         lambda: F.conv_transpose2d(xb_nchw, wq_lib, bb, stride=g.stride,
                                    padding=g.padding),
         2 * macs * batch, peaks["bf16"],
         2 * (n_in + kept_w + g.c_out + n_out), peaks["bw"], smi,
-        dtype="bfloat16", kernel_file="csrc/deconv2d.cu",
-        bound_fp32_fma_ms=fma_ms(2 * macs * batch,
-                                 2 * (n_in + kept_w + g.c_out + n_out)),
+        dtype="bfloat16", kernel_file="csrc/deconv2d_tc.cu", split=split,
+        instance=inst, registers=regs, spill_bytes=spill,
         sparsity=SERVE_SPARSITY, slabs_skipped=f"{skipped}/{slabs}",
         kept_mac_share=macs / g.output_macs))
     return rows
@@ -1141,11 +1166,8 @@ def kernel_entries(rows, launches, dense, int8, sparse, smi):
                if "library_note" in b64[0] else {}),
             "times_are": "sum over every layer of both generators at bucket "
                          "64 (fp32, or int8 for B2)",
-            **({"bf16_source": "src/repro_torch/csrc/deconv2d.cu",
-                **sums("bf16_", bf16),
-                "bf16_bound_fp32_fma_ms": sum(r["bound_fp32_fma_ms"]
-                                              for r in bf16)}
-               if bf16 else {}),
+            **({"bf16_source": "src/repro_torch/csrc/deconv2d_tc.cu",
+                **sums("bf16_", bf16)} if bf16 else {}),
             **sums("zoo_", at64(kname, zoo, ("float32", "int8"))),
             "ms_is_device_time": all(r["ms_is_device_time"] for r in rows
                                      if r["kernel"] == kname),

@@ -11,7 +11,7 @@ thread block owns one output tile and stages that window (or the part of
 it that reads real input) in shared memory.
 
 The geometry half mirrors ``repro.core.tiling``; ``kernel_smem_bytes`` and
-``block_threads`` describe what the Hopper kernel allocates and launches,
+``block_threads`` describe what the Hopper kernels allocate and launch,
 in place of the TPU VMEM model.
 """
 from __future__ import annotations
@@ -22,9 +22,9 @@ from typing import List, Optional, Tuple
 
 from .offsets import PhasePlan, make_phase_plan
 
-# The kernel's launch limits, as `csrc/deconv2d.cu` defines them (kMaxStride,
-# kMaxTaps, kMaxThreads, kMaxDynamicSmem); the launcher checks that the two
-# agree when it loads the library.
+# The kernels' launch limits, as `csrc/deconv2d_tc.cu` defines them
+# (kMaxStride, kMaxTaps, kMaxThreads, kMaxDynamicSmem); the launcher checks
+# that the two agree when it loads the library.
 KERNEL_MAX_STRIDE = 4
 KERNEL_MAX_TAPS = 8              # taps per output phase and dimension
 KERNEL_MAX_THREADS = 512         # the kernel's __launch_bounds__
@@ -406,13 +406,13 @@ def vmem_footprint(geom: DeconvGeometry, t_oh: int, co_tile: int = 128,
 
 # ---------------------------------------------------------------------------
 # The kernels' resources.  "tc" is the tensor-core library
-# (`csrc/deconv2d_tc.cu`: the fp32 dense and zero-skip kernels and the int8
-# kernel, whose staged layouts differ by dtype), "simt" the FMA kernel of
-# `csrc/deconv2d.cu` (bf16 dense and zero-skip).  Each function here
-# mirrors the C code that launches the kernel; the launcher checks that the
-# two agree on the shared memory of every launch shape.
+# (`csrc/deconv2d_tc.cu`: the fp32 and bf16 dense and zero-skip kernels and
+# the int8 kernel, whose staged layouts differ by dtype), the one kernel
+# library of the port.  Each function here mirrors the C code that
+# launches the kernel; the launcher checks that the two agree on the
+# shared memory of every launch shape.
 # ---------------------------------------------------------------------------
-KERNELS = ("tc", "simt")
+KERNELS = ("tc",)
 
 
 def dtype_name(dtype) -> str:
@@ -426,27 +426,14 @@ def dtype_name(dtype) -> str:
 
 
 def kernel_for(dtype) -> str:
-    """The kernel that runs a layer of ``dtype``: fp32 and int8 on the
-    tensor cores, bf16 on the FMA kernel."""
-    return "tc" if dtype_name(dtype) in ("float32", "int8") else "simt"
+    """The kernel that runs a layer of ``dtype``: fp32, bf16 and int8 all
+    on the tensor cores."""
+    return "tc"
 
 
 def _check_kernel(kernel: str) -> None:
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {KERNELS}")
-
-
-def register_tile(t_co: int) -> Tuple[int, int]:
-    """(RP, RC) of the "simt" kernel: output pixels of one phase times
-    output channels that one thread accumulates.  Wide channel tiles (a
-    multiple of 8) take 4 x 8 with the 8 channels contiguous, so a thread's
-    weights come in two 16-byte shared loads; the kernel has an instance
-    for each pair returned here."""
-    if t_co >= 32 and t_co % 8 == 0:
-        return 4, 8
-    if t_co >= 8:
-        return 4, 2
-    return 4, 1
 
 
 def tc_warp_tile(pix: int, t_co: int) -> Tuple[int, int]:
@@ -466,11 +453,22 @@ def tc_columns(t_co: int) -> int:
 
 
 def tc_weight_stride(t_co: int) -> int:
-    """Words per staged weight row of the fp32 "tc" kernel: `tc_columns`,
-    padded so that the row stride is 8 mod 16 words and the four k-rows of
-    a B fragment land on different banks."""
+    """Elements per staged weight row of the fp32 and bf16 "tc" kernels:
+    `tc_columns`, padded so that the row stride is 8 mod 16 elements.
+    fp32 (words): the four k-rows of a B fragment land on different banks;
+    bf16 (16 mod 32 bytes): the eight 16-byte k-rows of an ldmatrix phase
+    land in different bank groups."""
     cols = tc_columns(t_co)
     return cols + 8 if cols % 16 == 0 else cols
+
+
+def bf16_row_stride(t_ci: int) -> int:
+    """Elements per staged input row of the bf16 "tc" kernel (a pixel's
+    ``t_ci`` channels): t_ci + 8, a whole and odd number of 16-byte pieces
+    at every t_ci it takes (16, 32, 64), so that the 16-byte rows of 8
+    consecutive pixels that one ldmatrix phase reads fall in distinct bank
+    groups."""
+    return t_ci + 8
 
 
 def int8_row_stride(t_ci: int) -> int:
@@ -483,19 +481,13 @@ def int8_row_stride(t_ci: int) -> int:
 
 def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
                   kernel: str = "tc") -> int:
-    """Threads of one block that compute.
-
-    "tc": one warp per (phase, WM*16 rows, WN*8 columns) of the tile, over
-    all S*S output phases.  "simt": every phase gets ceil(pixels/RP) x
-    ceil(t_co/RC) threads, so a thread walks only the taps of its phase."""
+    """Threads of one block that compute: one warp per (phase, WM*16
+    rows, WN*8 columns) of the tile, over all S*S output phases."""
     _check_kernel(kernel)
     pix = t_n * (t_oh // stride) * (t_ow // stride)
-    if kernel == "tc":
-        wm, wn = tc_warp_tile(pix, t_co)
-        return 32 * stride * stride * (-(-(-(-pix // 16)) // wm)
-                                       * -(-(-(-t_co // 8)) // wn))
-    rp, rc = register_tile(t_co)
-    return stride * stride * (-(-pix // rp)) * (-(-t_co // rc))
+    wm, wn = tc_warp_tile(pix, t_co)
+    return 32 * stride * stride * (-(-(-(-pix // 16)) // wm)
+                                   * -(-(-(-t_co // 8)) // wn))
 
 
 def launch_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
@@ -546,17 +538,23 @@ def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
     images, ``(t_n, rows_h, rows_w, t_ci + 4)`` words (channel stride t_ci
     + 4, so the eight rows of an A fragment hit different banks), rounded
     to 16 bytes, then the weight rows of the block's valid taps, ``(taps_h
-    * taps_w, t_ci, tc_weight_stride(t_co))``.  int8: the windows as
-    ``(t_n, rows_h, rows_w)`` rows of `int8_row_stride` bytes, then per
-    valid tap `tc_columns` weight rows (CI-minor) of the same stride.
-    Under a cluster split the same memory then holds the block's partial
-    tile, S*S*pixels*t_co 4-byte sums."""
+    * taps_w, t_ci, tc_weight_stride(t_co))``.  bf16: the same two arrays
+    of 2-byte elements, the windows' rows `bf16_row_stride` long (whole
+    16-byte pieces, so nothing to round).  int8: the windows as ``(t_n,
+    rows_h, rows_w)`` rows of `int8_row_stride` bytes, then per valid tap
+    `tc_columns` weight rows (CI-minor) of the same stride.  Under a
+    cluster split the same memory then holds the block's partial tile,
+    S*S*pixels*t_co 4-byte sums."""
     rows_h, taps_h = staged_window(in_h, ohp, t_oh, kernel, stride, padding)
     rows_w, taps_w = staged_window(in_w, owp, t_ow, kernel, stride, padding)
-    if dtype_name(dtype) == "int8":
+    name = dtype_name(dtype)
+    if name == "int8":
         row = int8_row_stride(t_ci)
         stage = row * (t_n * rows_h * rows_w
                        + taps_h * taps_w * tc_columns(t_co))
+    elif name == "bfloat16":
+        stage = 2 * (t_n * rows_h * rows_w * bf16_row_stride(t_ci)
+                     + taps_h * taps_w * t_ci * tc_weight_stride(t_co))
     else:
         x_words = -(-t_n * rows_h * rows_w * (t_ci + 4) // 4) * 4
         stage = 4 * (x_words
@@ -581,22 +579,10 @@ def int8_acc_bound(kernel: int, stride: int, padding: int, cip: int) -> int:
 def kernel_smem_bytes(geom: DeconvGeometry, t_oh: int, t_ow: int, t_ci: int,
                       t_co: int, t_n: int = 1, kernel: str = "tc",
                       split: int = 1, dtype="float32") -> int:
-    """Dynamic shared memory of one kernel block, in bytes.
-
-    "tc": `tc_smem_layout` for ``dtype`` (fp32 or int8) at the layer's
-    tile-padded output.  "simt": per CI chunk the halo windows of the
-    ``t_n`` images, ``(t_n, T_IH, T_IW, t_ci)`` with the channel stride
-    padded by one word against bank conflicts (rounded up to 16 bytes), and
-    the weight slab ``(K, K, t_ci, t_co)``, both as 4-byte words (bf16 is
-    converted on staging)."""
+    """Dynamic shared memory of one kernel block, in bytes: `tc_smem_layout`
+    for ``dtype`` at the layer's tile-padded output."""
     _check_kernel(kernel)
-    if kernel == "tc":
-        return tc_smem_layout(
-            geom.in_h, geom.in_w, geom.kernel, geom.stride, geom.padding,
-            -(-geom.out_h // t_oh) * t_oh, -(-geom.out_w // t_ow) * t_ow,
-            t_oh, t_ow, t_ci, t_co, t_n, split, dtype)[1]
-    ht_h = halo_tile(t_oh, geom.kernel, geom.stride, geom.padding)
-    ht_w = halo_tile(t_ow, geom.kernel, geom.stride, geom.padding)
-    x_words = -(-t_n * ht_h.extent * ht_w.extent * (t_ci + 1) // 4) * 4
-    w_words = geom.kernel * geom.kernel * t_ci * t_co
-    return 4 * (x_words + w_words)
+    return tc_smem_layout(
+        geom.in_h, geom.in_w, geom.kernel, geom.stride, geom.padding,
+        -(-geom.out_h // t_oh) * t_oh, -(-geom.out_w // t_ow) * t_ow,
+        t_oh, t_ow, t_ci, t_co, t_n, split, dtype)[1]

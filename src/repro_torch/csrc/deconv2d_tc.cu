@@ -1,6 +1,7 @@
 // Halo-tiled, phase-decomposed transposed convolution on Hopper's tensor
 // cores (sm_90a): the fp32 dense and zero-skip kernels, instances of one
-// template, and the int8 kernel, built on the same staging and split.
+// template, the bf16 dense and zero-skip kernels, instances of a sibling
+// template, and the int8 kernel, all built on the same staging and split.
 //
 // Replaces three Pallas TPU kernels of the JAX package, each computing the
 // same function on the same host-padded inputs:
@@ -9,7 +10,8 @@
 //    src/repro/kernels/deconv2d/kernel.py (launched by `deconv2d_pallas_call`)
 //
 //      y = act(conv_transpose(x, w) + b)   x (N, IHp, IWp, CIp), w (K, K, CIp, COp),
-//                                          b (COp), y (N, OHp, OWp, COp), NHWC, f32
+//                                          b (COp), y (N, OHp, OWp, COp), NHWC,
+//                                          f32 or bf16 (sums in f32)
 //
 //  * zero-skip (`deconv2d_tc_sparse_forward`): `_sparse_kernel`,
 //    src/repro/kernels/deconv2d_sparse/kernel.py.  The dense function on
@@ -30,8 +32,6 @@
 //    contract it into an FMA: it rounds exactly as the plain torch version
 //    (a separate multiply, add and true division) and the two agree bit for
 //    bit on every int8 output.
-//
-// bf16 layers run on the FMA kernel of csrc/deconv2d.cu.
 //
 // What bounds the kernel on an H100: tensor-core throughput on the wide
 // CelebA layers (1024->512, 512->256, 256->128 channels: ~134M MACs per
@@ -110,6 +110,28 @@
 //     The largest sum on the served nets, 4 taps x 1024 x 127^2 ~ 6.6e7, is
 //     far below 2^31; the launch refuses a layer whose taps x CIp x 127^2
 //     could reach it.
+//  7. bf16 (its own template on steps 1-5, dense and zero-skip, the same
+//     function as the reference's bf16 kernels: bf16 operands, f32 sums):
+//     products are mma.sync m16n8k16 bf16 x bf16 -> f32, one per fragment
+//     pair and 16-channel k-step.  A bf16 product is exact in f32, so there
+//     is no operand split (3xTF32 takes six mma per 16 channels); the fresh
+//     partial per CI chunk stays, since the tensor cores still round each
+//     mma's sum toward zero.  Staged rows are bf16, half fp32's bytes: an
+//     input pixel's t_ci channels at a stride of t_ci + 8 elements, a (tap,
+//     channel)'s t_co weights at fp32's stride in elements (8 mod 16 of
+//     them).  Fragments come by ldmatrix: A (pixels x CI, two channels of a
+//     pixel per register, as the int8 kernel's bytes) with one x4 per m16
+//     tile, each lane addressing one 16-byte pixel row at the tap's
+//     offset, so the per-tap gather costs nothing; B (CI x CO, two
+//     consecutive channels of one output channel per register) with x4.trans
+//     (x2 for one n8 tile) from the weight rows in the reference layout, so
+//     the weights need no packing.  At those strides the 8 rows of every
+//     ldmatrix phase (consecutive pixels, or k-rows) fall in distinct bank
+//     groups.  Thin layers' weight rows (C_out 1 or 3: 2 or 6 bytes, which
+//     neither cp.async nor a bulk copy takes) are staged by plain loads,
+//     four in flight per thread, into the zero-padded columns.  The
+//     epilogue adds the bias in f32, applies the activation in f32, rounds
+//     once to bf16 and stores neighbouring channels as one bf16x2 word.
 //
 // Plain C interface (loaded with ctypes): each `*_forward` launches on the
 // given stream, does not synchronise and allocates nothing.
@@ -144,8 +166,9 @@ enum Param {
   P_ACT, P_IH, P_IW, P_PAD_L, P_THREADS, P_SPLIT, P_DTYPE, P_TAPS
 };
 
-// P_DTYPE: the staged type, and so the instance and shared layout.
-enum Dtype { D_F32 = 0, D_INT8 = 2 };
+// P_DTYPE: the staged type, and so the instance and shared layout (the
+// codes of repro_torch/kernels/deconv2d/kernel.py::_DTYPE_CODE).
+enum Dtype { D_F32 = 0, D_BF16 = 1, D_INT8 = 2 };
 
 // Argument errors are reported as negative codes, CUDA errors as positive.
 enum ArgError { E_ARGS = -1, E_THREADS = -2, E_SMEM = -3, E_REGTILE = -4, E_ALIGN = -5 };
@@ -160,12 +183,13 @@ struct Geometry {
   // derived: rows of a phase, warp grid, staged window, weight rows, ring
   int pix, wm, wn, mgroups, ngroups;
   int win_h, win_w, slots;  // most rows staged per dim; most valid taps
-  // strides and sizes in elements of the staged type (f32 words; int8
-  // bytes): fp32 cs = input pixel row, ws = weight row (t_co wide); int8
-  // cs = either row (t_ci wide), ws = weight rows per slot
+  // strides and sizes in elements of the staged type (f32 words; bf16
+  // halves; int8 bytes): fp32 and bf16 cs = input pixel row, ws = weight
+  // row (t_co wide); int8 cs = either row (t_ci wide), ws = weight rows
+  // per slot
   int cs, ws;
   int x_elems, stage_elems, stages;
-  bool w_vec4;              // fp32 weight rows staged as whole float4s
+  bool w_vec4;              // fp32 and bf16 weight rows staged as whole 16-byte pieces
   // the int8 kernel's layout (else fp32); last, so that the fp32 kernels'
   // fields keep their offsets and compiled code
   bool int8;
@@ -213,6 +237,54 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b, bf16 operands into f32 (each product exact).  a: rows
+// lane/4 and lane/4 + 8, k elements 2*(lane%4) (+1) and 8 + 2*(lane%4)
+// (+1); b: column lane/4, the same k elements; d as for mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix of 8x8 matrices of 16-bit elements from shared memory: lanes
+// 8i..8i+7 give the addresses of matrix i's eight 16-byte rows (x2: lanes
+// 0..15 only).  Lane l receives register i = elements (l/4, 2*(l%4)) and
+// (l/4, 2*(l%4) + 1) of matrix i as stored; with .trans (2*(l%4), l/4) and
+// (2*(l%4) + 1, l/4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r0)[2], uint32_t (&r1)[2],
+                                              unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0[0]), "=r"(r0[1]), "=r"(r1[0]), "=r"(r1[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ float bf16_float(uint16_t v) {
+  return __uint_as_float((uint32_t)v << 16);
+}
+
+// lo and hi rounded to the nearest bf16 (ties to even), packed with lo in
+// the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
@@ -1038,6 +1110,371 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_int8_kernel(
   cluster.sync();
 }
 
+// The bf16 dense and zero-skip kernels (design step 7): the fp32 kernel's
+// block, warp grid, tap table, ring, zero-skip walk and cluster split, on
+// bf16 rows, ldmatrix fragments and bf16 mma.
+template <bool kSparse, int WM, int WN>
+__global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_bf16_kernel(
+    const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
+    const uint16_t* __restrict__ b, uint16_t* __restrict__ y, Geometry g, TapTable taps,
+    Schedule sched) {
+  extern __shared__ __align__(16) uint16_t smem_bf[];
+  __shared__ int s_taps[kTapWords];
+  __shared__ unsigned char s_tap_ok[2][kMaxStride * kMaxTaps];
+  __shared__ unsigned s_kok[2];
+  __shared__ int s_span[4];
+  __shared__ int s_real[4];
+  __shared__ short s_wtap[kMaxK * kMaxK];
+  // zero-skip: per stage, the entry's CI tile (-1: none) and its tap bits
+  __shared__ int s_ent[kMaxStages][1 + kMaxBitWords];
+  __shared__ __align__(8) unsigned long long s_bar[kMaxStages];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kTapWords; i += blockDim.x) s_taps[i] = taps.words[i];
+
+  const int s = g.s;
+  const int th = g.t_oh / s, tw = g.t_ow / s;
+  const int pix = g.pix;
+
+  // block -> (output tile, rank in the cluster)
+  const int split = g.split;
+  const int rank = blockIdx.x % split;
+  int tile = blockIdx.x / split;
+  const int co_t = tile % g.tiles_co;
+  tile /= g.tiles_co;
+  const int ow_t = tile % g.tiles_w;
+  const int oh_t = tile / g.tiles_w;
+  const int n0 = blockIdx.y * g.t_n;
+  const int co0 = co_t * g.t_co;
+  const int h0 = oh_t * th + g.base_h;
+  const int w0 = ow_t * tw + g.base_w;
+
+  // the weight rows' padding columns stay zero: the copies never write them
+  for (int st = 0; st < g.stages; ++st) {
+    uint16_t* ws = smem_bf + st * g.stage_elems + g.x_elems;
+    const int pad = g.ws - g.t_co;
+    for (int e = tid; e < g.slots * g.t_ci * pad; e += blockDim.x)
+      ws[(e / pad) * g.ws + g.t_co + e % pad] = 0;
+  }
+  if (tid == 0) {
+    for (int st = 0; st < g.stages; ++st) mbar_init(&s_bar[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) block_taps(g, s_taps, h0, w0, s_tap_ok, s_kok, s_span, s_real, s_wtap);
+  __syncthreads();
+
+  const unsigned kok_h = s_kok[0], kok_w = s_kok[1];
+  const int nw_ok = __popc(kok_w);
+  const int n_slots = __popc(kok_h) * nw_ok;
+  const int lo_h = s_span[0], eh = s_span[1] - s_span[0];
+  const int lo_w = s_span[2], ew = s_span[3] - s_span[2];
+  const int cs = g.cs, wst = g.ws;
+  FastDiv div_ew, div_eh, div_ci;
+  div_ew.init(ew);
+  div_eh.init(eh);
+  div_ci.init(g.t_ci);
+  // bytes one chunk's input rows bring: the real rows of the span
+  const int x_bytes =
+      g.t_n * (s_real[1] - s_real[0]) * (s_real[3] - s_real[2]) * g.t_ci * 2;
+
+  // warp -> (phase, row group, column group); warps past the last phase
+  // only stage
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int per_phase = g.mgroups * g.ngroups;
+  const int phase = warp / per_phase;
+  const bool computes = phase < s * s;
+  const int q = warp - phase * per_phase;
+  const int mg = q / g.ngroups, ng = q - (q / g.ngroups) * g.ngroups;
+  const int ph = computes ? phase / s : 0, pw = computes ? phase % s : 0;
+
+  // The rows this lane addresses for ldmatrix, in elements.  A, per m16
+  // tile: row (lane % 8) + 8 * (lane / 8 % 2), channels 8 * (lane / 16) on,
+  // in the input window (rows past the phase's pixels read pixel 0 and are
+  // never stored).  B, per pair of n8 tiles: k-row (lane % 8) + 8 * (lane /
+  // 8 % 2) of the chunk, the n8 tile lane / 16 of the pair (one tile: x2,
+  // lanes 0..15).
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  int aoff[WM];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+    int r = (mg * WM + i) * 16 + lrow;
+    if (r >= pix) r = 0;
+    const int nn = r / (th * tw);
+    const int rr = (r / tw) % th;
+    const int cc = r % tw;
+    aoff[i] = ((nn * g.win_h + rr) * g.win_w + cc) * cs + 8 * (lane >> 4);
+  }
+  const int boff = lrow * wst + (ng * WN + (WN > 1 ? lane >> 4 : 0)) * 8;
+  // accumulators, from the bias unless a cluster split adds it after the sum
+  float acc[WM][WN][4];
+#pragma unroll
+  for (int j = 0; j < WN; ++j) {
+    const int col = (ng * WN + j) * 8 + 2 * tig;
+    const float b0 = (split == 1 && col < g.t_co) ? bf16_float(b[co0 + col]) : 0.0f;
+    const float b1 = (split == 1 && col + 1 < g.t_co) ? bf16_float(b[co0 + col + 1]) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+      acc[i][j][0] = b0;
+      acc[i][j][1] = b1;
+      acc[i][j][2] = b0;
+      acc[i][j][3] = b1;
+    }
+  }
+
+  // this rank's range of chunks (dense) or of the CO tile's entries
+  const int n_ci = g.cip / g.t_ci;
+  const int total = kSparse ? sched.count[co_t] : n_ci;
+  const int it0 = rank * total / split;
+  const int n_it = (rank + 1) * total / split - it0;
+
+  // Issue chunk `it` into stage `st`: input rows and (wide) weight rows as
+  // bulk copies counted on the stage's mbarrier; thin weight rows by plain
+  // loads and stores, which the barrier before the chunk's mma orders.
+  auto issue = [&](int it, int st) {
+    if (it >= n_it) return;
+    int ci_t = it0 + it;
+    const unsigned* bits = nullptr;
+    if constexpr (kSparse) {
+      const int e = co_t * sched.len + it0 + it;
+      ci_t = sched.ci[e];
+      bits = sched.bits + (size_t)e * sched.nbw;
+      if (ci_t < 0 || ci_t >= n_ci) ci_t = -1;
+    }
+    auto live = [&](int t) {
+      if constexpr (kSparse) return ((__ldg(bits + (t >> 5)) >> (t & 31)) & 1u) != 0;
+      return true;
+    };
+    if (tid == 0) {
+      int bytes = 0;
+      if (ci_t >= 0) {
+        int n_live = n_slots;
+        if constexpr (kSparse) {
+          n_live = 0;
+          for (int sl = 0; sl < n_slots; ++sl) n_live += live(s_wtap[sl]);
+          s_ent[st][0] = ci_t;
+          for (int j = 0; j < sched.nbw; ++j) s_ent[st][1 + j] = (int)bits[j];
+        }
+        bytes = x_bytes + (g.w_vec4 ? n_live * g.t_ci * g.t_co * 2 : 0);
+      } else if constexpr (kSparse) {
+        s_ent[st][0] = -1;
+      }
+      mbar_arrive_expect(&s_bar[st], bytes);
+    }
+    if (ci_t < 0) return;
+    const int c0 = ci_t * g.t_ci;
+    uint16_t* xs = smem_bf + st * g.stage_elems;
+    uint16_t* ws = xs + g.x_elems;
+    // input window: one bulk copy per pixel row of t_ci channels; rows
+    // outside the real input are zero-filled in place
+    const int nx = g.t_n * eh * ew;
+    for (int r = tid; r < nx; r += blockDim.x) {
+      const int rest = div_ew.div(r);
+      const int lc = r - rest * ew;
+      const int nn = div_eh.div(rest);
+      const int lr = rest - nn * eh;
+      uint16_t* dst = xs + ((nn * g.win_h + lr) * g.win_w + lc) * cs;
+      if (lr >= s_real[0] && lr < s_real[1] && lc >= s_real[2] && lc < s_real[3]) {
+        const int gh = h0 + lo_h + lr, gw = w0 + lo_w + lc;
+        bulk_copy(dst, x + ((((size_t)(n0 + nn) * g.ihp + gh) * g.iwp + gw) * g.cip) + c0,
+                  g.t_ci * 2, &s_bar[st]);
+      } else {
+        for (int j = 0; j < g.t_ci; j += 8)
+          *reinterpret_cast<int4*>(dst + j) = make_int4(0, 0, 0, 0);
+      }
+    }
+    // weight rows of the block's valid (zero-skip: and live) taps
+    const int nw = n_slots * g.t_ci;
+    if (g.w_vec4) {
+      for (int r = tid; r < nw; r += blockDim.x) {
+        const int slot = div_ci.div(r);
+        const int ci = r - slot * g.t_ci;
+        const int t = s_wtap[slot];
+        if (!live(t)) continue;
+        bulk_copy(ws + r * wst, w + ((size_t)t * g.cip + c0 + ci) * g.cop + co0, g.t_co * 2,
+                  &s_bar[st]);
+      }
+    } else {
+      const int ne = nw * g.t_co;
+      for (int e0 = tid; e0 < ne; e0 += 4 * blockDim.x) {
+        uint16_t v[4];
+        int dst[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = e0 + u * blockDim.x;
+          dst[u] = -1;
+          if (e >= ne) continue;
+          const int r = e / g.t_co;
+          const int c = e - r * g.t_co;
+          const int slot = div_ci.div(r);
+          const int ci = r - slot * g.t_ci;
+          const int t = s_wtap[slot];
+          if (!live(t)) continue;
+          v[u] = __ldg(w + ((size_t)t * g.cip + c0 + ci) * g.cop + co0 + c);
+          dst[u] = r * wst + c;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (dst[u] >= 0) ws[dst[u]] = v[u];
+        }
+      }
+    }
+  };
+
+  // The mma loop of one staged chunk: the phase's valid (and live) taps,
+  // t_ci / 16 k-steps each, summed in a fresh partial that is then added
+  // to the accumulators (see the fp32 kernel's).
+  const unsigned smem_base = smem_addr(smem_bf);
+  auto compute = [&](int st) {
+    if constexpr (kSparse) {
+      if (s_ent[st][0] < 0) return;
+    }
+    const unsigned xs = smem_base + 2u * (unsigned)(st * g.stage_elems);
+    const unsigned ws = xs + 2u * (unsigned)g.x_elems;
+    float part[WM][WN][4];
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][j][c] = 0.0f;
+      }
+    }
+    const int n_taps_h = s_taps[ph], n_taps_w = s_taps[pw];
+    for (int a = 0; a < n_taps_h; ++a) {
+      if (!s_tap_ok[0][ph * kMaxTaps + a]) continue;
+      const int kh = s_taps[kMaxStride + ph * kMaxTaps + a];
+      const int dh = s_taps[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
+      const int sh = __popc(kok_h & ((1u << kh) - 1u));
+      for (int bb = 0; bb < n_taps_w; ++bb) {
+        if (!s_tap_ok[1][pw * kMaxTaps + bb]) continue;
+        const int kw = s_taps[kMaxStride + pw * kMaxTaps + bb];
+        if constexpr (kSparse) {
+          const int t = kh * g.k + kw;
+          if (!(((unsigned)s_ent[st][1 + (t >> 5)] >> (t & 31)) & 1u)) continue;
+        }
+        const int dw = s_taps[kMaxStride + kMaxStride * kMaxTaps + pw * kMaxTaps + bb];
+        const int slot = sh * nw_ok + __popc(kok_w & ((1u << kw) - 1u));
+        const unsigned xt = xs + 2u * (unsigned)(((dh - lo_h) * g.win_w + (dw - lo_w)) * cs);
+        const unsigned wt = ws + 2u * (unsigned)(slot * g.t_ci * wst + boff);
+        for (int k0 = 0; k0 < g.t_ci; k0 += 16) {
+          uint32_t af[WM][4], bf[WN][2];
+#pragma unroll
+          for (int i = 0; i < WM; ++i) ldsm_x4(af[i], xt + 2u * (unsigned)(aoff[i] + k0));
+          if constexpr (WN == 1) {
+            ldsm_x2_trans(bf[0], wt + 2u * (unsigned)(k0 * wst));
+          } else {
+#pragma unroll
+            for (int pr = 0; pr < WN / 2; ++pr)
+              ldsm_x4_trans(bf[2 * pr], bf[2 * pr + 1], wt + 2u * (unsigned)(k0 * wst + 16 * pr));
+          }
+#pragma unroll
+          for (int i = 0; i < WM; ++i) {
+#pragma unroll
+            for (int j = 0; j < WN; ++j) mma_bf16(part[i][j], af[i], bf[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+      }
+    }
+  };
+
+  const int ns = g.stages;
+  for (int st = 0; st < ns - 1; ++st) issue(st, st);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ns;
+    mbar_wait(&s_bar[st], (it / ns) & 1);  // the chunk's bulk copies
+    __syncthreads();                       // and its plain stores; stage (it-1) % ns is free
+    issue(it + ns - 1, (it + ns - 1) % ns);
+    if (computes) compute(st);
+  }
+
+  // output pixel of row r of this warp's phase -> y row pointer
+  auto out_row = [&](int r, int ph_, int pw_) {
+    const int nn = r / (th * tw);
+    const int rr = (r / tw) % th;
+    const int cc = r % tw;
+    const int oh = oh_t * g.t_oh + rr * s + ph_;
+    const int ow = ow_t * g.t_ow + cc * s + pw_;
+    return y + (((size_t)(n0 + nn) * g.ohp + oh) * g.owp + ow) * g.cop + co0;
+  };
+
+  if (split == 1) {
+    if (!computes) return;
+    // neighbouring channels leave as one bf16x2 word where both are real
+    // and the word is 4-byte aligned
+    const bool pairs = g.cop % 2 == 0 && g.t_co % 2 == 0;
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (mg * WM + i) * 16 + gid + 8 * hf;
+        if (r >= pix) continue;
+        uint16_t* row = out_row(r, ph, pw);
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = (ng * WN + j) * 8 + 2 * tig;
+          const uint32_t v = pack_bf16x2(activate(acc[i][j][2 * hf], g.act),
+                                         activate(acc[i][j][2 * hf + 1], g.act));
+          if (pairs && col + 1 < g.t_co) {
+            *reinterpret_cast<uint32_t*>(row + col) = v;
+          } else {
+            if (col < g.t_co) row[col] = (uint16_t)(v & 0xffffu);
+            if (col + 1 < g.t_co) row[col + 1] = (uint16_t)(v >> 16);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Cluster split: the f32 partial tile, [phase][row][channel], in this
+  // block's shared memory (the ring is drained), then the rank-ordered sum
+  // of slice `rank` through distributed shared memory.
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem_bf);
+  if (computes) {
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = (mg * WM + i) * 16 + gid + 8 * hf;
+        if (r >= pix) continue;
+        float* prow = part + (phase * pix + r) * g.t_co;
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = (ng * WN + j) * 8 + 2 * tig;
+          if (col < g.t_co) prow[col] = acc[i][j][2 * hf];
+          if (col + 1 < g.t_co) prow[col + 1] = acc[i][j][2 * hf + 1];
+        }
+      }
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_el = s * s * pix * g.t_co;
+  const int e_end = (rank + 1) * n_el / split;
+  for (int e = rank * n_el / split + tid; e < e_end; e += blockDim.x) {
+    float v = 0.0f;
+    for (int qr = 0; qr < split; ++qr) v += cluster.map_shared_rank(part, qr)[e];
+    const int col = e % g.t_co;
+    const int rest = e / g.t_co;
+    const int r = rest % pix;
+    const int phs = rest / pix;
+    out_row(r, phs / s, phs % s)[col] =
+        (uint16_t)(pack_bf16x2(activate(v + bf16_float(b[co0 + col]), g.act), 0.0f) & 0xffffu);
+  }
+  cluster.sync();
+}
+
 struct Launch {
   const float* x;
   const float* w;
@@ -1098,6 +1535,38 @@ int dispatch(const Launch& a, const Geometry& g, const TapTable& taps, int threa
   DECONV_TC_CASE(1, 2)
   DECONV_TC_CASE(1, 1)
 #undef DECONV_TC_CASE
+  return E_REGTILE;
+}
+
+struct LaunchBf16 {
+  const uint16_t* x;
+  const uint16_t* w;
+  const uint16_t* b;
+  uint16_t* y;
+  Schedule sched;
+};
+
+template <bool kSparse, int WM, int WN>
+int launch_bf16(const LaunchBf16& a, const Geometry& g, const TapTable& taps, int threads,
+                size_t smem, cudaStream_t stream) {
+  static std::atomic<unsigned> allowed{0};
+  return launch_clusters(deconv2d_tc_bf16_kernel<kSparse, WM, WN>, allowed, g, threads, smem,
+                         stream, a.x, a.w, a.b, a.y, g, taps, a.sched);
+}
+
+template <bool kSparse>
+int dispatch_bf16(const LaunchBf16& a, const Geometry& g, const TapTable& taps, int threads,
+                  size_t smem, cudaStream_t stream) {
+#define DECONV_TC_BF16_CASE(WM_, WN_) \
+  if (g.wm == WM_ && g.wn == WN_)     \
+    return launch_bf16<kSparse, WM_, WN_>(a, g, taps, threads, smem, stream);
+  DECONV_TC_BF16_CASE(2, 4)
+  DECONV_TC_BF16_CASE(2, 2)
+  DECONV_TC_BF16_CASE(2, 1)
+  DECONV_TC_BF16_CASE(1, 4)
+  DECONV_TC_BF16_CASE(1, 2)
+  DECONV_TC_BF16_CASE(1, 1)
+#undef DECONV_TC_BF16_CASE
   return E_REGTILE;
 }
 
@@ -1171,13 +1640,15 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
   g.act = p[P_ACT];
   g.ih = p[P_IH]; g.iw = p[P_IW]; g.pad_l = p[P_PAD_L];
   g.split = p[P_SPLIT];
-  if (p[P_DTYPE] != D_F32 && p[P_DTYPE] != D_INT8) return E_ARGS;
-  g.int8 = p[P_DTYPE] == D_INT8;
+  const int dtype = p[P_DTYPE];
+  if (dtype != D_F32 && dtype != D_BF16 && dtype != D_INT8) return E_ARGS;
+  g.int8 = dtype == D_INT8;
+  const bool bf16 = dtype == D_BF16;
   if (g.ih < 1 || g.iw < 1 || g.pad_l < 0 || g.pad_l + g.ih > g.ihp || g.pad_l + g.iw > g.iwp)
     return E_ARGS;
   if (g.s < 1 || g.s > kMaxStride || g.k < 1 || g.k > kMaxK || g.t_n < 1 || g.t_ci < 8 ||
-      g.t_ci % (g.int8 ? 32 : 8) || g.t_co < 1 || g.t_oh < g.s || g.t_ow < g.s || g.t_oh % g.s ||
-      g.t_ow % g.s || g.n % g.t_n || g.cip % g.t_ci || g.cop % g.t_co || g.ohp % g.t_oh ||
+      g.t_ci % (g.int8 ? 32 : bf16 ? 16 : 8) || g.t_co < 1 || g.t_oh < g.s || g.t_ow < g.s ||
+      g.t_oh % g.s || g.t_ow % g.s || g.n % g.t_n || g.cip % g.t_ci || g.cop % g.t_co || g.ohp % g.t_oh ||
       g.owp % g.t_ow || g.act < 0 || g.act > 2)
     return E_ARGS;
   g.tiles_h = g.ohp / g.t_oh;
@@ -1236,6 +1707,17 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
     g.ws = cols;
     x_elems = (long long)g.t_n * rows_h * rows_w * g.cs;
     stage = x_elems + (long long)g.slots * cols * g.cs;
+  } else if (bf16) {
+    // 2-byte elements: input rows of t_ci + 8 (whole 16-byte rows for
+    // ldmatrix, an odd number of them, so that 8 consecutive pixels' rows
+    // fall in distinct bank groups), weight rows at fp32's stride in
+    // elements (8 mod 16: 16 mod 32 bytes, the same for 8 k-rows)
+    elem = 2;
+    g.cs = g.t_ci + 8;
+    g.ws = cols % 16 == 0 ? cols + 8 : cols;
+    g.w_vec4 = g.t_co % 8 == 0 && g.cop % 8 == 0;
+    x_elems = (long long)g.t_n * rows_h * rows_w * g.cs;
+    stage = x_elems + (long long)g.slots * g.t_ci * g.ws;
   } else {
     elem = 4;
     g.cs = g.t_ci + 4;
@@ -1287,9 +1769,9 @@ long long deconv2d_tc_smem_bytes(const int* p) {
   return smem;
 }
 
-// x, w, b, y: f32 device pointers (x and w 16-byte aligned); p: host int32
-// array laid out as `Param` followed by the tap table; stream: a
-// cudaStream_t.  0 on success.
+// x, w, b, y: f32 or bf16 device pointers, as p's dtype says (x and w
+// 16-byte aligned, y 4-byte); p: host int32 array laid out as `Param`
+// followed by the tap table; stream: a cudaStream_t.  0 on success.
 int deconv2d_tc_forward(const void* x, const void* w, const void* b, void* y, const int* p,
                         void* stream) {
   Geometry g;
@@ -1299,13 +1781,20 @@ int deconv2d_tc_forward(const void* x, const void* w, const void* b, void* y, co
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
   if (g.int8) return E_ARGS;
   if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
+  if (p[P_DTYPE] == D_BF16) {
+    const LaunchBf16 a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
+                       static_cast<const uint16_t*>(b), static_cast<uint16_t*>(y),
+                       Schedule{nullptr, nullptr, nullptr, 0, 0}};
+    return dispatch_bf16<false>(a, g, taps, threads, (size_t)smem,
+                                static_cast<cudaStream_t>(stream));
+  }
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
                  static_cast<const float*>(b), static_cast<float*>(y),
                  Schedule{nullptr, nullptr, nullptr, 0, 0}};
   return dispatch<false>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream));
 }
 
-// The dense kernel's arguments plus the packed zero-skip schedule: count
+// The dense kernel's arguments (f32 or bf16) plus the packed zero-skip schedule: count
 // (one per CO tile), ci (len per CO tile) and bits (nbw words per entry),
 // device int32.  Entries whose CI tile is out of range are skipped.
 // 0 on success.
@@ -1321,10 +1810,16 @@ int deconv2d_tc_sparse_forward(const void* x, const void* w, const void* b, void
       !ci || !bits)
     return E_ARGS;
   if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
+  const Schedule sched{static_cast<const int*>(count), static_cast<const int*>(ci),
+                       static_cast<const unsigned*>(bits), len, nbw};
+  if (p[P_DTYPE] == D_BF16) {
+    const LaunchBf16 a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
+                       static_cast<const uint16_t*>(b), static_cast<uint16_t*>(y), sched};
+    return dispatch_bf16<true>(a, g, taps, threads, (size_t)smem,
+                               static_cast<cudaStream_t>(stream));
+  }
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
-                 static_cast<const float*>(b), static_cast<float*>(y),
-                 Schedule{static_cast<const int*>(count), static_cast<const int*>(ci),
-                          static_cast<const unsigned*>(bits), len, nbw}};
+                 static_cast<const float*>(b), static_cast<float*>(y), sched};
   return dispatch<true>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream));
 }
 

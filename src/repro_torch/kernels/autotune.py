@@ -1,33 +1,27 @@
 """Tile choice for the Hopper deconv kernels.
 
 Deterministic choices of the same ``TileChoice`` fields as the JAX
-package's autotuner (``t_oh, t_ow, t_ci, t_co, t_n``), one per kernel
-(`core.tiling.kernel_for`).  In all, ``t_oh``/``t_ow`` are square
+package's autotuner (``t_oh, t_ow, t_ci, t_co, t_n``), one per dtype's
+kernel.  In all, ``t_oh``/``t_ow`` are square
 multiples of the stride (every tile has the same phase structure), a block
 has at most 512 threads (the kernels' launch bound), and a 1x1 root layer
 takes S-pixel spatial tiles, one valid tap each.
 
-fp32 and int8, the tensor-core kernels (``csrc/deconv2d_tc.cu``),
+Every dtype runs on the tensor-core kernels (``csrc/deconv2d_tc.cu``),
 `_tc_tiles`: every candidate the kernel takes (fp32: ``t_ci`` a multiple of
-8; int8: 32, 64 or 128; ``t_co`` a multiple of 8, or C_out itself below 8;
-at most 16 warps and 227 KB) is scored by `tc_cost`, a model of one SM's
-clock, and the cheapest whose grid (cluster split included, `ci_split`)
-fills the 132 SMs wins; where no candidate fills them, the cheapest of
-all.  The model counts per block and CI chunk the instructions issued, the
-tensor-core products (fp32 3xTF32: three ``mma`` per m16n8k8 tile; int8:
-one m16n8k32 ``mma``), the shared-memory wavefronts of the fragment loads,
-the bytes staged from L2 and the bulk copies (one per staged row), plus
-one copy latency per chunk over the stages in flight; blocks share an SM's
-rates and run in waves.  Its constants were fitted by hand to timed tiles
-on an H100, each dtype's to its own kernel, so it ranks tiles, it does not
+8; bf16: 16, 32 or 64; int8: 32, 64 or 128; ``t_co`` a multiple of 8, or
+C_out itself below 8; at most 16 warps and 227 KB) is scored by `tc_cost`,
+a model of one SM's clock, and the cheapest whose grid (cluster split
+included, `ci_split`) fills the 132 SMs wins; where no candidate fills
+them, the cheapest of all.  The model counts per block and CI chunk the
+instructions issued, the tensor-core products (fp32 3xTF32: three ``mma``
+per m16n8k8 tile; bf16: one m16n8k16 ``mma``; int8: one m16n8k32
+``mma``), the shared-memory wavefronts of the fragment loads, the bytes
+staged from L2 and the bulk copies (one per staged row), plus one copy
+latency per chunk over the stages in flight; blocks share an SM's rates
+and run in waves.  Its constants were fitted by hand to timed tiles on an
+H100, each dtype's to its own kernel, so it ranks tiles, it does not
 predict times.
-
-bf16, the FMA kernel (``csrc/deconv2d.cu``), `_simt_tiles`: the
-weight slab of one CI chunk stays within 64 KB; the grid fills the 132 SMs:
-at small batch the channel tile narrows (down to 4), and only below 66
-blocks does the spatial tile shrink, while a block keeps 16 threads; at
-large batch the batch tile grows while threads (256), blocks and a 100 KB
-shared-memory target allow.
 
 The TPU tiles do not carry over: the JAX plan picks ``t_ci = t_co = 128`` on
 CelebA's wide layers, a 1 MB weight slab.
@@ -46,8 +40,8 @@ cheapest first:
 3. **On-card timing** (``refine=True``, fp32 only) -- the model's pick and
    the next cheapest candidates by `tc_cost` *without* the fill-the-SMs
    preference, each launched through the serving launcher and timed with
-   CUDA events (`time_ms`); the fastest is kept and stored.  int8 keeps the
-   model ranking, as in the JAX package; bf16 has one heuristic pick.  On
+   CUDA events (`time_ms`); the fastest is kept and stored.  int8 and bf16
+   keep the model ranking, as in the JAX package.  On
    a machine without a card ``refine=True`` raises: the clock of a plain
    version says nothing about the kernel.
 """
@@ -66,20 +60,11 @@ import torch
 
 from ..core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_THREADS,
                            DeconvGeometry, block_threads, dtype_name,
-                           kernel_for, kernel_smem_bytes, launch_threads,
-                           staged_window, tc_columns, tc_smem_layout,
-                           tc_warp_tile)
+                           launch_threads, staged_window, tc_columns,
+                           tc_smem_layout, tc_warp_tile)
 
 SMS = 132                      # streaming multiprocessors of an H100
 MAX_SPLIT = 8                  # blocks of a cluster (the portable limit)
-SMEM_TARGET = 100 * 1024       # the batch tile grows only within this
-W_SLAB_BUDGET = 64 * 1024      # weight slab per CI chunk, bytes
-TARGET_THREADS = 256
-MAX_SPATIAL = 16
-MAX_CO_TILE = 64
-MIN_CO_TILE = 4
-MIN_THREADS = 16               # smallest block the spatial shrink makes
-MAX_CI_TILE = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,10 +112,8 @@ def ci_split(blocks: int, n_chunks: int) -> int:
 def hopper_tiles(geom: DeconvGeometry, batch: int = 1,
                  dtype="float32") -> TileChoice:
     """Tiles for one layer at the batch its kernel will see, for the
-    kernel that runs ``dtype``."""
-    if kernel_for(dtype) == "tc":
-        return _tc_tiles(geom, batch, dtype_name(dtype))
-    return _simt_tiles(geom, batch)
+    tensor-core kernel that runs ``dtype``."""
+    return _tc_tiles(geom, batch, dtype_name(dtype))
 
 
 def fill_tiles(geom: DeconvGeometry, batch: int, dtype="float32",
@@ -145,16 +128,26 @@ def fill_tiles(geom: DeconvGeometry, batch: int, dtype="float32",
 # A model of one SM's clock, not measurements: the constants were fitted by
 # hand to timed tiles of both generators' layers on an H100 (PERF.md), the
 # shared ones and MMA_CLK to the fp32 kernel, the INT8_ ones to the int8
-# kernel (every tile it takes, timed by tools/sweep_int8_tiles.py).  On
-# int8 the mma never binds; the per-chunk cost does (a 128-channel chunk
-# ran up to 1.25x faster than two of 64 at equal tiles), and a cluster
-# split costs more than fp32's constant says.
+# kernel and the BF16_ ones to the bf16 kernels (every tile each takes,
+# timed by tools/sweep_tiles.py).  On int8 the mma never binds; the
+# per-chunk cost does (a 128-channel chunk ran up to 1.25x faster than two
+# of 64 at equal tiles), and a cluster split costs more than fp32's
+# constant says.  bf16 likewise: a 16-channel chunk is one k-step, and on
+# CelebA's wide layers at bucket 64 64-channel chunks ran up to 1.9x
+# faster than 16-channel ones at equal spatial tiles; but a ring that
+# leaves room for one block per SM lost to one that leaves room for two
+# (CelebA layer 1: 0.27 vs 0.20 ms), so a bf16 block's per-chunk stall is
+# taken as hidden by the other resident blocks.
 ISSUE_PER_CLK = 4       # instructions an SM issues per clock (4 schedulers)
 MMA_CLK = 1.5           # SM clocks per m16n8k8 TF32 mma.sync, as sustained
 INT8_MMA_CLK = 2.0      # SM clocks per m16n8k32 s8 mma.sync, as sustained
 INT8_CHUNK_CLK = 750    # SM clocks per block and chunk not hidden (int8)
 INT8_REDUCE_CLK = 5000  # the int8 split's cluster barriers and int32 sums
 INT8_T_CI = (32, 64, 128)  # the int8 kernel's CI chunks (whole k32 steps)
+BF16_MMA_CLK = 1.5      # SM clocks per m16n8k16 bf16 mma.sync, as sustained
+BF16_CHUNK_CLK = 500    # SM clocks per block and chunk not hidden (bf16)
+BF16_T_CI = (16, 32, 64)  # the bf16 kernels' CI chunks (whole k16 steps)
+LOAD_INSTR = 8          # instructions per plain 2-byte load and store (bf16)
 TC_T_CO = (8, 16, 32, 64, 128)  # channel tiles of C_out >= 8 (n8 columns)
 COPY_INSTR = 12         # instructions per bulk copy (a staged row)
 COPY_CLK = 4.0          # SM clocks of the copy engine per bulk copy
@@ -188,6 +181,8 @@ def _tc_candidates(geom: DeconvGeometry, batch: int, dtype="float32"):
              and (c > 8 or geom.c_in < 128)]
     if dtype_name(dtype) == "int8":
         t_cis = [c for c in INT8_T_CI if c <= _round_up(geom.c_in, 32)]
+    elif dtype_name(dtype) == "bfloat16":
+        t_cis = [c for c in BF16_T_CI if c <= _round_up(geom.c_in, 16)]
     for t in spatial:
         for t_n in t_ns:
             for t_co in t_cos:
@@ -207,8 +202,8 @@ def _a_conflicts(tw: int, t_n: int, win_w: int, win_h: int) -> float:
 
 def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
             t_ci: int, dtype="float32"):
-    """Modelled SM clocks of one "tc" launch of ``dtype`` (fp32 or int8) at
-    these tiles, or None where the kernel does not take them.
+    """Modelled SM clocks of one "tc" launch of ``dtype`` (fp32, bf16 or
+    int8) at these tiles, or None where the kernel does not take them.
 
     Per block and CI chunk: the instructions its warps issue (fragment
     loads, fp32's 3xTF32 splits, the mma, one bulk copy per staged input and
@@ -217,6 +212,7 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     by the stages in flight.  Blocks resident on one SM share its rates;
     the grid runs in waves; a split adds its cluster reduction."""
     int8 = dtype_name(dtype) == "int8"
+    bf16 = dtype_name(dtype) == "bfloat16"
     s = geom.stride
     pix = t_n * (t // s) ** 2
     if block_threads(s, t, t, t_co, t_n) > KERNEL_MAX_THREADS:
@@ -244,8 +240,24 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     # per chunk: every valid tap is one phase's, over that phase's warps;
     # the shared-memory wavefronts of a k-step: B rows are conflict-free,
     # A rows conflict where a fragment's 8 rows share a bank
-    waves_k = 4 * wm * _a_conflicts(t // s, t_n, rows_w, rows_h) + 2 * wn
-    if int8:
+    conflicts = _a_conflicts(t // s, t_n, rows_w, rows_h)
+    waves_k = 4 * wm * conflicts + 2 * wn
+    if bf16:
+        # one m16n8k16 mma per tile and 16-deep k-step; per k-step one
+        # ldmatrix.x4 (4 wavefronts) per m16 tile of A and per pair of n8
+        # tiles of B (x2, 2 wavefronts, for a single tile); bf16 rows,
+        # thin weight rows by plain loads
+        ksteps = taps_h * taps_w * mgroups * ngroups * (t_ci // 16)
+        mma = ksteps * wm * wn
+        frag = wm + -(-wn // 2)
+        waves_k = 4 * wm * conflicts + 4 * (wn // 2) + 2 * (wn % 2)
+        w_rows = taps_h * taps_w * t_ci
+        copies = (x_rows + w_rows) * COPY_INSTR if t_co % 8 == 0 else \
+            x_rows * COPY_INSTR + w_rows * t_co * LOAD_INSTR
+        staged = 2 * t_ci * (x_rows + taps_h * taps_w * t_co)
+        mma_clk, chunk_clk = BF16_MMA_CLK, BF16_CHUNK_CLK
+        copied = x_rows + (w_rows if t_co % 8 == 0 else 0)
+    elif int8:
         # one m16n8k32 mma per tile and 32-deep k-step, 32-bit fragment
         # loads, one bulk copy per staged (tap, channel) weight row
         ksteps = taps_h * taps_w * mgroups * ngroups * (t_ci // 32)
@@ -268,14 +280,17 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
         copied = x_rows + (w_rows if t_co % 4 == 0 else 0)
     instr = mma + ksteps * frag + copies + warps * CHUNK_INSTR
     chunks = -(-n_chunks // split)
-    work = chunks * (chunk_clk + max(
-        instr / ISSUE_PER_CLK, mma * mma_clk, ksteps * waves_k * WAVE_CLK,
-        staged / L2_BYTES_PER_CLK, copied * COPY_CLK))
-    chain = chunks * LATENCY_CLK / (stages - 1)
     per_sm = -(-blocks * split // SMS)
     resident = max(1, min(per_sm, 2048 // threads,
                           65536 // (threads * REGS_PER_THREAD),
                           (KERNEL_MAX_SMEM + 4096) // max(smem, 1)))
+    if bf16:
+        # a block's per-chunk stall overlaps the other resident blocks' work
+        chunk_clk /= resident
+    work = chunks * (chunk_clk + max(
+        instr / ISSUE_PER_CLK, mma * mma_clk, ksteps * waves_k * WAVE_CLK,
+        staged / L2_BYTES_PER_CLK, copied * COPY_CLK))
+    chain = chunks * LATENCY_CLK / (stages - 1)
     busy = min(1.0, resident * warps / FULL_WARPS)
     waves = -(-per_sm // resident)
     clk = waves * (max(resident * work / busy, chain) + LATENCY_CLK)
@@ -327,47 +342,6 @@ def refine_candidates(geom: DeconvGeometry, batch: int, dtype="float32",
     ranked = sorted(_tc_scored(geom, batch, dtype_name(dtype)),
                     key=lambda s: s[1])
     return [model] + [c for _, _, c in ranked if c != model][:max(0, k - 1)]
-
-
-# -- the FMA kernel -----------------------------------------------------
-def _ci_tile(c_in: int, kernel: int, t_co: int) -> int:
-    """Largest CI chunk whose weight slab fits the budget, then, within a
-    factor of two of it, the one that pads C_in least (ties: larger)."""
-    cap = W_SLAB_BUDGET // (kernel * kernel * t_co * 4)
-    cap = max(1, min(cap, MAX_CI_TILE, c_in))
-    lo = max(1, -(-cap // 2))
-    return min(range(lo, cap + 1), key=lambda t: (_round_up(c_in, t), -t))
-
-
-def _simt_tiles(geom: DeconvGeometry, batch: int) -> TileChoice:
-    s = geom.stride
-    t_co = min(geom.c_out, MAX_CO_TILE)
-    if geom.in_h == geom.in_w == 1:
-        t = s
-    else:
-        t = min(_round_up(geom.out_h, s), _round_up(MAX_SPATIAL, s))
-
-    def threads(t, t_co, t_n):
-        return block_threads(s, t, t, t_co, t_n, "simt")
-
-    while threads(t, t_co, 1) > TARGET_THREADS and t > s:
-        t = max(s, _round_up(t // 2, s))
-    while grid_blocks(geom, batch, t, t_co, 1) < SMS and t_co > MIN_CO_TILE:
-        t_co = max(MIN_CO_TILE, t_co // 2)
-    while grid_blocks(geom, batch, t, t_co, 1) < SMS // 2 and t > s:
-        smaller = max(s, _round_up(t // 2, s))
-        if threads(smaller, t_co, 1) < MIN_THREADS:
-            break
-        t = smaller
-    t_ci = _ci_tile(geom.c_in, geom.kernel, t_co)
-    t_n = 1
-    while (t_n * 2 <= batch
-           and threads(t, t_co, t_n * 2) <= TARGET_THREADS
-           and grid_blocks(geom, batch, t, t_co, t_n * 2) >= SMS
-           and kernel_smem_bytes(geom, t, t, t_ci, t_co, t_n * 2,
-                                 "simt") <= SMEM_TARGET):
-        t_n *= 2
-    return TileChoice(t_oh=t, t_ow=t, t_ci=t_ci, t_co=t_co, t_n=t_n)
 
 
 # -- timing on the card -------------------------------------------------
@@ -483,16 +457,15 @@ def cache_key(geom: DeconvGeometry, dtype, backend: str, batch: int = 1,
               out_dtype_bytes: Optional[int] = None) -> str:
     """``v{CACHE_VERSION}|card|source digest|plan hash``: the plan hash is
     `DeconvPlan.stable_hash(scope="tiles")` of the request, the source
-    digest that of the library whose kernel runs ``dtype``."""
-    from ..core.tiling import kernel_for
+    digest that of the kernel library's source."""
     from ..plan import DeconvPlan
     from ._build import source_digest
 
     plan = DeconvPlan(geometry=geom, batch=batch, dtype=dtype_name(dtype),
                       backend=backend, out_dtype_bytes=out_dtype_bytes)
-    lib = "deconv2d_tc" if kernel_for(dtype) == "tc" else "deconv2d"
     return (f"v{CACHE_VERSION}|{card_name() or 'no card'}|"
-            f"{source_digest(lib)}|{plan.stable_hash(scope='tiles')}")
+            f"{source_digest('deconv2d_tc')}|"
+            f"{plan.stable_hash(scope='tiles')}")
 
 
 def _valid_entry(v) -> bool:

@@ -7,12 +7,11 @@ and the tiles, plus the unpadded input extent ``(ih, iw)`` (the kernels
 skip taps that read only host padding).  It returns the padded output
 ``(N, OHp, OWp, COp)`` in x's dtype.
 
-* On a CUDA tensor it launches, on the current stream, the fp32
-  tensor-core kernel of ``csrc/deconv2d_tc.cu`` or, for bf16, the FMA
-  kernel of ``csrc/deconv2d.cu`` (both built at first use), or raises: on a
-  failed build, a refused launch, or an input the kernel does not take.
-  There is no fallback.  Where the grid would not fill the card, the fp32
-  kernel splits the CI chunks over the blocks of a cluster
+* On a CUDA tensor it launches, on the current stream, the fp32 or the
+  bf16 tensor-core kernel of ``csrc/deconv2d_tc.cu`` (built at first use),
+  or raises: on a failed build, a refused launch, or an input the kernel
+  does not take.  There is no fallback.  Where the grid would not fill the
+  card, the kernel splits the CI chunks over the blocks of a cluster
   (`autotune.ci_split`).  The int8 kernel of the same library has its own
   launcher (`int8.py`) and shares the parameter checks here.
 * On a CPU tensor it runs ``deconv2d_launch_plain``, the same function in
@@ -33,21 +32,19 @@ import torch
 from ...core.deconv import fp32_exact, phase_products
 from ...core.offsets import PhasePlan, make_phase_plan
 from ...core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_STRIDE,
-                            KERNEL_MAX_TAPS, KERNEL_MAX_THREADS,
-                            DeconvGeometry, halo_tile, kernel_for,
-                            kernel_smem_bytes, launch_threads, register_tile,
-                            tc_smem_layout)
+                            KERNEL_MAX_TAPS, KERNEL_MAX_THREADS, halo_tile,
+                            launch_threads, tc_smem_layout)
 from ..autotune import MAX_SPLIT, ci_split
 
 ACTIVATIONS = (None, "none", "relu", "tanh")
 _ACT_CODE = {None: 0, "none": 0, "relu": 1, "tanh": 2}
+# In step with `enum Dtype` in csrc/deconv2d_tc.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-# In step with `enum Param` in csrc/deconv2d.cu; the tap table follows.
-_PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
-                 "t_n", "t_oh", "t_ow", "t_ci", "t_co", "t_ih", "t_iw",
-                 "base_h", "base_w", "act", "rp", "rc", "dtype", "ih", "iw",
-                 "pad_l", "threads")
+# per dtype code: its name, its kernel's, and the channels the kernel's CI
+# chunks are a multiple of (one k-step: m16n8k8 TF32, m16n8k16 bf16,
+# m16n8k32 s8)
+_KERNEL_OF_CODE = {0: ("float32", "fp32", 8), 1: ("bfloat16", "bf16", 16),
+                   2: ("int8", "int8", 32)}
 # In step with `enum Param` in csrc/deconv2d_tc.cu; the tap table follows.
 _TC_PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
                     "t_n", "t_oh", "t_ow", "t_ci", "t_co", "t_ih", "t_iw",
@@ -90,7 +87,8 @@ def deconv2d_launch_plain(
     kernel's sums, so they do not enter here beyond the checks.  With
     ``split`` > 1 the sum is taken as the fp32 kernel's cluster takes it:
     rank r's partial over the r-th contiguous range of the CI chunks, the
-    partials added in rank order, then the bias."""
+    partials added in rank order, then the bias (the tensor-core kernels'
+    cluster, fp32 and bf16 alike)."""
     _check_shapes(tuple(xp.shape), tuple(wp.shape), plan, ih, iw, ohp, owp,
                   t_oh, t_ow, t_ci, t_co, t_n)
     fp32_exact(xp.device)
@@ -191,10 +189,7 @@ def _launch_cuda(xp, wp, bp, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co,
             params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if xp.dtype == torch.float32:
-            rc = tc_library().deconv2d_tc_forward(*args, stream)
-        else:
-            rc = library().deconv2d_forward(*args, stream)
+        rc = tc_library().deconv2d_tc_forward(*args, stream)
     check_rc("deconv2d", rc)
     LAUNCHES += 1
     return y
@@ -202,21 +197,20 @@ def _launch_cuda(xp, wp, bp, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co,
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data is not 16-byte aligned (the
-    fp32 kernel stages whole 16-byte pieces)."""
+    kernels stage whole 16-byte pieces)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
                   t_co, t_n, activation, w_shape=None) -> np.ndarray:
     """Check one launch's tensors and return its int32 parameter array, for
-    the kernel that runs x's dtype (`core.tiling.kernel_for`).
+    the tensor-core kernel of x's dtype.
 
     ``others`` lists ``(name, tensor, dtype)`` of the per-channel vectors
     (bias, scale) that must hold one value per padded output channel.
     ``w_shape`` is the weight's shape in the reference layout ``(K, K,
     CIp, COp)`` where ``wp`` is laid out otherwise (the int8 kernel's
-    packed weight).  Shared by the kernels of ``csrc/deconv2d.cu`` and
-    ``csrc/deconv2d_tc.cu``."""
+    packed weight).  Shared by every kernel of ``csrc/deconv2d_tc.cu``."""
     w_shape = tuple(wp.shape) if w_shape is None else tuple(w_shape)
     if activation not in ACTIVATIONS:
         raise ValueError(f"unsupported fused activation {activation!r}")
@@ -234,11 +228,10 @@ def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
         if not t.is_contiguous() or t.numel() != w_shape[3]:
             raise ValueError(f"{name} has {t.numel()} values for "
                              f"{w_shape[3]} output channels")
-    fn = (_tc_launch_params if kernel_for(xp.dtype) == "tc"
-          else _launch_params)
-    return fn(tuple(xp.shape), w_shape, plan.kernel_size, plan.stride,
-              plan.padding, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co, t_n,
-              _ACT_CODE[activation], _DTYPE_CODE[xp.dtype])
+    return _tc_launch_params(
+        tuple(xp.shape), w_shape, plan.kernel_size, plan.stride, plan.padding,
+        ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co, t_n, _ACT_CODE[activation],
+        _DTYPE_CODE[xp.dtype])
 
 
 class LaunchRefused(RuntimeError):
@@ -273,43 +266,18 @@ def _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
-                   t_ci, t_co, t_n, act, dtype) -> np.ndarray:
-    """The FMA kernel's int32 parameter array for one launch shape, checked
-    once per shape and tiles (a serving engine launches a handful of
-    shapes over and over).  Read-only: every caller shares it."""
-    fields = _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh,
-                            t_ow, t_ci, t_co, t_n, act)
-    rp, rc = register_tile(t_co)
-    fields.update(rp=rp, rc=rc, dtype=dtype,
-                  threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "simt"))
-    params = np.array([fields[f] for f in _PARAM_FIELDS]
-                      + _tap_words(make_phase_plan(k, s, p)), dtype=np.int32)
-    want = kernel_smem_bytes(DeconvGeometry(1, 1, x_shape[3], w_shape[3], k,
-                                            s, p), t_oh, t_ow, t_ci, t_co,
-                             t_n, "simt")
-    got = library().deconv2d_smem_bytes(
-        params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
-    if got != want:
-        raise RuntimeError(f"deconv2d kernel: shared-memory model says {want}"
-                           f" bytes, the kernel {got}")
-    params.flags.writeable = False
-    return params
-
-
-@functools.lru_cache(maxsize=256)
 def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
                       t_ci, t_co, t_n, act, dtype) -> np.ndarray:
-    """The int32 parameter array of the fp32 or the int8 tensor-core kernel
-    (``dtype``) for one launch shape (split included), checked once per
-    shape and tiles.  Read-only."""
+    """The int32 parameter array of the fp32, bf16 or int8 tensor-core
+    kernel (``dtype``) for one launch shape (split included), checked once
+    per shape and tiles (a serving engine launches a handful of shapes over
+    and over).  Read-only: every caller shares it."""
     fields = _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh,
                             t_ow, t_ci, t_co, t_n, act)
-    int8 = dtype == _DTYPE_CODE[torch.int8]
-    name = "int8" if int8 else "fp32"
-    if t_ci % (32 if int8 else 8):
+    dtype_name, name, step = _KERNEL_OF_CODE[dtype]
+    if t_ci % step:
         raise ValueError(f"t_ci={t_ci}: the {name} kernel takes CI chunks of "
-                         f"a multiple of {32 if int8 else 8} channels")
+                         f"a multiple of {step} channels")
     split = launch_split(x_shape[0], x_shape[3], w_shape[3], ohp, owp, t_oh,
                          t_ow, t_ci, t_co, t_n)
     fields.update(threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "tc"),
@@ -320,7 +288,7 @@ def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     check_rc("deconv2d", min(got, 0))
     want = tc_smem_layout(ih, iw, k, s, p, ohp, owp, t_oh, t_ow, t_ci, t_co,
-                          t_n, split, "int8" if int8 else "float32")[1]
+                          t_n, split, dtype_name)[1]
     if got != want:
         raise RuntimeError(f"deconv2d {name} kernel: shared-memory model "
                            f"says {want} bytes, the kernel {got}")
@@ -328,56 +296,29 @@ def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
     return params
 
 
-_libs = {}
-
-
-def _load(name: str, limits: tuple, n_limits: int) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        from .._build import load
-
-        lib = load(name)
-        fn = getattr(lib, f"{name}_limits")
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        fn.restype = None
-        got = (ctypes.c_int * n_limits)()
-        fn(got)
-        if tuple(got) != limits:
-            raise RuntimeError(f"{name} kernel: its launch limits {tuple(got)}"
-                               f" are not core.tiling's {limits}")
-        _libs[name] = lib
-    return lib
-
-
+_lib: Optional[ctypes.CDLL] = None
 _LIMITS = (KERNEL_MAX_STRIDE, KERNEL_MAX_TAPS, KERNEL_MAX_THREADS,
-           KERNEL_MAX_SMEM)
-
-
-def library() -> ctypes.CDLL:
-    """The library of ``csrc/deconv2d.cu`` (the bf16 dense and zero-skip
-    kernels), built at first use; its launch limits are checked against
-    ``core.tiling``'s."""
-    if "deconv2d" not in _libs:
-        lib = _load("deconv2d", _LIMITS, 4)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        params = ctypes.POINTER(ctypes.c_int)
-        lib.deconv2d_forward.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
-        lib.deconv2d_sparse_forward.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
-                                                ptr, i32, i32, params, ptr]
-        for fn in (lib.deconv2d_forward, lib.deconv2d_sparse_forward):
-            fn.restype = ctypes.c_int
-        lib.deconv2d_smem_bytes.argtypes = [params]
-        lib.deconv2d_smem_bytes.restype = ctypes.c_longlong
-    return _libs["deconv2d"]
+           KERNEL_MAX_SMEM, MAX_SPLIT)
 
 
 def tc_library() -> ctypes.CDLL:
-    """The library of ``csrc/deconv2d_tc.cu`` (the fp32 dense and
+    """The library of ``csrc/deconv2d_tc.cu`` (the fp32 and bf16 dense and
     zero-skip kernels and the int8 kernel, on the tensor cores), built at
     first use; its launch limits are checked against ``core.tiling``'s and
     ``autotune``'s."""
-    if "deconv2d_tc" not in _libs:
-        lib = _load("deconv2d_tc", _LIMITS + (MAX_SPLIT,), 5)
+    global _lib
+    if _lib is None:
+        from .._build import load
+
+        lib = load("deconv2d_tc")
+        lib.deconv2d_tc_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.deconv2d_tc_limits.restype = None
+        got = (ctypes.c_int * len(_LIMITS))()
+        lib.deconv2d_tc_limits(got)
+        if tuple(got) != _LIMITS:
+            raise RuntimeError(f"deconv2d_tc kernel: its launch limits "
+                               f"{tuple(got)} are not core.tiling's and "
+                               f"autotune's {_LIMITS}")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         params = ctypes.POINTER(ctypes.c_int)
         lib.deconv2d_tc_forward.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
@@ -391,16 +332,15 @@ def tc_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.deconv2d_tc_smem_bytes.argtypes = [params]
         lib.deconv2d_tc_smem_bytes.restype = ctypes.c_longlong
-    return _libs["deconv2d_tc"]
+        _lib = lib
+    return _lib
 
 
 def build() -> dict:
-    """Build both kernel libraries now, one ``nvcc`` each, started together
-    (``chip_smoke.py`` times it), and load them.  Returns the compiler's
-    per-kernel resource report (`_build.ptxas_report`) per library."""
-    from .._build import build_all, ptxas_report
+    """Build the kernel library now (``chip_smoke.py`` times it) and load
+    it.  Returns the compiler's per-kernel resource report
+    (`_build.ptxas_report`) per library."""
+    from .._build import ptxas_report
 
-    build_all(("deconv2d", "deconv2d_tc"))
-    library()
     tc_library()
-    return {name: ptxas_report(name) for name in ("deconv2d", "deconv2d_tc")}
+    return {"deconv2d_tc": ptxas_report("deconv2d_tc")}

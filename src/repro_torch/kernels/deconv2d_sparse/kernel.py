@@ -7,9 +7,8 @@ of one tap) that hold any nonzero (`build_schedule`, the reference's
 ``(ci_idx, valid, tap_mask)`` tables).  Once per plan those tables are
 packed for the device (`pack_schedule`, `schedule_tensors`): per CO tile
 the count of listed slabs, their CI tiles in order, and each slab's tap
-bits in ``ceil(K*K/32)`` words.  The kernel (fp32:
-``deconv2d_tc_sparse_forward`` in ``csrc/deconv2d_tc.cu``; bf16:
-``deconv2d_sparse_forward`` in ``csrc/deconv2d.cu``) is the dense kernel
+bits in ``ceil(K*K/32)`` words.  The kernel (fp32 and bf16:
+``deconv2d_tc_sparse_forward`` in ``csrc/deconv2d_tc.cu``) is the dense kernel
 with its CI loop walking only the listed slabs and each tap's products
 skipped where the slab's tap bit is 0.  Skipping an all-zero slab changes
 no sum, so the result is the dense result on the pruned weights.
@@ -34,7 +33,7 @@ import torch
 
 from ...core.offsets import PhasePlan
 from ..deconv2d.kernel import (_check_shapes, aligned, check_rc,
-                               deconv2d_launch_plain, launch_params, library,
+                               deconv2d_launch_plain, launch_params,
                                tc_library)
 
 LAUNCHES = 0
@@ -161,10 +160,13 @@ def deconv2d_sparse_launch_plain(
     count: torch.Tensor, ci: torch.Tensor, bits: torch.Tensor, *,
     plan: PhasePlan, ih: int, iw: int, ohp: int, owp: int, t_oh: int,
     t_ow: int, t_ci: int, t_co: int, t_n: int, activation: Optional[str],
+    split: int = 1,
 ) -> torch.Tensor:
     """The zero-skip kernel's function in plain torch, on its launch
     arguments (the packed schedule): the dense plain version on the
-    scheduled weights."""
+    scheduled weights, its sum split over ``split`` ranges of CI chunks
+    (the kernel's cluster ranks take ranges of the listed entries: the
+    same ranges where the schedule lists every chunk)."""
     k, _, cip, cop = wp.shape
     _check_schedule(count, ci, bits, k, cop, t_co)
     _check_shapes(tuple(xp.shape), tuple(wp.shape), plan, ih, iw, ohp, owp,
@@ -173,7 +175,7 @@ def deconv2d_sparse_launch_plain(
     return deconv2d_launch_plain(
         xp, wp * keep.to(wp.dtype), bp, plan=plan, ih=ih, iw=iw, ohp=ohp,
         owp=owp, t_oh=t_oh, t_ow=t_ow, t_ci=t_ci, t_co=t_co, t_n=t_n,
-        activation=activation)
+        activation=activation, split=split)
 
 
 def deconv2d_sparse_launch(
@@ -209,10 +211,7 @@ def deconv2d_sparse_launch(
             bits.shape[2], params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if xp.dtype == torch.float32:
-            rc = tc_library().deconv2d_tc_sparse_forward(*args, stream)
-        else:
-            rc = library().deconv2d_sparse_forward(*args, stream)
+        rc = tc_library().deconv2d_tc_sparse_forward(*args, stream)
     check_rc("deconv2d zero-skip", rc)
     LAUNCHES += 1
     return y

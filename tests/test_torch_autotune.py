@@ -159,7 +159,7 @@ def test_key_changes_with_card_source_and_plan(tmp_cache, monkeypatch):
 
 @pytest.mark.parametrize("dtype,lib", [("float32", "deconv2d_tc"),
                                        ("int8", "deconv2d_tc"),
-                                       ("bfloat16", "deconv2d")])
+                                       ("bfloat16", "deconv2d_tc")])
 def test_key_carries_the_digest_of_the_library_that_runs_the_dtype(
         tmp_cache, dtype, lib):
     assert _build.source_digest(lib) in cache_key(MNIST_L1, dtype, "cuda")

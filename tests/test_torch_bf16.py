@@ -109,6 +109,9 @@ def test_bf16_engine_matches_reference(net, backend):
 
 
 def test_bf16_plans_name_the_dtype_and_tiles_come_from_the_fma_kernel(net):
+    """Plans record "bfloat16", and their tiles are the model's for the
+    bf16 tensor-core kernel (the FMA kernel this test was named for is
+    gone; the name stays so that the test's history does)."""
     _, _, tc, _, _ = net
     for b in (1, 4):
         plan = build_network_plan(tc, batch=b, backend="cuda", autotune=False)

@@ -28,6 +28,8 @@ pytestmark = pytest.mark.cuda
 
 CASES = [(7, 7, 8, 16, 4, 2, 1, 4), (1, 1, 100, 1024, 4, 1, 0, 4),
          (5, 3, 4, 7, 4, 2, 1, 6), (8, 8, 16, 8, 3, 3, 1, 9)]
+# the smallest CI chunk of each dtype's kernel (one mma k-step)
+T_CI = {torch.float32: 8, torch.bfloat16: 16}
 
 
 @pytest.fixture
@@ -45,8 +47,8 @@ def test_kernel_matches_plain_version(card, geom, dtype, rng):
     w = torch.from_numpy((rng.randn(k, k, ci, co) * 0.1).astype(np.float32))
     b = torch.from_numpy((rng.randn(co) * 0.1).astype(np.float32))
     xp, wp, bp, kw, _ = launch_args(x.to(card, dtype), w.to(card, dtype),
-                                    b.to(card, dtype), s, p, t, t, 8, 8, 2,
-                                    "tanh")
+                                    b.to(card, dtype), s, p, t, t,
+                                    T_CI[dtype], 8, 2, "tanh")
     before = deconv_kernel.LAUNCHES
     y = deconv_kernel.deconv2d_launch(xp, wp, bp, **kw)
     torch.cuda.synchronize()
@@ -154,9 +156,9 @@ def test_sparse_kernel_matches_plain_version(card, geom, dtype, rng):
     w[:, :, : ci // 2] = 0.0
     b = torch.from_numpy((rng.randn(co) * 0.1).astype(np.float32))
     xp, wp, bp, kw, _ = launch_args(x.to(card, dtype), w.to(card, dtype),
-                                    b.to(card, dtype), s, p, t, t, 8, 8, 2,
-                                    "tanh")
-    sched = schedule_tensors(make_sparse_plan(w, s, p, 8, 8), card)
+                                    b.to(card, dtype), s, p, t, t,
+                                    T_CI[dtype], 8, 2, "tanh")
+    sched = schedule_tensors(make_sparse_plan(w, s, p, T_CI[dtype], 8), card)
     before = sparse_kernel.LAUNCHES
     y = sparse_kernel.deconv2d_sparse_launch(xp, wp, bp, *sched, **kw)
     torch.cuda.synchronize()
@@ -331,7 +333,7 @@ def test_zoo_towers_serve_from_graphs_like_eager(card, tower, path, bucket):
 @pytest.mark.parametrize("net", ["mnist", "celeba"])
 def test_bf16_towers_serve_from_graphs_like_eager(card, net, backend,
                                                   bucket):
-    """bf16 chains on the FMA kernel: float32 results of bf16 values,
+    """bf16 chains on the tensor-core kernels: float32 results of bf16 values,
     replay bit-identical to eager, within 8e-2 of bf16 reverse_loop."""
     import dataclasses
 

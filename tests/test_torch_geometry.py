@@ -103,8 +103,8 @@ def test_kernel_smem_bytes_counts_padded_window_and_slab():
     windows of t_n images with a channel stride of t_ci + 4 words, plus
     the weight rows of the block's valid taps at a stride of 8 mod 16
     words; as many stages (2..4) as 100 KB holds; under a cluster split at
-    least the partial tile.  "simt": t_n Eq. 5 windows with a channel
-    stride of t_ci + 1 words, plus the K x K x t_ci x t_co weight slab."""
+    least the partial tile.  bf16 (also "tc"): the same arrays in 2-byte
+    elements, the window's channel stride t_ci + 8."""
     g = t_tiling.DeconvGeometry(8, 8, 512, 256, 4, 2, 1)
     ht = t_tiling.halo_tile(8, 4, 2, 1)
     # every 8x8 tile of the 16x16 output stages a 6x6 window and 2x2 taps
@@ -127,12 +127,15 @@ def test_kernel_smem_bytes_counts_padded_window_and_slab():
         4 * stage
     assert 4 * 4 * (64 * 12 + 8 * 136) < 4 * 64 * 128 == \
         t_tiling.kernel_smem_bytes(root, 1, 1, 8, 128, t_n=64, split=2)
-    # the FMA kernel's model (bf16)
-    assert t_tiling.kernel_smem_bytes(g, 8, 8, 16, 64, 2, "simt") == \
-        4 * (2 * ht.extent * ht.extent * 17 + 16 * 16 * 64)
-    # the window's words round up to 16 bytes: 13 * 13 * 6 = 1014 -> 1016
-    assert t_tiling.kernel_smem_bytes(root, 7, 7, 5, 64, 1, "simt") == \
-        4 * (1016 + 49 * 5 * 64)
+    # bf16 at the first tiles: rows of 24 elements, weight rows of 72, 2
+    # bytes each: two stages now fit 100 KB (fp32's two did not)
+    stage = 2 * (2 * 6 * 6 * 24 + 16 * 16 * 72)
+    assert t_tiling.kernel_smem_bytes(g, 8, 8, 16, 64, 2, "tc", 1,
+                                      "bfloat16") == 2 * stage <= 100 * 1024
+    # the bf16 root at t_n 4: one pixel and one tap per image, four stages
+    stage = 2 * (4 * 24 + 16 * 72)
+    assert t_tiling.kernel_smem_bytes(root, 1, 1, 16, 64, 4, "tc", 1,
+                                      "bfloat16") == 4 * stage
 
 
 def test_block_threads_cover_every_phase():
@@ -145,9 +148,13 @@ def test_block_threads_cover_every_phase():
     assert t_tiling.block_threads(2, 16, 16, 1, 1) == 32 * 4 * 2
     assert t_tiling.tc_warp_tile(64, 1) == (2, 1)
     assert t_tiling.launch_threads(1, 1, 1, 8, 1) == 128
-    # the FMA kernel: S=2, wide: 4 phases x ceil(16 pixels / 4) x
-    # ceil(64 channels / 8); middle: 4 x 2 register tiles; thin: one
-    # channel per thread
-    assert t_tiling.block_threads(2, 8, 8, 64, 1, "simt") == 4 * 4 * 8
-    assert t_tiling.block_threads(3, 9, 9, 8, 1, "simt") == 9 * 3 * 4
-    assert t_tiling.block_threads(2, 16, 16, 1, 1, "simt") == 4 * 16 * 1
+    # every dtype runs on the "tc" kernels (bf16 at the same warp grid);
+    # the FMA kernel ("simt") is gone
+    assert t_tiling.kernel_for("bfloat16") == "tc"
+    for fn in (t_tiling.block_threads, t_tiling.launch_threads):
+        with pytest.raises(ValueError, match="unknown kernel"):
+            fn(2, 8, 8, 64, 1, "simt")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        t_tiling.kernel_smem_bytes(
+            t_tiling.DeconvGeometry(1, 1, 100, 256, 7, 1, 0), 1, 1, 16, 64,
+            4, "simt")

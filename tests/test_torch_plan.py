@@ -97,19 +97,19 @@ def test_port_plan_json_round_trip(cfg):
 def test_hopper_tiles_fit_the_kernel(cfg):
     """Every layer at every bucket, for every kernel: S-aligned tiles, at
     most 512 threads (the kernels' launch bound, within the card's 1024)
-    and 227 KB of shared memory per block.  fp32 and int8 (the tensor-core
-    kernels): CI chunks of a multiple of 8 channels (int8: 32), channel
-    tiles of a multiple of 8 (or C_out itself below 8), and at bucket 64
-    enough blocks, cluster split included, for the card's 132 SMs.  bf16
-    (the FMA kernel): at bucket 64 enough blocks without one."""
+    and 227 KB of shared memory per block.  Every dtype on the tensor-core
+    kernels: CI chunks of a multiple of 8 channels (bf16: 16, int8: 32),
+    channel tiles of a multiple of 8 (or C_out itself below 8), and at
+    bucket 64 enough blocks, cluster split included, for the card's 132
+    SMs."""
     for g in cfg.geometries():
         for batch in BUCKETS:
             for dtype in ("float32", "int8", "bfloat16"):
                 kern = kernel_for(dtype)
                 t = hopper_tiles(g, batch, dtype)
                 blocks = grid_blocks(g, batch, t.t_oh, t.t_co, t.t_n)
-                split = (ci_split(blocks, -(-g.c_in // t.t_ci))
-                         if kern == "tc" else 1)
+                assert kern == "tc"
+                split = ci_split(blocks, -(-g.c_in // t.t_ci))
                 assert t.t_oh % g.stride == 0 and t.t_ow % g.stride == 0
                 assert kernel_smem_bytes(g, t.t_oh, t.t_ow, t.t_ci, t.t_co,
                                          t.t_n, kern, split, dtype) \
@@ -117,9 +117,9 @@ def test_hopper_tiles_fit_the_kernel(cfg):
                 assert block_threads(g.stride, t.t_oh, t.t_ow, t.t_co,
                                      t.t_n, kern) <= MAX_THREADS <= 1024
                 assert 1 <= t.t_n <= batch
-                if kern == "tc":
-                    assert t.t_ci % (32 if dtype == "int8" else 8) == 0
-                    assert t.t_co % 8 == 0 or t.t_co == g.c_out < 8
+                step = {"int8": 32, "bfloat16": 16}.get(dtype, 8)
+                assert t.t_ci % step == 0
+                assert t.t_co % 8 == 0 or t.t_co == g.c_out < 8
                 if batch == 64:
                     assert blocks * split >= SMS
 
