@@ -60,26 +60,46 @@ Phases (any failure raises and the exit code is non-zero):
     tower, images/s and run-to-run CV from the engine, and the bucket-64
     dispatch split into its host-to-device copy, replay and device-to-host
     copy (CUDA events);
- 6. refine: fp32 engines with refine=True at buckets 1 and 64 time the
+ 6. the async SLO frontend (`AsyncServeFrontend`) over CelebA at full
+    width: fp32 engines (B1) and the int8 degraded path (B2), every bucket
+    x precision captured by prime() before the worker starts; offered
+    loads 0.5, 1 and 2 x the primed fp32 capacity with gold (SLO) and std
+    tenants, a degrade drill (gold served on int8 while fp32 is predicted
+    past its SLO) and a fault drill (one transient failure: retried,
+    tainted, out of the CV; one slow call: a straggler and a heartbeat
+    fire), all under torch.profiler and the port's span tracer: every
+    request resolved typed, traced B1 fp32 and B2 launches == layers x
+    dispatches per precision and none of another kernel, one graph per
+    bucket x precision, fp32 images within 1e-4 of the fp32 engine's
+    generate of the same rows, int8 images bit-equal to the int8
+    engine's; printed: per load and tenant p50/p99/CV, shed, downgraded,
+    requeued, the queue-wait / dispatch split, Table II of the engines,
+    the drill's counters and the trace's span counts (the Chrome trace
+    exported to a temporary file);
+ 7. refine: fp32 engines with refine=True at buckets 1 and 64 time the
     model's pick and the next candidates per layer (tile cache in a fresh
     temporary file); per layer both picks and times, and the refined
     engine's images against reverse_loop;
- 7. the kernels line; 8. the result line.
+ 8. the kernels line (launches summed over the serving paths and the
+    frontend run); 9. the result line.
 
 Imports nothing of JAX: only torch, numpy and the port (src/repro_torch).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
 import os
+import queue
 import re
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -106,7 +126,13 @@ from repro_torch.models.dcnn import (CELEBA_DCNN, MNIST_DCNN,  # noqa: E402
 from repro_torch.quant import (calibrate, quantize_params,  # noqa: E402
                                quantize_symmetric, quantized_generator_apply,
                                quantized_generator_ref)
-from repro_torch.serve import DcnnServeEngine, EngineConfig  # noqa: E402
+from repro_torch.dist import (FaultInjector, SlowCall,  # noqa: E402
+                              TransientFailure)
+from repro_torch.obs import trace as obstrace  # noqa: E402
+from repro_torch.obs.report import render_table2, table2_rows  # noqa: E402
+from repro_torch.serve import (AdmissionRejected,  # noqa: E402
+                               AsyncServeFrontend, DcnnServeEngine,
+                               EngineConfig, EngineDegraded, TenantClass)
 from repro_torch.workloads import (DAE_DENOISE, SR_X2,  # noqa: E402
                                    calibration_input, workload_for)
 
@@ -193,6 +219,15 @@ PATHS = {
 }
 SPLIT_RUNS = 30
 REFINE_BUCKETS = (1, 64)
+# the async frontend phase: CelebA at full width, offered loads as the JAX
+# package's serving bench sweeps them (benchmarks/bench_deconv.py slo_rows)
+FRONTEND_LOADS = (0.5, 1.0, 2.0)
+FRONTEND_REQUESTS = 600        # per load; rows per request 1..64
+FRONTEND_QUEUE_ROWS = 256      # the frontend's default bound
+FRONTEND_WAIT_S = 60           # a request unresolved after this is a hang
+HEARTBEAT_S = 0.05             # below SLOW_CALL_S
+SLOW_CALL_S = 0.25             # well past 3x a bucket-64 dispatch's EMA
+DEGRADE_REQUESTS = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -442,6 +477,33 @@ def phase_kernel_checks(int8_nets):
     return dense, int8, sparse
 
 
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over CPU and CUDA activity, entered after a throwaway
+    session and fenced at each end.  On the H100 the first session after
+    a stretch of unprofiled work can lose device events at its edges,
+    more often the older the process, and a session that follows a
+    throwaway one does not (`tools/probe_profiler.py` measures both); a
+    little device work and a pause after the session starts and before it
+    stops keep the caller's work off its edges.  The caller zeroes its
+    counts inside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def fence(pause_s):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
+
+    with profile(activities=activities):
+        fence(0.0)
+    with profile(activities=activities) as prof:
+        fence(0.02)
+        yield prof
+        fence(0.05)
+
+
 def drive(engines, requests):
     """The main path of one kind of engine, per net under torch.profiler
     with every count at 0 just before (the engines' ``launch_counts`` and
@@ -449,13 +511,10 @@ def drive(engines, requests):
     collected, the counts read just after.  Returns (outputs, per net: the
     device launches of each kernel in the trace, the engine's
     ``launch_counts`` and the wrappers' counts)."""
-    from torch.profiler import ProfilerActivity, profile
-
     outputs, per_net = {}, {}
     for name, eng in engines.items():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             for _, mod, _ in KERNELS:
                 mod.LAUNCHES = 0
             eng.launch_counts.clear()
@@ -1059,6 +1118,457 @@ def phase_refine(smi):
               f"images within {SERVE_TOL} of reverse_loop", flush=True)
 
 
+def take(fe, z, req, rid):
+    """A served request's record ``(z, precision, downgraded, rid,
+    images)``: its images in a copy of their own, and no reference to the
+    request kept (it holds the pinned result), so the pinned memory goes
+    back to the engine's budget at once.  A request unresolved after
+    FRONTEND_WAIT_S raises `DeadlineExceeded` (a hang)."""
+    img = fe.result(rid, timeout_s=FRONTEND_WAIT_S).copy()
+    return z, req.precision, req.downgraded, rid, img
+
+
+def collector(fe, tickets, served, late, errors):
+    """A client's collecting thread: each admitted request's record
+    (`take`), or its rid in ``late`` when the scheduler shed it before
+    dispatch because it could no longer meet its deadline (stage
+    ``late``).  Anything else goes into ``errors``: a hang
+    (`DeadlineExceeded`), a failed dispatch (`EngineDegraded`, or a shed
+    after a requeue) or any other error.  No fault is injected during the
+    sweep, so each of them fails the phase."""
+    while True:
+        item = tickets.get()
+        if item is None:
+            return
+        z, req, rid = item
+        try:
+            served.append(take(fe, z, req, rid))
+        except AdmissionRejected as e:
+            if e.stage == "late":
+                late.append(rid)
+            else:
+                errors.append(f"request {rid}: {e!r} (stage {e.stage})")
+        except BaseException as e:
+            errors.append(f"request {rid}: {e!r}")
+
+
+def check_resolved(fe, load, admitted, served, late):
+    """Every admitted request of a load ended served or shed late: the
+    frontend's worker hit no error, nothing was requeued or shed after a
+    failed dispatch, and its per-tenant counts match what the client
+    collected."""
+    st = fe.stats()["tenants"]
+    tot = {k: sum(t[k] for t in st.values())
+           for k in ("admitted", "completed", "shed_late", "requeued",
+                     "shed_requeue")}
+    if (fe._worker_errors or tot["requeued"] or tot["shed_requeue"]
+            or tot["admitted"] != admitted
+            or len(served) + len(late) != admitted
+            or tot["completed"] != len(served)
+            or tot["shed_late"] != len(late)):
+        raise AssertionError(
+            f"load {load}: {admitted} admitted, {len(served)} served, "
+            f"{len(late)} shed late; frontend counts {tot}; worker errors "
+            f"{fe._worker_errors[:3]}")
+
+
+def frontend_traffic(fe, cfg, loads, rng, smi, tracer):
+    """The offered-load sweep: per load ``FRONTEND_REQUESTS`` requests of
+    1..64 rows, paced on an absolute schedule at ``load`` x the primed
+    fp32 capacity (rows/s of a bucket-64 dispatch), alternating gold
+    (priority 0, SLO max(50 ms, 20 x the bucket-64 service)) and std (no
+    deadline), collected by a `collector` thread as they resolve.  Every
+    admitted request resolves within FRONTEND_WAIT_S, to images or a shed
+    before dispatch (`check_resolved`); any other outcome fails the
+    phase.  Each load runs inside a profiler range ``frontend_load
+    {load}``.  Returns (per load: its stats row, the served requests' records
+    (`take`), the tracer's events of the load)."""
+    service_s = fe._model.estimate("fp32", 64)
+    cap_rows = 64 / service_s
+    slo_ms = max(50.0, 20.0 * service_s * 1e3)
+    out = []
+    for load in loads:
+        fe.reset_stats()
+        n0 = len(tracer)
+        sizes = rng.integers(1, 65, size=FRONTEND_REQUESTS)
+        interval = sizes.mean() / (load * cap_rows)
+        tickets, served, late, errors = queue.Queue(), [], [], []
+        coll = threading.Thread(target=collector,
+                                args=(fe, tickets, served, late, errors))
+        coll.start()
+        admitted, rejected = 0, {"gold": 0, "std": 0}
+        # marks the load on the profiler's clock (`load_split`)
+        with torch.profiler.record_function(f"frontend_load {load}"):
+            t0 = time.perf_counter()
+            for i, n in enumerate(sizes):
+                target = t0 + i * interval
+                while time.perf_counter() < target:
+                    time.sleep(max(0.0, min(target - time.perf_counter(),
+                                            0.001)))
+                z = tower_inputs(cfg, int(n), rng)
+                tenant = "gold" if i % 2 == 0 else "std"
+                try:
+                    rid = fe.submit(z, tenant, slo_ms=(
+                        slo_ms if tenant == "gold" else None))
+                except AdmissionRejected:
+                    rejected[tenant] += 1
+                    continue
+                admitted += 1
+                tickets.put((z, fe._requests[rid], rid))
+            tickets.put(None)
+            coll.join(timeout=FRONTEND_WAIT_S * (admitted + 1))
+            wall = time.perf_counter() - t0
+        if coll.is_alive() or errors:
+            raise AssertionError(f"load {load}: requests unresolved or "
+                                 f"failed {errors[:5]}")
+        check_resolved(fe, load, admitted, served, late)
+        st = fe.stats()
+        row = {"load": load, "wall_s": wall,
+               "offered_rows_per_s": load * cap_rows,
+               "capacity_rows_per_s": cap_rows,
+               "service_b64_ms": service_s * 1e3, "gold_slo_ms": slo_ms,
+               "requests": len(sizes), "admitted": admitted,
+               "rejected_at_submit": rejected,
+               "served_rows_per_s": sum(len(r[0]) for r in served) / wall,
+               "tenants": st["tenants"], "card": smi}
+        out.append((row, served, tracer.events()[n0:]))
+    return out
+
+
+def span_stats(events):
+    """Median durations (ms) of the spans that split a request's time on
+    the host clock: its queue wait, the frontend's wave dispatch, the
+    engine's generate and its bucket dispatches (per precision, and at
+    bucket 64), and collecting the result."""
+    by = {}
+    for e in events:
+        if e["ph"] != "X":
+            continue
+        names = [e["name"]]
+        if e["name"].startswith("dispatch b"):
+            names = [f"dispatch_{e['args']['precision']}"]
+            if e["args"]["bucket"] == 64:
+                names.append(names[0] + "_b64")
+        for name in names:
+            by.setdefault(name, []).append(e["dur"] / 1e3)
+    return {f"{k}_p50_ms": statistics.median(v) for k, v in sorted(by.items())
+            if k in ("queue_wait", "wave_dispatch", "generate", "collect")
+            or k.startswith("dispatch_")}
+
+
+def device_split(events, wall_s):
+    """From a trace's device events: per precision the median device span
+    of one dispatch (its host-to-device copy's start to its device-to-host
+    copy's end, the replay between) and the device's busy share of the
+    traced run's wall clock ``wall_s`` (the union of its events)."""
+    dev = device_events(events)
+    spans, group = {}, None
+    for e in dev:
+        if "HtoD" in e.name:
+            group = [e]
+        elif group is not None:
+            group.append(e)
+            if "DtoH" in e.name:
+                kinds = {kernel_of(x.name) for x in group} - {None}
+                if len(kinds) == 1:
+                    (k,) = kinds
+                    spans.setdefault(k[1], []).append(
+                        (e.time_range.end - group[0].time_range.start) / 1e3)
+                group = None
+    return {**{f"replay_device_{k}_p50_ms": statistics.median(v)
+               for k, v in sorted(spans.items())},
+            "device_busy_share": busy_us(dev) / 1e6 / wall_s}
+
+
+def device_events(trace):
+    """A trace's device activity (kernels, copies, memsets) in start
+    order, without the device-side copies of the ``frontend_load``
+    ranges."""
+    return sorted((e for e in trace
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("frontend_load")),
+                  key=lambda e: e.time_range.start)
+
+
+def busy_us(dev, lo=None, hi=None):
+    """The union (us) of device events' time ranges, clipped to
+    [lo, hi] on the profiler's clock."""
+    busy, end = 0.0, None
+    for e in dev:
+        a, b = e.time_range.start, e.time_range.end
+        if lo is not None:
+            a, b = max(a, lo), min(b, hi)
+            if b <= a:
+                continue
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def load_split(trace, row, spans):
+    """One load's split of the worker's time: waves dispatched and how
+    full they were (rows per wave; the share of the dispatched bucket
+    rows that were padding), the worker's busy share (its wave dispatches
+    over the load's wall clock, host clock) and the device's busy share
+    inside the load's profiler range ``frontend_load {load}``."""
+    marks = [e for e in trace if e.name == f"frontend_load {row['load']}"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    if len(marks) != 1:
+        raise AssertionError(f"load {row['load']}: {len(marks)} profiler "
+                             "ranges for the load")
+    lo, hi = marks[0].time_range.start, marks[0].time_range.end
+    dev = device_events(trace)
+    waves = [e for e in spans if e["ph"] == "X"
+             and e["name"] == "wave_dispatch"]
+    buckets = [e["args"]["bucket"] for e in spans if e["ph"] == "X"
+               and e["name"].startswith("dispatch b")]
+    rows = sum(e["args"]["rows"] for e in waves)
+    return {"waves": len(waves),
+            "rows_per_wave_mean": rows / max(1, len(waves)),
+            "padding_share": 1.0 - rows / max(1, sum(buckets)),
+            "worker_busy_share": sum(e["dur"] for e in waves) / 1e6
+            / row["wall_s"],
+            "device_busy_share": busy_us(dev, lo, hi) / (hi - lo)}
+
+
+def degrade_drill(fe, cfg, rng, slo_ms):
+    """Gold requests while fp32 is predicted past the gold SLO (its
+    estimates pinned at 1 s, as the JAX package's frontend tests pin
+    decisions with `ServiceModel.override`): the scheduler serves each on
+    the int8 engine, tagged downgraded.  One request at a time, so no
+    backlog stands against the SLO.  The primed estimates are put back
+    after.  Returns the served requests."""
+    saved = {b: fe._model.estimate("fp32", b) for b in fe._buckets}
+    for b in fe._buckets:
+        fe._model.override("fp32", b, 1.0)
+    try:
+        served = []
+        for _ in range(DEGRADE_REQUESTS):
+            z = tower_inputs(cfg, int(rng.integers(1, 65)), rng)
+            rid = fe.submit(z, "gold", slo_ms=slo_ms)
+            served.append(take(fe, z, fe._requests[rid], rid))
+    finally:
+        for b, v in saved.items():
+            fe._model.override("fp32", b, v)
+    if not all(down and prec == "int8" for _, prec, down, _, _ in served):
+        raise AssertionError("degrade drill: gold requests not downgraded "
+                             f"to int8: {[r[1] for r in served]}")
+    return served
+
+
+def fault_drill(fe, inj, cfg, rng):
+    """One TransientFailure, then one SlowCall, on the fp32 engine, each on
+    a 64-row request alone in its wave (one bucket-64 dispatch): the first
+    retries (a tainted dispatch, out of the CV), the second outlasts the
+    heartbeat and 3x the bucket's EMA.  The counters are checked by what
+    each fault alone moved, and the straggler monitor must have flagged
+    the SlowCall's own dispatch.  Returns (the served requests, what
+    moved)."""
+    eng = fe._engines["fp32"]
+    keys = ("retries", "transient_failures", "stragglers", "heartbeat_fires")
+    captures = {p: dict(e.capture_counts) for p, e in fe._engines.items()}
+    before = dict(eng.throughput()[64])
+    served, moved = [], {}
+    for make in (TransientFailure,
+                 functools.partial(SlowCall, delay_s=SLOW_CALL_S)):
+        fs0 = {k: eng.fault_stats[k] for k in keys}
+        step = eng._dispatches + 1               # the fault's dispatch
+        inj.schedule(make(at_call=inj.calls))    # the next fp32 dispatch
+        z = tower_inputs(cfg, 64, rng)
+        rid = fe.submit(z, "std")
+        served.append(take(fe, z, fe._requests[rid], rid))
+        name = type(inj.log[-1][1]).__name__
+        moved[name] = {k: eng.fault_stats[k] - fs0[k] for k in keys}
+        moved[name]["dispatch"] = step
+    after = eng.throughput()[64]
+    flagged = eng._stragglers[64].flagged
+    moved.update(tainted_calls_b64=after["tainted_calls"],
+                 healthy_calls_b64=[before["calls"], after["calls"]],
+                 flagged_b64=flagged[-3:],
+                 injected=[(i, type(f).__name__) for i, f in inj.log])
+    tf, sc = moved.get("TransientFailure"), moved.get("SlowCall")
+    if (tf is None or sc is None
+            or tf["retries"] != 1 or tf["transient_failures"] != 1
+            or sc["stragglers"] < 1 or sc["heartbeat_fires"] < 1
+            or sc["dispatch"] not in flagged):
+        raise AssertionError(f"fault drill: counters {moved}")
+    # the retried dispatch is tainted, the slow one a healthy sample
+    if (after["tainted_calls"] != before["tainted_calls"] + 1
+            or after["calls"] != before["calls"] + 1):
+        raise AssertionError(f"fault drill: bucket-64 samples {before} -> "
+                             f"{after}")
+    if captures != {p: dict(e.capture_counts)
+                    for p, e in fe._engines.items()}:
+        raise AssertionError("fault drill: the retry built an executable")
+    return served, moved
+
+
+def phase_frontend(smi):
+    """CelebA at full width through `AsyncServeFrontend`: fp32 engines on
+    B1 and the int8 degraded path on B2, every bucket x precision captured
+    by ``prime`` before the worker starts.  Under torch.profiler and the
+    port's span tracer, with every count at 0 just before: the
+    offered-load sweep, the degrade drill and the fault drill.
+    Checks: every request resolved typed; at 2x load some gold requests
+    downgraded or shed; traced launches of B1 fp32 and B2 = layers x
+    dispatches per precision and none of another kernel; one executable
+    per bucket x precision; then fp32 images within SERVE_TOL of the fp32
+    engine's generate of the same rows and int8 images equal to the int8
+    engine's bit for bit.  Returns the traced launches per kernel."""
+    cfg = CELEBA_DCNN
+    params = generator_init(torch.Generator().manual_seed(0), cfg, "cuda")
+    inj = FaultInjector()
+    t0 = time.perf_counter()
+    fe = AsyncServeFrontend.from_config(
+        EngineConfig(model="celeba", backend="cuda", max_batch=64,
+                     heartbeat_timeout_s=HEARTBEAT_S),
+        params, [TenantClass("gold", priority=0),
+                 TenantClass("std", priority=1)],
+        precisions=("fp32", "int8"), prime=2, fault_injector=inj,
+        max_queue_rows=FRONTEND_QUEUE_ROWS)
+    try:
+        built_s = time.perf_counter() - t0
+        engines = fe._engines
+        for p, eng in engines.items():
+            if eng.capture_counts != {b: 1 for b in eng.buckets}:
+                raise AssertionError(f"prime: {p} capture_counts "
+                                     f"{eng.capture_counts}")
+        print(f"  frontend built and primed in {built_s:.1f} s: buckets "
+              f"{list(fe._buckets)} x {list(engines)}, one graph each "
+              f"[{smi}]", flush=True)
+        rng = np.random.default_rng(8)
+        tracer = obstrace.enable(clear=True)
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            for _, mod, _ in KERNELS:
+                mod.LAUNCHES = 0
+            for eng in engines.values():
+                eng.launch_counts.clear()
+            d0 = {p: eng._dispatches for p, eng in engines.items()}
+            t_run = time.perf_counter()
+            loads = frontend_traffic(fe, cfg, FRONTEND_LOADS, rng, smi,
+                                     tracer)
+            slo_ms = loads[0][0]["gold_slo_ms"]
+            degraded = degrade_drill(fe, cfg, rng, slo_ms)
+            faulted, moved = fault_drill(fe, inj, cfg, rng)
+            fe.drain(timeout_s=FRONTEND_WAIT_S)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t_run
+            if fe._worker_errors:
+                raise AssertionError(f"frontend worker errors "
+                                     f"{fe._worker_errors[:3]}")
+            dispatches = {p: eng._dispatches - d0[p]
+                          for p, eng in engines.items()}
+            counted = {p: sum(eng.launch_counts.values())
+                       for p, eng in engines.items()}
+            wrappers = {k: mod.LAUNCHES for k, mod, _ in KERNELS}
+        obstrace.disable()
+        trace = prof.events()
+        device = [e.name for e in trace
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced = {k: sum(kernel_of(n) == k for n in device)
+                  for k in TRACE_NAMES}
+        layers = len(cfg.layers)
+        want = {("deconv2d_kernel", "fp32"): layers * dispatches["fp32"],
+                ("deconv2d_int8_kernel", "int8"): layers * dispatches["int8"]}
+        print(f"  frontend run: dispatches {dispatches} x {layers} layers; "
+              f"traced device launches "
+              f"{ {'/'.join(k): v for k, v in traced.items()} }, engine "
+              f"launch_counts {counted}, wrapper launches {wrappers} "
+              f"[{smi}]", flush=True)
+        if (any(traced[k] != v for k, v in want.items())
+                or any(v for k, v in traced.items() if k not in want)
+                or counted != {p: layers * n for p, n in dispatches.items()}
+                or any(wrappers.values()) or not dispatches["int8"]):
+            raise AssertionError(f"frontend: traced {traced}, expected "
+                                 f"{want} and none of the others; engine "
+                                 f"{counted}; wrappers {wrappers}")
+        for p, eng in engines.items():
+            if eng.capture_counts != {b: 1 for b in eng.buckets}:
+                raise AssertionError(f"frontend: {p} capture_counts "
+                                     f"{eng.capture_counts}")
+
+        for row, _, spans in loads:
+            row.update(span_stats(spans))
+            row.update(load_split(trace, row, spans))
+            print(json.dumps({"frontend_load": row}), flush=True)
+        high = loads[-1][0]
+        gold = high["tenants"]["gold"]
+        if gold["downgraded"] + gold["shed"] == 0:
+            raise AssertionError(f"load {high['load']}: no gold request "
+                                 "downgraded or shed")
+        qwait = fe.metrics.histogram("frontend.queue_wait_seconds")
+        disp = fe.metrics.histogram("engine.dispatch_seconds")
+        split = {"queue_wait_mean_ms": qwait.merged_summary()["mean"] * 1e3,
+                 "dispatch_fp32_mean_ms": disp.merged_summary(
+                     precision="fp32")["mean"] * 1e3,
+                 "dispatch_int8_mean_ms": disp.merged_summary(
+                     precision="int8")["mean"] * 1e3,
+                 **span_stats(tracer.events()),
+                 **device_split(trace, t_run), "run_s": t_run,
+                 "note": "p50s over the whole run's spans (host clock) and "
+                         "its trace (device); means from the registry "
+                         "(queue wait: last load and the drills)",
+                 "card": smi}
+        print(json.dumps({"frontend_host_engine_split": split}), flush=True)
+        rows = table2_rows(fe.metrics)
+        t64 = [r for r in rows if r["precision"] == "fp32"
+               and r["bucket"] == 64]
+        if not t64 or t64[0]["tainted_calls"] < 1:
+            raise AssertionError(f"table2: no tainted bucket-64 fp32 row "
+                                 f"{t64}")
+        print(f"  Table II of the frontend's engines ({smi}):", flush=True)
+        for line in render_table2(rows).splitlines():
+            print(f"  {line}  [{smi}]", flush=True)
+        print(json.dumps({"frontend_fault_drill": moved, "card": smi}),
+              flush=True)
+        names = {}
+        for e in tracer.events():
+            key = e["name"].split(" b")[0] if e["name"].startswith(
+                ("dispatch b", "plan_build b")) else e["name"]
+            names[key] = names.get(key, 0) + 1
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "frontend_trace.json")
+            n_events = tracer.export(path)
+            size = os.path.getsize(path)
+        print(json.dumps({"frontend_spans": names, "events": n_events,
+                          "chrome_trace_bytes": size, "card": smi}),
+              flush=True)
+
+        served = [s for _, sv, _ in loads for s in sv] + degraded + faulted
+        worst = {"fp32": 0.0, "int8": 0.0}
+        counts = {"fp32": 0, "int8": 0}
+        for z, prec, down, rid, img in served:
+            want_img = engines[prec].generate(z)
+            if img.shape != want_img.shape or not np.isfinite(img).all():
+                raise AssertionError(f"frontend: bad images {img.shape}")
+            err = float(np.abs(img - want_img).max())
+            worst[prec] = max(worst[prec], err)
+            counts[prec] += 1
+            if prec == "int8" and (not down
+                                   or not np.array_equal(img, want_img)):
+                raise AssertionError(f"frontend int8 request {rid}: {err} "
+                                     "from the int8 engine")
+            if prec == "fp32" and err > SERVE_TOL:
+                raise AssertionError(f"frontend fp32 request {rid}: {err} "
+                                     "from the fp32 engine")
+        print(f"  frontend images: {counts} requests served; largest error "
+              f"vs each engine's own generate {worst} (fp32 tol "
+              f"{SERVE_TOL}, int8 bit-equal) [{smi}]", flush=True)
+        return {("deconv2d_kernel", "fp32"): traced[("deconv2d_kernel",
+                                                     "fp32")],
+                ("deconv2d_int8_kernel", "int8"): traced[
+                    ("deconv2d_int8_kernel", "int8")]}
+    finally:
+        obstrace.disable()
+        fe.close(timeout_s=FRONTEND_WAIT_S)
+
+
 def main() -> int:
     smi, name, peaks = device_info()
     # no run reads another's tile timings
@@ -1102,7 +1612,11 @@ def run(smi, name, peaks) -> int:
     rows = phase_times(smi, peaks, int8_nets, report)
     phase_end_to_end(engines, smi)
 
-    print(f"[6] refine (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"[6] async frontend (at {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    launches["frontend"] = phase_frontend(smi)
+
+    print(f"[7] refine (at {time.perf_counter() - t0:.1f} s)", flush=True)
     phase_refine(smi)
 
     print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,

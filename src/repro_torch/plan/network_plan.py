@@ -274,3 +274,20 @@ def build_network_plan(
                        batch=batch, layers=layers,
                        quant_strategy=quant_cfg.strategy if int8 else None,
                        workload=workload_name_for(cfg))
+
+
+def variant_fingerprints(plans) -> Dict[str, str]:
+    """{"b{batch}/{precision}" -> stable hash} over plans that span
+    precision variants (the async frontend pins one plan per bucket x
+    precision).  Two plans for the same (batch, precision) must agree on
+    the hash; a deployment compares these dicts across hosts to show the
+    same executables everywhere.  The JAX package's function, copied."""
+    out: Dict[str, str] = {}
+    for p in plans:
+        key = f"b{p.batch}/{p.precision}"
+        h = p.stable_hash()
+        prev = out.setdefault(key, h)
+        if prev != h:
+            raise ValueError(
+                f"two plans for {key} disagree: {prev} vs {h}")
+    return out

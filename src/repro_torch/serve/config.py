@@ -37,8 +37,25 @@ class EngineConfig:
                       fastest stored (True).  A pinned plan keeps its
                       tiles.
     * ``call_overhead_rows`` — chunk-planning cost of one extra dispatch.
-    * ``default_deadline_s`` — queue deadline applied to `submit` when the
-                      caller gives none (`DeadlineExceeded` when missed).
+
+    Fault-tolerance knobs (`serve.errors` / `dist.fault` semantics):
+
+    * ``max_retries``/``retry_backoff_s`` — bounded retry with
+      exponential backoff for transient bucket-call failures; exhausted
+      retries raise `EngineDegraded` instead of looping.  A retry replays
+      the bucket's executable again (no new capture), and its backoff
+      holds neither the engine's dispatch lock nor `CAPTURE_GATE`.
+    * ``heartbeat_timeout_s`` — when set, a `dist.fault.Heartbeat` is
+      armed around every dispatched call: a call silent longer than this
+      is recorded as a stall in ``fault_stats`` (None: no watcher
+      thread).
+    * ``straggler_factor``/``straggler_warmup`` — per-bucket
+      `StragglerMonitor` over the steady-state per-call wall clock (the
+      same samples `throughput()` reports); flagged calls count into
+      ``fault_stats["stragglers"]``.
+    * ``default_deadline_s`` — queue deadline applied to `submit` when
+      the caller gives none; an expired ticket fails typed
+      (`DeadlineExceeded`) instead of executing stale work.
     * ``device``    — where the engine runs: "cuda" unless the caller asks
                       for "cpu".  A missing card raises; the engine never
                       carries on quietly on the CPU.
@@ -55,6 +72,11 @@ class EngineConfig:
     buckets: Optional[Tuple[int, ...]] = None
     warmup: bool = False
     call_overhead_rows: int = 8
+    max_retries: int = 2
+    retry_backoff_s: float = 0.05
+    heartbeat_timeout_s: Optional[float] = None
+    straggler_factor: float = 3.0
+    straggler_warmup: int = 3
     default_deadline_s: Optional[float] = None
     device: str = "cuda"
     refine: bool = False

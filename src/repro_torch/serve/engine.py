@@ -39,6 +39,20 @@ sums them; the counterparts of ``trace_counts`` and ``total_compiles``);
 ``launch_counts`` maps bucket -> launches of the kernel of the engine's
 path made by that bucket's dispatches, so a run can show that serving went
 through it.
+
+Faults and observability follow the JAX package's engine.  Every dispatch
+is guarded: an optional `dist.inject.FaultInjector` hook inside the timed
+window, a `dist.fault.Heartbeat` armed around each attempt (its callback
+only counts), bounded retry with backoff on `TransientCallError` (a retry
+replays the same executable; the backoff sleeps outside the dispatch lock
+and `CAPTURE_GATE`), exhausted retries and device loss raised as
+`EngineDegraded` (one device: nothing to remesh onto), and a per-bucket
+`StragglerMonitor` over the healthy steady samples.  A retried dispatch
+is *tainted*: counted beside, never inside, the Table II mean/std/CV.  The
+engine dual-writes an `obs.MetricsRegistry` (``engine.*`` series labelled
+``net``, ``workload``, ``precision`` and ``bucket``) and records spans
+into the process tracer (`obs.trace`; no-ops unless enabled).  A
+dispatch span ends when the stream has synchronised on the images.
 """
 from __future__ import annotations
 
@@ -52,13 +66,18 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ..dist.fault import Heartbeat, StragglerMonitor
+from ..dist.inject import DeviceLossError, TransientCallError
 from ..kernels.deconv2d import int8 as int8_kernel
 from ..kernels.deconv2d import kernel as deconv_kernel
 from ..kernels.deconv2d_sparse import kernel as sparse_kernel
 from ..models.dcnn import generator_apply
+from ..obs import clock as obsclock
+from ..obs import metrics as obsmetrics
+from ..obs import trace as obstrace
 from ..workloads import resolve_model, workload_name_for
 from .config import EngineConfig
-from .errors import AdmissionRejected, DeadlineExceeded
+from .errors import AdmissionRejected, DeadlineExceeded, EngineDegraded
 
 
 class _CaptureGate:
@@ -251,30 +270,39 @@ class DcnnServeEngine:
     * **Timing** — ``throughput()`` reports per-bucket images/s and the
       run-to-run mean/std/CV of the per-dispatch wall clock, from padding
       the rows to the bucket to the images back on the host, started after
-      a ``torch.cuda.synchronize()``.
+      a ``torch.cuda.synchronize()``; retried dispatches are tainted and
+      kept out of those samples.
+    * **Faults** — ``fault_stats`` counts retries, transient failures,
+      stragglers, heartbeat fires, expired deadlines and sheds (the JAX
+      package's keys; ``remesh_events`` stays empty on one device).
     """
 
     @classmethod
-    def from_config(cls, cfg: EngineConfig, params,
-                    plan=None) -> "DcnnServeEngine":
+    def from_config(cls, cfg: EngineConfig, params, plan=None,
+                    fault_injector=None, metrics=None) -> "DcnnServeEngine":
         """``params`` is a ``{"l{i}": {"w", "b"}}`` tree of float tensors
         (moved to the engine's device and cast to the tower's dtype; pruned
         for "cuda_sparse"); ``plan`` an optional pinned `NetworkPlan` (for
         example a JAX-pinned document after `for_hopper`) for the bucket
         whose batch matches ``plan.batch``.  An int8 plan also supplies the
         calibration when ``cfg.quant_cfg`` is None, so a pinned deployment
-        never re-calibrates."""
+        never re-calibrates.  ``fault_injector`` is an optional
+        `dist.inject.FaultInjector` hooked before every bucket dispatch
+        (fault drills); ``metrics`` an optional shared
+        `obs.MetricsRegistry` (the async frontend passes one to every
+        engine), else the engine makes its own."""
         self = cls.__new__(cls)
         # the device work of construction (params moved, calibrated,
         # quantized) stays out of other engines' captures
         with CAPTURE_GATE.shared():
-            self._setup(cfg, params, plan)
+            self._setup(cfg, params, plan, fault_injector, metrics)
         if cfg.warmup:
             for b in self.buckets:
                 self._warmup_bucket(b)
         return self
 
-    def _setup(self, config: EngineConfig, params, plan) -> None:
+    def _setup(self, config: EngineConfig, params, plan,
+               fault_injector=None, metrics=None) -> None:
         self.config = config
         self.device = config.torch_device()
         self.cfg = resolve_model(config.model)
@@ -370,9 +398,52 @@ class DcnnServeEngine:
         self._results: Dict[int, np.ndarray] = {}
         self._failures: Dict[int, Exception] = {}
         self._next_id = 0
-        self.stats = {"generate_calls": 0, "images": 0, "padded_images": 0}
-        self.fault_stats = {"deadline_expired": 0, "shed": 0}
+        self.n_devices = 1
+        self.stats = {"generate_calls": 0, "images": 0, "padded_images": 0,
+                      "device_count": self.n_devices}
         self.bucket_stats: Dict[int, Dict[str, float]] = {}
+        # the registry's series are written at the same sites as the dicts
+        # above (one registry may hold a whole multi-engine deployment)
+        self.metrics = (metrics if metrics is not None
+                        else obsmetrics.MetricsRegistry())
+        self._tracer = obstrace.get_tracer()
+        self._mlabels = {"net": self.cfg.name, "workload": self.workload,
+                         "precision": self.precision}
+        self._m_dispatch = self.metrics.histogram(
+            "engine.dispatch_seconds",
+            "healthy steady-state dispatch wall clock (Table II samples)")
+        self._m_plan_build = self.metrics.histogram(
+            "engine.plan_build_seconds", "NetworkPlan build wall clock")
+        self._m_tainted = self.metrics.counter(
+            "engine.tainted_calls",
+            "steady dispatches excluded from Table II (transient retries)")
+        self._m_fault = self.metrics.counter(
+            "engine.fault_events", "fault-path events by kind (label: event)")
+        self._m_generate_calls = self.metrics.counter(
+            "engine.generate_calls", "generate() invocations")
+        self._m_images = self.metrics.counter(
+            "engine.images", "useful (unpadded) images generated")
+        self._m_padded = self.metrics.counter(
+            "engine.padded_images", "padded rows burned on bucket alignment")
+        self._m_devices = self.metrics.gauge(
+            "engine.device_count", "devices serving this engine")
+        self._m_devices.set(self.n_devices, **self._mlabels)
+        # fault machinery: injector hook, per-bucket straggler monitors over
+        # the healthy steady samples, an optional stall heartbeat (armed
+        # per dispatch attempt only), and the counters the bench reports
+        self.fault_injector = fault_injector
+        self._stragglers: Dict[int, StragglerMonitor] = {}
+        self._dispatches = 0
+        self.fault_stats = {
+            "retries": 0, "transient_failures": 0, "stragglers": 0,
+            "heartbeat_fires": 0, "deadline_expired": 0, "shed": 0,
+            "remesh_events": [],
+        }
+        self._heartbeat = None
+        if config.heartbeat_timeout_s is not None:
+            self._heartbeat = Heartbeat(config.heartbeat_timeout_s,
+                                        self._on_stall)
+            self._heartbeat.disarm()
 
     # -- per-bucket plans -----------------------------------------------
     def _plan_for(self, bucket: int):
@@ -380,7 +451,7 @@ class DcnnServeEngine:
         if bucket not in self.plans:
             from ..plan import build_network_plan
 
-            t0 = time.perf_counter()
+            t0 = obsclock.now()
             self.plans[bucket] = build_network_plan(
                 self.cfg, batch=bucket, backend=self.backend,
                 precision=self.precision, quant_cfg=self.quant_cfg,
@@ -388,8 +459,13 @@ class DcnnServeEngine:
                         else None),
                 sparse_table_cache=self._sparse_tables,
                 refine=self.config.refine)
+            dt = obsclock.now() - t0
             self.plan_stats["builds"] += 1
-            self.plan_stats["build_seconds"] += time.perf_counter() - t0
+            self.plan_stats["build_seconds"] += dt
+            self._m_plan_build.observe(dt, bucket=bucket, **self._mlabels)
+            self._tracer.complete(f"plan_build b{bucket}", t0, t0 + dt,
+                                  cat="engine", bucket=bucket,
+                                  **self._mlabels)
         return self.plans[bucket]
 
     def _apply(self, bucket: int, plan, z: torch.Tensor) -> torch.Tensor:
@@ -502,36 +578,119 @@ class DcnnServeEngine:
         return sum(self.capture_counts.values())
 
     def _warmup_bucket(self, bucket: int) -> None:
+        """Build the bucket's executable and run it once, outside the fault
+        injector and the timing stats."""
         z = np.zeros((bucket,) + self.cfg.input_shape, np.float32)
-        self._dispatch(bucket, z)
+        with self._dispatch_lock:
+            ex = self._get_fn(bucket)
+        self._call(bucket, ex, z, inject=False)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _dispatch(self, bucket: int, rows: np.ndarray):
-        """One bucket call on ``rows`` (at most ``bucket`` of them):
-        ``(images, seconds, steady)``.  ``seconds`` is the wall clock of the
-        whole call: staging the rows (padded with zeros to the bucket), the
+    # -- guarded dispatch -----------------------------------------------
+    def _on_stall(self) -> None:
+        # heartbeat callback, on the watcher thread: a dispatch attempt has
+        # been silent past the timeout.  It only counts: no CUDA call may
+        # run here (a synchronise would break another thread's capture).
+        self._count_fault("heartbeat_fires")
+        self._tracer.instant("heartbeat_fire", cat="fault", **self._mlabels)
+
+    def _count_fault(self, event: str) -> None:
+        with self._qlock:
+            self.fault_stats[event] += 1
+        self._m_fault.inc(event=event, **self._mlabels)
+
+    def close(self) -> None:
+        """Release the stall-watcher thread (no-op without a heartbeat)."""
+        if self._heartbeat is not None:
+            self._heartbeat.close()
+
+    def _call(self, bucket: int, ex: BucketExecutable, rows: np.ndarray,
+              inject: bool = True):
+        """One attempt of a bucket call on ``rows`` (at most ``bucket`` of
+        them): ``(images, t0, seconds, steady)``.  The clock starts after
+        the stream has synchronised and runs over the injector's hook,
+        staging the rows (padded with zeros to the bucket), the
         host-to-device copy, the replay (on the CPU the eager run) and the
-        device-to-host copy of the images.  The first call of a bucket
-        (which builds its executable) is not steady and stays out of the
-        timing stats.  ``images`` is a new array each call."""
+        device-to-host copy of the images; the heartbeat is armed over the
+        same window.  The first call of a bucket is not steady and stays
+        out of the timing stats.  ``images`` is a new array each call."""
         with self._dispatch_lock:
-            ex = self._get_fn(bucket)
             with CAPTURE_GATE.shared():
                 launches0 = self._launches()
                 self._sync()
-                t0 = time.perf_counter()
-                images = ex(rows)
-                dt = time.perf_counter() - t0
+                if self._heartbeat is not None:
+                    self._heartbeat.arm()
+                try:
+                    t0 = obsclock.now()
+                    if inject and self.fault_injector is not None:
+                        self.fault_injector.before_call(bucket)
+                    images = ex(rows)
+                    dt = obsclock.now() - t0
+                finally:
+                    if self._heartbeat is not None:
+                        self._heartbeat.disarm()
                 made = (ex.launches if ex.launches is not None
                         else self._launches() - launches0)
             self.launch_counts[bucket] = self.launch_counts.get(bucket,
                                                                 0) + made
             steady = bucket in self._warm
             self._warm.add(bucket)
-        return images, dt, steady
+        return images, t0, dt, steady
+
+    def _dispatch(self, bucket: int, rows: np.ndarray):
+        """One guarded bucket dispatch: ``(images, seconds, steady,
+        retried)``.  The executable is built first, once; each attempt
+        replays it (`_call`).  `TransientCallError` is retried up to
+        ``max_retries`` times with exponential backoff, slept outside the
+        dispatch lock and `CAPTURE_GATE`, then raised as `EngineDegraded`;
+        ``retried`` says a retry preceded the success.  Only steady,
+        unretried samples feed the straggler monitor.  `DeviceLossError`
+        escapes to `generate`."""
+        with self._dispatch_lock:
+            ex = self._get_fn(bucket)
+        attempts = self.config.max_retries + 1
+        for attempt in range(attempts):
+            try:
+                images, t0, dt, steady = self._call(bucket, ex, rows)
+            except TransientCallError as e:
+                self._count_fault("transient_failures")
+                self._tracer.instant("transient_failure", cat="fault",
+                                     bucket=bucket, attempt=attempt,
+                                     **self._mlabels)
+                if attempt + 1 >= attempts:
+                    raise EngineDegraded(
+                        f"bucket-{bucket} call failed {attempts} "
+                        "time(s); retries exhausted") from e
+                self._count_fault("retries")
+                self._tracer.instant("retry", cat="fault", bucket=bucket,
+                                     attempt=attempt, **self._mlabels)
+                time.sleep(self.config.retry_backoff_s * (2 ** attempt))
+                continue
+            retried = attempt > 0
+            flagged = False
+            with self._qlock:
+                self._dispatches += 1
+                if steady and not retried:
+                    # a retried dispatch must not seed the straggler
+                    # baseline either
+                    mon = self._stragglers.get(bucket)
+                    if mon is None:
+                        mon = self._stragglers[bucket] = StragglerMonitor(
+                            factor=self.config.straggler_factor,
+                            warmup_steps=self.config.straggler_warmup)
+                    flagged = mon.observe(self._dispatches, dt)
+            if flagged:
+                self._count_fault("stragglers")
+                self._tracer.instant("straggler", cat="fault",
+                                     bucket=bucket, seconds=dt,
+                                     **self._mlabels)
+            self._tracer.complete(f"dispatch b{bucket}", t0, t0 + dt,
+                                  cat="engine", bucket=bucket, steady=steady,
+                                  retried=retried, **self._mlabels)
+            return images, dt, steady, retried
 
     def _launches(self) -> int:
         """Launches so far of the kernel of the engine's path through its
@@ -589,26 +748,55 @@ class DcnnServeEngine:
         """Images of z: (B, *input_shape) for ANY B, any float dtype,
         chunked and padded to the bucket set via `plan_chunks`.  Returns
         float32 ``(B, H, W, C)``; for a bf16 tower every value is a bf16
-        value (the JAX package returns the bf16 array itself)."""
+        value (the JAX package returns the bf16 array itself).
+
+        A transient dispatch failure retries inside `_dispatch`; a retried
+        dispatch counts as ``tainted_calls``/``tainted_seconds`` and stays
+        out of the timing samples.  A device loss raises `EngineDegraded`:
+        one device leaves nothing to shrink onto."""
         z = np.asarray(z, dtype=np.float32)
         n = z.shape[0]
+        t_gen = obsclock.now()
         outs: List[np.ndarray] = []
         i = 0
         for take, bucket in self.plan_chunks(n):
-            self.stats["padded_images"] += bucket - take
-            y, dt, steady = self._dispatch(bucket, z[i:i + take])
+            try:
+                y, dt, steady, retried = self._dispatch(bucket,
+                                                        z[i:i + take])
+            except DeviceLossError as e:
+                raise EngineDegraded(
+                    "device loss without an elastic mesh: nothing to shrink "
+                    "onto (this engine serves one device)") from e
+            pad = bucket - take
+            if pad:
+                self.stats["padded_images"] += pad
+                self._m_padded.inc(pad, **self._mlabels)
             if steady:
                 bs = self.bucket_stats.setdefault(
                     bucket, {"calls": 0, "images": 0, "seconds": 0.0,
-                             "sumsq_seconds": 0.0})
-                bs["calls"] += 1
-                bs["images"] += take
-                bs["seconds"] += dt
-                bs["sumsq_seconds"] += dt * dt
+                             "sumsq_seconds": 0.0, "tainted_calls": 0,
+                             "tainted_seconds": 0.0})
+                if retried:
+                    # real work, but not a healthy run: out of the Table II
+                    # mean/std/CV samples
+                    bs["tainted_calls"] += 1
+                    bs["tainted_seconds"] += dt
+                    self._m_tainted.inc(bucket=bucket, **self._mlabels)
+                else:
+                    bs["calls"] += 1
+                    bs["images"] += take
+                    bs["seconds"] += dt
+                    bs["sumsq_seconds"] += dt * dt
+                    self._m_dispatch.observe(dt, bucket=bucket,
+                                             **self._mlabels)
             outs.append(y)
             i += take
         self.stats["generate_calls"] += 1
         self.stats["images"] += n
+        self._m_generate_calls.inc(**self._mlabels)
+        self._m_images.inc(n, **self._mlabels)
+        self._tracer.complete("generate", t_gen, obsclock.now(),
+                              cat="engine", rows=n, **self._mlabels)
         if not outs:
             return np.zeros((0,) + self.output_shape, np.float32)
         return np.concatenate(outs, axis=0) if len(outs) != 1 else outs[0]
@@ -623,26 +811,37 @@ class DcnnServeEngine:
         clock (the paper's Table II methodology).  A dispatch's clock runs
         from padding its rows to the bucket to its images on the host (both
         copies included); the host work between dispatches of one
-        `generate` (chunking, the final concatenation) is not in it."""
+        `generate` (chunking, the final concatenation) is not in it.  Only
+        healthy dispatches feed these; retried ones surface as
+        ``tainted_calls``/``tainted_seconds`` beside them."""
         out = {}
         for bucket, bs in self.bucket_stats.items():
             if bs["seconds"] <= 0.0:
                 continue
+            rate = bs["images"] / bs["seconds"]
             mean_s = bs["seconds"] / bs["calls"]
             var = max(0.0, bs["sumsq_seconds"] / bs["calls"] - mean_s ** 2)
             std_s = var ** 0.5
             out[bucket] = {
-                "img_per_s": bs["images"] / bs["seconds"],
+                "img_per_s": rate,
+                "img_per_s_per_device": rate / self.n_devices,
                 "calls": bs["calls"],
                 "mean_s": mean_s,
                 "std_s": std_s,
                 "cv": std_s / max(mean_s, 1e-12),
+                "tainted_calls": bs["tainted_calls"],
+                "tainted_seconds": bs["tainted_seconds"],
             }
         return out
 
     def service_estimate(self, bucket: int) -> Optional[float]:
-        """Mean steady dispatch wall clock for ``bucket``, or None before
-        the first steady call."""
+        """Best current estimate of one steady dispatch's wall clock for
+        ``bucket``: the bucket's `StragglerMonitor` EMA when it has
+        observations (tracks drift, ignores outliers), else the healthy
+        mean, else None.  The async frontend's capacity signal."""
+        mon = self._stragglers.get(bucket)
+        if mon is not None and mon.estimate() is not None:
+            return mon.estimate()
         bs = self.bucket_stats.get(bucket)
         if bs and bs["calls"] > 0:
             return bs["seconds"] / bs["calls"]
@@ -662,7 +861,7 @@ class DcnnServeEngine:
         if deadline_s is None:
             deadline_s = self.config.default_deadline_s
         deadline = (None if deadline_s is None
-                    else time.perf_counter() + deadline_s)
+                    else obsclock.now() + deadline_s)
         with self._qlock:
             rid = self._next_id
             self._next_id += 1
@@ -680,6 +879,9 @@ class DcnnServeEngine:
                     self._failures[rid] = AdmissionRejected(
                         reason or f"ticket {rid} shed before execution",
                         stage="shed")
+                    self._m_fault.inc(event="shed", **self._mlabels)
+                    self._tracer.instant("shed", cat="fault", rid=rid,
+                                         **self._mlabels)
                     return True
         return False
 
@@ -697,13 +899,17 @@ class DcnnServeEngine:
                 return
             reqs, self._pending = self._pending, []
             live = []
-            now = time.perf_counter()
+            now = obsclock.now()
             for rid, z, deadline in reqs:
                 if deadline is not None and now > deadline:
                     self.fault_stats["deadline_expired"] += 1
                     self._failures[rid] = DeadlineExceeded(
                         f"ticket {rid} missed its deadline by "
                         f"{now - deadline:.3f}s before execution")
+                    self._m_fault.inc(event="deadline_expired",
+                                      **self._mlabels)
+                    self._tracer.instant("deadline_expired", cat="fault",
+                                         rid=rid, **self._mlabels)
                 else:
                     live.append((rid, z, deadline))
                     self._inflight.add(rid)
@@ -732,7 +938,7 @@ class DcnnServeEngine:
         tells a ticket never issued from one already collected, and
         `DeadlineExceeded` when ``timeout_s`` passes first."""
         deadline = (None if timeout_s is None
-                    else time.perf_counter() + timeout_s)
+                    else obsclock.now() + timeout_s)
         while True:
             with self._qlock:
                 if rid in self._failures:
@@ -750,7 +956,7 @@ class DcnnServeEngine:
                     f"ticket {rid} was already collected (results are "
                     "handed out exactly once)")
             remaining = (None if deadline is None
-                         else deadline - time.perf_counter())
+                         else deadline - obsclock.now())
             if remaining is not None and remaining <= 0:
                 raise DeadlineExceeded(
                     f"ticket {rid} unresolved after {timeout_s:.3f}s")

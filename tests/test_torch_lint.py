@@ -9,7 +9,12 @@ from repro.analysis.check.concurrency import lint_files
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TARGETS = ["src/repro_torch/serve/engine.py",
-           "src/repro_torch/workloads/registry.py"]
+           "src/repro_torch/workloads/registry.py",
+           "src/repro_torch/serve/frontend.py",
+           "src/repro_torch/serve/scheduler.py",
+           "src/repro_torch/obs/metrics.py",
+           "src/repro_torch/obs/trace.py",
+           "src/repro_torch/dist/fault.py"]
 
 
 @pytest.mark.parametrize("path", TARGETS)
