@@ -80,8 +80,31 @@ Phases (any failure raises and the exit code is non-zero):
     model's pick and the next candidates per layer (tile cache in a fresh
     temporary file); per layer both picks and times, and the refined
     engine's images against reverse_loop;
- 8. the kernels line (launches summed over the serving paths and the
-    frontend run); 9. the result line.
+ 8. training, with float32 products in full float32 (TF32 off): CelebA
+    WGAN-GP at full width (its 64x64x3 critic), batch 64, n_critic 5, 3
+    steps through `WganTrainer.fit` on "cuda" (B1 in the generator's
+    forward, the reverse loop's autograd as its backward) on seeded
+    synthetic faces, under torch.profiler with every count at 0 just
+    before: exactly 5 layers x 6 x 3 = 90 traced B1 launches and no B2 or
+    B3; the fused generator's backward traced alone launches no B1; losses,
+    params and Adam moments finite; after each generator update (each
+    step's checkpoint) the trainer's fused forward within 1e-4 of the
+    reverse loop; a run resumed from step 1's checkpoint bitwise the
+    uninterrupted one (the fit and resume run with cuDNN's deterministic
+    algorithms); one critic and one generator step on "cuda" equal to the
+    same on "reverse_loop" from fit's params, fresh optimizer states and
+    the same noise (losses rtol 1e-4; Adam's moments, i.e. the grads,
+    within 1e-4 as ||difference|| / ||reverse_loop's|| over each tree;
+    params 2 lr), the same from the initial params printed; ms per critic
+    and generator step on cuda, reverse_loop and cudnn, the generator
+    forward alone (B1 vs reverse loop vs cuDNN) and the remat backward's
+    share of a generator step; then the zoo's sr head, 3 masked-MSE steps
+    at batch 64 through `SupervisedTrainer` on "cuda": 3 x 3 = 9 traced B1
+    launches, against the same run on "reverse_loop": each step's loss
+    rtol 1e-4, the params after the three within 1e-5, and the first
+    step's moments within 1e-5 as a tree-norm ratio;
+ 9. the kernels line (launches summed over the serving paths, the
+    frontend run and the training runs); 10. the result line.
 
 Imports nothing of JAX: only torch, numpy and the port (src/repro_torch).
 """
@@ -108,10 +131,14 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.ckpt import AsyncCheckpointer, restore  # noqa: E402
+from repro_torch.core.deconv import fp32_exact  # noqa: E402
 from repro_torch.core.dse import H100_SXM  # noqa: E402
 from repro_torch.core.mmd import mmd  # noqa: E402
 from repro_torch.core.sparsity import magnitude_prune, prune_tree  # noqa: E402
 from repro_torch.core.tiling import DeconvGeometry, tc_warp_tile  # noqa: E402
+from repro_torch.core.tree import tree_leaves  # noqa: E402
+from repro_torch.data import image_source  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels.autotune import (SMS, fill_tiles,  # noqa: E402
                                           grid_blocks, hopper_tiles, time_ms)
@@ -123,6 +150,7 @@ from repro_torch.kernels.deconv2d_sparse import (make_sparse_plan,  # noqa: E402
                                                  schedule_tensors)
 from repro_torch.models.dcnn import (CELEBA_DCNN, MNIST_DCNN,  # noqa: E402
                                      generator_apply, generator_init)
+from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.quant import (calibrate, quantize_params,  # noqa: E402
                                quantize_symmetric, quantized_generator_apply,
                                quantized_generator_ref)
@@ -133,6 +161,9 @@ from repro_torch.obs.report import render_table2, table2_rows  # noqa: E402
 from repro_torch.serve import (AdmissionRejected,  # noqa: E402
                                AsyncServeFrontend, DcnnServeEngine,
                                EngineConfig, EngineDegraded, TenantClass)
+from repro_torch.train import (SupervisedTrainer, WganTrainer,  # noqa: E402
+                               pair_source)
+from repro_torch.train.wgan import requiring_grad  # noqa: E402
 from repro_torch.workloads import (DAE_DENOISE, SR_X2,  # noqa: E402
                                    calibration_input, workload_for)
 
@@ -228,6 +259,23 @@ FRONTEND_WAIT_S = 60           # a request unresolved after this is a hang
 HEARTBEAT_S = 0.05             # below SLOW_CALL_S
 SLOW_CALL_S = 0.25             # well past 3x a bucket-64 dispatch's EMA
 DEGRADE_REQUESTS = 8
+# the training phase: CelebA WGAN-GP at full width (AdamW with b1 0.5 and
+# b2 0.9, as the reference's WGAN tests), and the zoo's sr head supervised
+TRAIN_BATCH = 64
+TRAIN_N_CRITIC = 5
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+SR_LR = 1e-3
+TRAIN_RUNS = 10
+# Adam's moments after one step from the same params and a fresh state
+# (what the grads set), as ||difference|| / ||reverse_loop's|| over a tree:
+# sr's; and the WGAN step's, whose critic grads move by 1.3e-5 at fit's
+# params and 1.4e-3 at the initial ones (H100, fp32) when B1's rounding of
+# the fake flips LeakyReLU inputs that lie within it of the kink
+MOMENT_TOL = 1e-5
+WGAN_MOMENT_TOL = 1e-4
+# sr's params after three steps on "cuda" against "reverse_loop"
+SR_PARAM_TOL = 1e-5
 
 
 @functools.lru_cache(maxsize=None)
@@ -504,6 +552,24 @@ def profiled():
         fence(0.05)
 
 
+def traced_launches(prof):
+    """Per kernel instance, its device launches in a profiler trace, and
+    the trace's device kernels in all."""
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ({k: sum(kernel_of(n) == k for n in device) for k in TRACE_NAMES},
+            len(device))
+
+
+def zero_launch_counts():
+    for _, mod, _ in KERNELS:
+        mod.LAUNCHES = 0
+
+
+def launch_counts():
+    return {k: mod.LAUNCHES for k, mod, _ in KERNELS}
+
+
 def drive(engines, requests):
     """The main path of one kind of engine, per net under torch.profiler
     with every count at 0 just before (the engines' ``launch_counts`` and
@@ -515,20 +581,15 @@ def drive(engines, requests):
     for name, eng in engines.items():
         torch.cuda.synchronize()
         with profiled() as prof:
-            for _, mod, _ in KERNELS:
-                mod.LAUNCHES = 0
+            zero_launch_counts()
             eng.launch_counts.clear()
             tickets = [eng.submit(z) for z in requests[name]]
             outputs[name] = [eng.collect(t) for t in tickets]
             torch.cuda.synchronize()
             engine = sum(eng.launch_counts.values())
-            wrappers = {k: mod.LAUNCHES for k, mod, _ in KERNELS}
-        device = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        per_net[name] = {
-            "traced": {k: sum(kernel_of(n) == k for n in device)
-                       for k in TRACE_NAMES},
-            "engine": engine, "wrappers": wrappers}
+            wrappers = launch_counts()
+        per_net[name] = {"traced": traced_launches(prof)[0],
+                         "engine": engine, "wrappers": wrappers}
     return outputs, per_net
 
 
@@ -1282,12 +1343,12 @@ def device_split(events, wall_s):
 
 def device_events(trace):
     """A trace's device activity (kernels, copies, memsets) in start
-    order, without the device-side copies of the ``frontend_load``
-    ranges."""
+    order, without the device-side copies of the ``frontend_load`` and
+    ``train_step`` ranges."""
     return sorted((e for e in trace
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
-                   and not e.name.startswith("frontend_load")),
+                   and not e.name.startswith(("frontend_load", "train_step"))),
                   key=lambda e: e.time_range.start)
 
 
@@ -1445,8 +1506,7 @@ def phase_frontend(smi):
         tracer = obstrace.enable(clear=True)
         torch.cuda.synchronize()
         with profiled() as prof:
-            for _, mod, _ in KERNELS:
-                mod.LAUNCHES = 0
+            zero_launch_counts()
             for eng in engines.values():
                 eng.launch_counts.clear()
             d0 = {p: eng._dispatches for p, eng in engines.items()}
@@ -1466,7 +1526,7 @@ def phase_frontend(smi):
                           for p, eng in engines.items()}
             counted = {p: sum(eng.launch_counts.values())
                        for p, eng in engines.items()}
-            wrappers = {k: mod.LAUNCHES for k, mod, _ in KERNELS}
+            wrappers = launch_counts()
         obstrace.disable()
         trace = prof.events()
         device = [e.name for e in trace
@@ -1569,6 +1629,343 @@ def phase_frontend(smi):
         fe.close(timeout_s=FRONTEND_WAIT_S)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+def check_b1_only(label, traced, wrappers, want):
+    """The traced run launched ``want`` fp32 B1 kernels, counted alike by
+    the trace and the wrapper (``wrappers``, read just after the run), and
+    nothing of B2 or B3."""
+    b1 = ("deconv2d_kernel", "fp32")
+    if (traced[b1] != want or wrappers["deconv2d_kernel"] != want
+            or any(v for k, v in traced.items() if k != b1)
+            or any(v for k, v in wrappers.items() if k != "deconv2d_kernel")):
+        raise AssertionError(f"{label}: traced {traced}, wrappers {wrappers};"
+                             f" expected {want} fp32 B1 launches and nothing "
+                             "else")
+
+
+def max_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def all_finite(tree):
+    return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree)
+               if t.is_floating_point())
+
+
+def moment_diff(a, b):
+    """The larger of ||a.mu - b.mu|| / ||b.mu|| and the same of nu, each
+    norm over the whole tree, for two Adam states of one step."""
+    if int(a.step) != int(b.step):
+        raise AssertionError(f"Adam steps {int(a.step)} != {int(b.step)}")
+
+    def norm(leaves):
+        return float(torch.sqrt(sum((t.double() ** 2).sum() for t in leaves)))
+
+    return max(norm([x - y for x, y in zip(tree_leaves(ma), tree_leaves(mb))])
+               / norm(tree_leaves(mb))
+               for ma, mb in ((a.mu, b.mu), (a.nu, b.nu)))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms (the critic's conv backward and
+    the penalty's double backward otherwise may sum in another order from
+    run to run), restored on exit."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def train_times(trainers, cfg, gp0, dp0, gs0, ds0, real, z, eps, smi):
+    """ms per critic and generator step per backend (CUDA events around
+    each of TRAIN_RUNS steps from the same state, median), the generator
+    forward alone at the bucket (B1, reverse loop, cuDNN; device time
+    behind a queued sleep), and the remat backward's share of a "cuda"
+    generator step."""
+    n = real.shape[0]
+    step_ms = {}
+    for be, t in trainers.items():
+        c, _ = time_ms(lambda: t.critic_update(dp0, ds0, gp0, real, n, z, eps),
+                       runs=TRAIN_RUNS, warmup=2, backlog=False)
+        g, _ = time_ms(lambda: t.gen_update(gp0, gs0, dp0, z),
+                       runs=TRAIN_RUNS, warmup=2, backlog=False)
+        step_ms[be] = (c, g)
+        print(f"  {cfg.name} {be}: critic step {c:.3f} ms, generator step "
+              f"{g:.3f} ms (bucket {n}, median of {TRAIN_RUNS}) [{smi}]",
+              flush=True)
+    fused = trainers["cuda"]._gen_for(n)
+    forwards = {"B1 (fused forward)": lambda: fused(gp0, z),
+                "reverse_loop": lambda: generator_apply(
+                    gp0, cfg, z, backend="reverse_loop"),
+                "cudnn": lambda: generator_apply(gp0, cfg, z, backend="cudnn")}
+    fwd_ms = {}
+    with torch.no_grad():
+        for name, fn in forwards.items():
+            fwd_ms[name] = time_ms(fn, runs=TRAIN_RUNS)
+    print(f"  {cfg.name} generator forward at bucket {n}, ms (device time "
+          f"held): " + ", ".join(f"{k} {v[0]:.3f} ({v[1]})"
+                                 for k, v in fwd_ms.items()) + f" [{smi}]",
+          flush=True)
+    pg = requiring_grad(gp0)
+    ct = torch.randn((n, cfg.img_hw, cfg.img_hw, cfg.img_c), device=z.device)
+    remat, _ = time_ms(lambda: torch.autograd.grad(
+        generator_apply(pg, cfg, z, backend="reverse_loop"), tree_leaves(pg),
+        ct), runs=TRAIN_RUNS, warmup=2, backlog=False)
+    print(f"  {cfg.name} remat backward (reverse-loop forward + its "
+          f"autograd) {remat:.3f} ms = {remat / step_ms['cuda'][1]:.3f} of a "
+          f"cuda generator step [{smi}]", flush=True)
+    # one of each step, each in its own profiler range, the device idle
+    # before it: how much of its wall clock the device is busy
+    ranges = {}
+    for be, t in trainers.items():
+        ranges[f"{be} critic"] = lambda t=t: t.critic_update(
+            dp0, ds0, gp0, real, n, z, eps)
+        ranges[f"{be} generator"] = lambda t=t: t.gen_update(gp0, gs0, dp0, z)
+    ranges["cuda remat"] = lambda: torch.autograd.grad(
+        generator_apply(pg, cfg, z, backend="reverse_loop"), tree_leaves(pg),
+        ct)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for name, fn in ranges.items():
+            with torch.profiler.record_function(f"train_step {name}"):
+                fn()
+                torch.cuda.synchronize()
+    trace = prof.events()
+    dev = device_events(trace)
+    shares = []
+    for name in ranges:
+        mark, = [e for e in trace if e.name == f"train_step {name}"
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        lo, hi = mark.time_range.start, mark.time_range.end
+        kernels = sum(lo <= e.time_range.start < hi for e in dev)
+        shares.append(f"{name} {busy_us(dev, lo, hi) / (hi - lo):.3f} of "
+                      f"{(hi - lo) / 1e3:.2f} ms, {kernels} device ops")
+    print(f"  {cfg.name} device busy share of one step, traced: "
+          + "; ".join(shares) + f" [{smi}]", flush=True)
+    return step_ms, fwd_ms, remat
+
+
+def phase_training(smi):
+    """CelebA WGAN-GP at full width and the zoo's sr head through their
+    trainers on "cuda" (B1 in the generator's forward, the reverse loop's
+    autograd behind it); returns the traced B1 launches."""
+    dev = torch.device("cuda")
+    fp32_exact(dev)
+    cfg = CELEBA_DCNN
+
+    def opt():
+        return AdamW(lr=TRAIN_LR, b1=0.5, b2=0.9)
+
+    trainers = {be: WganTrainer(cfg, opt(), opt(), n_critic=TRAIN_N_CRITIC,
+                                backend=be, device=dev)
+                for be in ("cuda", "reverse_loop", "cudnn")}
+    src = image_source("celeba", seed=0, batch=TRAIN_BATCH)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        with cudnn_deterministic():
+            traced, (gp0, dp0, gs0, ds0), real, zn, eps = check_wgan(
+                cfg, trainers, src, tmp, opt)
+        train_times(trainers, cfg, gp0, dp0, gs0, ds0, real, zn, eps, smi)
+        with cudnn_deterministic():
+            sr_traced = check_sr(smi)
+        return {("deconv2d_kernel", "fp32"):
+                traced[("deconv2d_kernel", "fp32")]
+                + sr_traced[("deconv2d_kernel", "fp32")]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_wgan(cfg, trainers, src, tmp, opt):
+    """The CelebA WGAN-GP checks of phase 8 (see the module doc); returns
+    the fit's traced launches, an initial state and one batch of real
+    images, z and eps for the timings."""
+    dev = torch.device("cuda")
+    n_layers = len(cfg.layers)
+    trainer = trainers["cuda"]
+    run_dir = os.path.join(tmp, "run")
+    ck = AsyncCheckpointer(run_dir, keep=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiled() as prof:
+        zero_launch_counts()
+        gp, dp, hist = trainer.fit(src, TRAIN_STEPS, 0, log_every=1,
+                                   ckpt=ck, ckpt_every=1)
+        ck.wait()
+        torch.cuda.synchronize()
+        traced_fit_s = time.perf_counter() - t0
+        wrappers = launch_counts()
+    traced, _ = traced_launches(prof)
+    check_b1_only("CelebA WGAN-GP fit", traced, wrappers,
+                  n_layers * (TRAIN_N_CRITIC + 1) * TRAIN_STEPS)
+    losses = [v for h in hist for k, v in h.items() if k != "step"]
+    if len(hist) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {hist}")
+    print(f"  {cfg.name} WGAN-GP on cuda: {TRAIN_STEPS} steps x "
+          f"({TRAIN_N_CRITIC} critic + 1 generator) at batch "
+          f"{TRAIN_BATCH}, {traced_fit_s:.2f} s traced with checkpoints;"
+          f" traced B1 launches {traced[('deconv2d_kernel', 'fp32')]} = "
+          f"{n_layers} layers x {TRAIN_N_CRITIC + 1} x {TRAIN_STEPS}, "
+          "no B2/B3; losses " + "; ".join(
+              f"step {h['step']}: d {h['d_loss']:+.4f} g "
+              f"{h['g_loss']:+.4f} gp {h['gp']:.4f}" for h in hist),
+          flush=True)
+
+    # no B1 launch in a backward: the fused generator's backward alone,
+    # traced
+    fused = trainer._gen_for(TRAIN_BATCH)
+    zg = torch.Generator(device=dev).manual_seed(7)
+    z = torch.randn((TRAIN_BATCH, cfg.z_dim), generator=zg, device=dev)
+    pg = requiring_grad(gp)
+    y = fused(pg, z)
+    ct = torch.randn(y.shape, generator=zg, device=dev)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        zero_launch_counts()
+        torch.autograd.grad(y, tree_leaves(pg), ct)
+        torch.cuda.synchronize()
+        wrappers = launch_counts()
+    traced_bwd, n_bwd = traced_launches(prof)
+    check_b1_only("the fused generator's backward", traced_bwd, wrappers, 0)
+    if n_bwd == 0:
+        raise AssertionError("the traced backward ran no device kernel")
+    print(f"  the fused generator's backward alone, traced: {n_bwd} "
+          "device kernels, no B1", flush=True)
+
+    # every update's generator params (each step's checkpoint): the
+    # trainer's own fused forward against the reverse loop
+    like = dict(zip(("g", "d", "gs", "ds"), trainer.init_state(0)))
+    errs = []
+    for s in range(TRAIN_STEPS):
+        tree, _, extra = restore(run_dir, like, step=s)
+        if extra != {"step": s} or not all_finite(tree):
+            raise AssertionError(f"checkpoint {s}: {extra}, finite "
+                                 f"{all_finite(tree)}")
+        with torch.no_grad():
+            got = fused(tree["g"], z)
+            ref = generator_apply(tree["g"], cfg, z, backend="reverse_loop")
+        errs.append(float((got - ref).abs().max()))
+        if errs[-1] > SERVE_TOL:
+            raise AssertionError(f"after update {s} the fused forward is "
+                                 f"{errs[-1]} from the reverse loop")
+    if max_diff(tree["g"], gp) or max_diff(tree["d"], dp):
+        raise AssertionError("the last checkpoint is not fit's result")
+    print(f"  after each generator update (checkpoints 0..{TRAIN_STEPS - 1}"
+          f", params, moments and steps all finite): |fused forward - "
+          f"reverse_loop| {errs} (tol {SERVE_TOL})", flush=True)
+
+    # resume from step 1's checkpoint; the uninterrupted run is the traced
+    # one
+    resume_dir = os.path.join(tmp, "resume")
+    shutil.copytree(os.path.join(run_dir, "step_00000001"),
+                    os.path.join(resume_dir, "step_00000001"))
+    rt = WganTrainer(cfg, opt(), opt(), n_critic=TRAIN_N_CRITIC,
+                     backend="cuda", device=dev)
+    gp_r, dp_r, _ = rt.fit(src, TRAIN_STEPS, 0, resume_from=resume_dir)
+    diff = max_diff((gp_r, dp_r), (gp, dp))
+    print(f"  resumed from checkpoint 1 (cuDNN deterministic): largest "
+          f"param difference from the uninterrupted run {diff!r} (bitwise "
+          "required)", flush=True)
+    if diff != 0:
+        raise AssertionError(f"the resumed run differs by {diff}")
+
+    # one critic step and one generator step per backend, the same params,
+    # fresh optimizer states (the moments are then the step's grads) and
+    # noise: from fit's params (checked) and from the initial ones (only
+    # printed: the fake images are about 3e-3 there and the critic's
+    # biases 0, so thousands of its pre-activations lie within 1e-6 of
+    # LeakyReLU's kink, and B1's rounding flips some of them)
+    gp0, dp0, gs0, ds0 = trainer.init_state(0)
+    real = torch.from_numpy(src.batch(0)["images"]).to(dev)
+    ng = torch.Generator(device=dev).manual_seed(11)
+    zn = torch.randn((TRAIN_BATCH, cfg.z_dim), generator=ng, device=dev)
+    eps = torch.rand((TRAIN_BATCH, 1, 1, 1), generator=ng, device=dev)
+    for label, g_p, d_p in (("from fit's params", gp, dp),
+                            ("from the initial params", gp0, dp0)):
+        steps = {}
+        for be, t in trainers.items():
+            dp1, ds1, dmet = t.critic_update(d_p, ds0, g_p, real,
+                                             TRAIN_BATCH, zn, eps)
+            gp1, gs1, gmet = t.gen_update(g_p, gs0, d_p, zn)
+            steps[be] = (dp1, gp1, ds1, gs1, {**dmet, **gmet})
+        ref = steps["reverse_loop"]
+        for be in ("cuda", "cudnn"):
+            dp1, gp1, ds1, gs1, met = steps[be]
+            rel = {k: abs(float(v) - float(ref[4][k])) / abs(float(ref[4][k]))
+                   for k, v in met.items()}
+            d_err, g_err = max_diff(dp1, ref[0]), max_diff(gp1, ref[1])
+            d_mom, g_mom = moment_diff(ds1, ref[2]), moment_diff(gs1, ref[3])
+            print(f"  one step {label} on {be} vs reverse_loop: loss rel. "
+                  f"errors { {k: f'{v:.1e}' for k, v in rel.items()} } (tol "
+                  f"1e-4); Adam moments |d|/|ref| critic {d_mom:.2e}, "
+                  f"generator {g_mom:.2e} (tol {WGAN_MOMENT_TOL:.0e}); critic "
+                  f"params {d_err:.2e}, generator params {g_err:.2e} (tol 2 "
+                  f"lr = {2 * TRAIN_LR:.0e}: a first Adam step moves each by"
+                  f" about lr){'' if g_p is gp else ' [not checked]'}",
+                  flush=True)
+            if g_p is gp and be == "cuda" and (
+                    max(rel.values()) > 1e-4
+                    or max(d_mom, g_mom) > WGAN_MOMENT_TOL
+                    or max(d_err, g_err) > 2 * TRAIN_LR):
+                raise AssertionError(f"a cuda step is not the reverse "
+                                     f"loop's: {rel}, {d_mom}, {g_mom}, "
+                                     f"{d_err}, {g_err}")
+    return traced, (gp0, dp0, gs0, ds0), real, zn, eps
+
+
+def check_sr(smi):
+    """The zoo's sr head through `SupervisedTrainer` on "cuda" against
+    "reverse_loop" (see the module doc); returns the traced launches."""
+    dev = torch.device("cuda")
+    w = workload_for(SR_X2)
+    sr_src = pair_source(w, 0, TRAIN_BATCH)
+    sr, hists, first = {}, {}, {}
+    for be in ("cuda", "reverse_loop"):
+        st = SupervisedTrainer(w.cfg, AdamW(lr=SR_LR), backend=be,
+                               device=dev)
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            zero_launch_counts()
+            sr[be], hists[be] = st.fit(sr_src, TRAIN_STEPS, 0, log_every=1)
+            torch.cuda.synchronize()
+            wrappers = launch_counts()
+        if be == "cuda":
+            sr_traced, _ = traced_launches(prof)
+            check_b1_only("sr supervised fit", sr_traced, wrappers,
+                          len(w.cfg.layers) * TRAIN_STEPS)
+        if not np.isfinite([h["loss"] for h in hists[be]]).all():
+            raise AssertionError(f"sr losses {hists[be]}")
+        # the first step alone, for what its grads set
+        p0, s0 = st.init_state(0)
+        b = sr_src.batch(0)
+        first[be] = st.step(p0, s0, b["x"], b["y"])[1]
+    loss_rel = max(abs(h["loss"] - r["loss"]) / abs(r["loss"]) for h, r in
+                   zip(hists["cuda"], hists["reverse_loop"]))
+    sr_err = max_diff(sr["cuda"], sr["reverse_loop"])
+    mom = moment_diff(first["cuda"], first["reverse_loop"])
+    print(f"  {w.cfg.name} supervised on cuda: {TRAIN_STEPS} steps at "
+          f"batch {TRAIN_BATCH}, traced B1 launches "
+          f"{sr_traced[('deconv2d_kernel', 'fp32')]} = "
+          f"{len(w.cfg.layers)} layers x {TRAIN_STEPS}; vs reverse_loop: "
+          f"losses {loss_rel:.1e} relative (tol 1e-4), params after "
+          f"{TRAIN_STEPS} steps {sr_err:.2e} (tol {SR_PARAM_TOL:.0e}), the "
+          f"first step's Adam moments |d|/|ref| {mom:.2e} (tol "
+          f"{MOMENT_TOL:.0e}) [{smi}]", flush=True)
+    if (len(hists["cuda"]) != TRAIN_STEPS or loss_rel > 1e-4
+            or sr_err > SR_PARAM_TOL or mom > MOMENT_TOL):
+        raise AssertionError(f"sr cuda vs reverse_loop: losses {loss_rel}, "
+                             f"params {sr_err}, moments {mom}")
+    return sr_traced
+
+
 def main() -> int:
     smi, name, peaks = device_info()
     # no run reads another's tile timings
@@ -1618,6 +2015,11 @@ def run(smi, name, peaks) -> int:
 
     print(f"[7] refine (at {time.perf_counter() - t0:.1f} s)", flush=True)
     phase_refine(smi)
+
+    print(f"[8] training (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    launches["train"] = phase_training(smi)
+    print(f"[9] kernels line (at {time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,
                                                 sparse, smi)}), flush=True)

@@ -42,7 +42,8 @@ from ...quant.qmath import quantize_symmetric
 from ..autotune import INT8_T_CI, TC_T_CO
 from .kernel import (_check_shapes, aligned, apply_activation, check_rc,
                      launch_params, launch_split, tc_library)
-from .ops import StaticOperands, call_args, pad_channels, resolve_call
+from .ops import (StaticOperands, call_args, pad_channels, refuse_graph,
+                  resolve_call)
 
 LAUNCHES = 0
 
@@ -326,7 +327,9 @@ def deconv2d_int8(
     tiles left out come from `autotune.hopper_tiles` at this batch.
     ``static`` holds the packed weight, scale and bias already padded
     (`prepare_int8_static`; a serving engine's, once per layer); without
-    it they are prepared here."""
+    it they are prepared here.  Raises when grad mode is on and an
+    operand requires grad (`ops.refuse_graph`)."""
+    refuse_graph("deconv2d_int8", x, w, scale, b)
     stride, padding, tiles, activation = resolve_call(
         plan, x, w, "cuda", "deconv2d_int8", stride, padding,
         activation, (t_oh, t_ow, t_ci, t_co, t_n))

@@ -46,6 +46,19 @@ def check_layer_plan(plan, x: torch.Tensor, w: torch.Tensor, backend: str,
         raise ValueError(f"{fn_name}: plan has no resolved tiles")
 
 
+def refuse_graph(fn_name: str, *operands) -> None:
+    """Raise when grad mode is on and an operand requires grad: a kernel
+    launch returns a tensor with no ``grad_fn``, so a loss through it would
+    silently train nothing (and the plain version on the CPU would
+    differentiate another formulation than the reference's)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{fn_name} builds no autograd graph; train through "
+            "models.dcnn.make_fused_generator (the kernel forward with the "
+            "reverse-loop backward), or call it under torch.no_grad()")
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -210,7 +223,10 @@ def deconv2d(
     `autotune.hopper_tiles` at this batch.  ``static`` holds w and b
     already padded for these tiles (`prepare_static`; a serving engine's);
     without it they are padded here.
+
+    Raises when grad mode is on and x, w or b requires grad (`refuse_graph`).
     """
+    refuse_graph("deconv2d", x, w, b)
     stride, padding, tiles, activation = resolve_call(
         plan, x, w, "cuda", "deconv2d", stride, padding, activation,
         (t_oh, t_ow, t_ci, t_co, t_n))

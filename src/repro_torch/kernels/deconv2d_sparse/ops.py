@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from ...core.sparsity import block_mask
-from ..deconv2d.ops import _round_up, call_args, resolve_call, static_for
+from ..deconv2d.ops import (_round_up, call_args, refuse_graph,
+                            resolve_call, static_for)
 from .kernel import build_schedule, deconv2d_sparse_launch, schedule_tensors
 
 
@@ -61,7 +62,9 @@ def deconv2d_sparse(
     at the tiles, which the caller gives or the Hopper heuristic fills.
     ``static`` holds w and b already padded for these tiles
     (`deconv2d.ops.prepare_static`; a serving engine's); without it they
-    are padded here."""
+    are padded here.  Raises when grad mode is on and x, w or b requires
+    grad (`deconv2d.ops.refuse_graph`)."""
+    refuse_graph("deconv2d_sparse", x, w, b)
     stride, padding, tiles, activation = resolve_call(
         plan, x, w, "cuda_sparse", "deconv2d_sparse", stride, padding,
         activation, (t_oh, t_ow, t_ci, t_co, t_n))

@@ -1,4 +1,5 @@
-"""The paper's DCNN generators (Fig. 4) for WGAN-GP on MNIST and CelebA.
+"""The paper's DCNN generators (Fig. 4) for WGAN-GP on MNIST and CelebA,
+and their critics.
 
 The generator's deconvolution layers run through a selectable backend:
   * "reverse_loop" — the paper's algorithm, phase-decomposed plain torch,
@@ -10,20 +11,26 @@ The generator's deconvolution layers run through a selectable backend:
   * "cudnn"        — conventional zero-insertion ``F.conv_transpose2d``
                      (the JAX package's "xla"; the GPU baseline of Table II).
 
+Training runs "cuda" through `make_fused_generator`: the kernel forward
+with the reverse loop's autograd as its backward.
+
 Layouts are the JAX package's: NHWC activations, (K, K, C_in, C_out)
 weights and params ``{"l{i}": {"w", "b"}}``.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..core.deconv import deconv2d_reverse_loop, deconv2d_zero_insertion
+from ..core.deconv import (deconv2d_reverse_loop, deconv2d_zero_insertion,
+                           fp32_exact)
 from ..core.tiling import DeconvGeometry
+from . import nn
+from .nn import lecun_init
 
 BACKENDS = ("reverse_loop", "cuda", "cuda_sparse", "cudnn")
 _FUSED = ("cuda", "cuda_sparse")   # bias and activation in the kernel
@@ -117,14 +124,6 @@ CELEBA_DCNN = DcnnConfig(
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def lecun_init(generator: torch.Generator, shape, dtype: torch.dtype,
-               fan_in: int) -> torch.Tensor:
-    """N(0, 1/fan_in) weights drawn from ``generator`` (on the CPU, so a
-    seed gives the same weights whatever device they go to)."""
-    scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return (scale * torch.randn(shape, generator=generator)).to(dtype)
-
-
 def generator_init(generator: torch.Generator, cfg: DcnnConfig,
                    device) -> Dict[str, Dict[str, torch.Tensor]]:
     """Random generator params on ``device``: LeCun-normal weights, zero
@@ -140,26 +139,41 @@ def generator_init(generator: torch.Generator, cfg: DcnnConfig,
     return p
 
 
+def generator_shapes(cfg: DcnnConfig) -> Dict[str, Dict[str, tuple]]:
+    """``{"l{i}": {"w": (K, K, C_in, C_out), "b": (C_out,)}}``."""
+    return {f"l{i}": {"w": (l.kernel, l.kernel, l.c_in, l.c_out),
+                      "b": (l.c_out,)} for i, l in enumerate(cfg.layers)}
+
+
+def _params_from_numpy(tree, shapes, cfg: DcnnConfig, device, names: str):
+    """Tensors in ``cfg``'s dtype on ``device`` from a tree of arrays whose
+    keys (``names``, for the message) and shapes are exactly ``shapes``'."""
+    if set(tree) != set(shapes):
+        raise ValueError(f"{cfg.name} expects params {names}, got "
+                         f"{sorted(tree)}")
+    p: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, want in shapes.items():
+        if set(tree[key]) != set(want):
+            raise ValueError(f"{cfg.name} {key}: expected leaves "
+                             f"{sorted(want)}, got {sorted(tree[key])}")
+        p[key] = {}
+        for name, shape in want.items():
+            a = np.asarray(tree[key][name])
+            if a.shape != shape:
+                raise ValueError(f"{cfg.name} {key}.{name}: expected shape "
+                                 f"{shape}, got {a.shape}")
+            p[key][name] = torch.as_tensor(
+                np.array(a, dtype=np.float32)).to(device=device,
+                                                  dtype=cfg.torch_dtype)
+    return p
+
+
 def generator_params_from_numpy(tree, cfg: DcnnConfig,
                                 device) -> Dict[str, Dict[str, torch.Tensor]]:
     """The port's params from a ``{"l{i}": {"w", "b"}}`` tree of arrays (the
     JAX package's params as numpy), every shape checked against ``cfg``."""
-    if set(tree) != {f"l{i}" for i in range(len(cfg.layers))}:
-        raise ValueError(f"{cfg.name} expects params l0..l{len(cfg.layers) - 1}"
-                         f", got {sorted(tree)}")
-    p: Dict[str, Dict[str, torch.Tensor]] = {}
-    for i, l in enumerate(cfg.layers):
-        want = {"w": (l.kernel, l.kernel, l.c_in, l.c_out), "b": (l.c_out,)}
-        p[f"l{i}"] = {}
-        for name, shape in want.items():
-            a = np.asarray(tree[f"l{i}"][name])
-            if a.shape != shape:
-                raise ValueError(f"{cfg.name} l{i}.{name}: expected shape "
-                                 f"{shape}, got {a.shape}")
-            p[f"l{i}"][name] = torch.as_tensor(
-                np.array(a, dtype=np.float32)).to(device=device,
-                                                  dtype=cfg.torch_dtype)
-    return p
+    return _params_from_numpy(tree, generator_shapes(cfg), cfg, device,
+                              f"l0..l{len(cfg.layers) - 1}")
 
 
 # ---------------------------------------------------------------------------
@@ -201,8 +215,11 @@ def generator_apply(
     them once); on "cuda" and "cuda_sparse" they are passed to the kernel
     as they are, else padded per call.  ``return_intermediates=True``
     also returns the per-layer *inputs*: ``(images, [x_0, ..., x_{L-1}])``.
-    Nothing on "cuda_sparse" takes a gradient: its schedule is built from
-    frozen weights.
+
+    "cuda" and "cuda_sparse" build no autograd graph: their ops raise when
+    asked to (grad mode on and an operand that requires grad).  Training
+    runs "cuda" through `make_fused_generator`; "cuda_sparse" does not
+    train (its schedule is built from frozen weights).
     """
     if plan is not None:
         if plan.precision != "fp32":
@@ -229,14 +246,13 @@ def generator_apply(
             from ..kernels.deconv2d_sparse import deconv2d_sparse
 
             schedule = (sparse_plans or {}).get(i)
-            with torch.no_grad():
-                if plan is not None:
-                    x = deconv2d_sparse(x, w, b, plan=plan.layers[i],
-                                        schedule=schedule, static=static)
-                else:
-                    x = deconv2d_sparse(x, w, b, l.stride, l.padding,
-                                        activation=l.activation,
-                                        schedule=schedule, static=static)
+            if plan is not None:
+                x = deconv2d_sparse(x, w, b, plan=plan.layers[i],
+                                    schedule=schedule, static=static)
+            else:
+                x = deconv2d_sparse(x, w, b, l.stride, l.padding,
+                                    activation=l.activation,
+                                    schedule=schedule, static=static)
         else:
             from ..kernels.deconv2d import deconv2d
 
@@ -250,3 +266,128 @@ def generator_apply(
     if return_intermediates:
         return x, inters
     return x
+
+
+def make_fused_generator(cfg: DcnnConfig, fwd_backend: str = "cuda",
+                         plan=None):
+    """Differentiable generator ``apply(p, z)`` whose forward runs the
+    serving kernel and whose backward is autograd of the reverse loop:
+    the JAX package's ``make_fused_generator`` (a ``custom_vjp``) as a
+    ``torch.autograd.Function``.
+
+    The forward is ``generator_apply(backend=fwd_backend)``, or the pinned
+    fp32 ``plan``'s backend and tiles: on "cuda" one B1 launch per layer
+    on the card, the kernel's plain version on CPU tensors.  The backward
+    rematerialises the reverse-loop forward on detached copies of the
+    params and ``z`` and takes ``torch.autograd.grad`` through it; nothing
+    of the kernel's forward is reused, as in the reference.  Every call
+    reads the params it is given: no padded copy of a weight is kept
+    across calls, so an optimizer step is seen by the next forward.
+
+    "cuda_sparse" is rejected: its zero-skip schedule is built from frozen
+    weights, which training updates each step."""
+    if plan is not None:
+        fwd_backend = plan.backend
+    if fwd_backend == "cuda_sparse":
+        raise ValueError(
+            "cuda_sparse is inference-only: the static zero-skip plan is "
+            "derived from frozen weights, which training updates each step")
+    keys = [(f"l{i}", n) for i in range(len(cfg.layers)) for n in ("w", "b")]
+
+    def tree(leaves):
+        p: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (layer, name), t in zip(keys, leaves):
+            p.setdefault(layer, {})[name] = t
+        return p
+
+    class FusedGenerator(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, z, *leaves):
+            ctx.save_for_backward(z, *leaves)
+            return generator_apply(tree(leaves), cfg, z, backend=fwd_backend,
+                                   plan=plan)
+
+        @staticmethod
+        @torch.autograd.function.once_differentiable
+        def backward(ctx, ct):
+            saved = ctx.saved_tensors
+            needs = ctx.needs_input_grad
+            with torch.enable_grad():
+                inputs = [t.detach().requires_grad_(need)
+                          for t, need in zip(saved, needs)]
+                y = generator_apply(tree(inputs[1:]), cfg, inputs[0],
+                                    backend="reverse_loop")
+                wanted = [t for t in inputs if t.requires_grad]
+                grads = iter(torch.autograd.grad(y, wanted, ct))
+            return tuple(next(grads) if need else None for need in needs)
+
+    def apply(p, z):
+        return FusedGenerator.apply(z, *(p[l][n] for l, n in keys))
+
+    return apply
+
+
+# ---------------------------------------------------------------------------
+# Critic (WGAN-GP discriminator: strided convs, LeakyReLU, no norm)
+# ---------------------------------------------------------------------------
+def _critic_channels(cfg: DcnnConfig) -> List[int]:
+    return [cfg.img_c] + [64 * (2 ** i) for i in range(len(cfg.layers) - 1)]
+
+
+def critic_shapes(cfg: DcnnConfig) -> Dict[str, Dict[str, tuple]]:
+    """``{"c{i}": {"w": (4, 4, C_in, C_out), "b"}, "head": {"w": (D, 1),
+    "b": (1,)}}``: one stride-2 conv per generator layer but the first,
+    then a dense head over the flattened NHWC features."""
+    chans = _critic_channels(cfg)
+    shapes = {f"c{i}": {"w": (4, 4, chans[i], chans[i + 1]),
+                        "b": (chans[i + 1],)} for i in range(len(chans) - 1)}
+    hw = cfg.img_hw
+    for _ in range(len(chans) - 1):
+        hw //= 2
+    shapes["head"] = {"w": (hw * hw * chans[-1], 1), "b": (1,)}
+    return shapes
+
+
+def critic_init(generator: torch.Generator, cfg: DcnnConfig,
+                device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Random critic params on ``device``: LeCun-normal weights (fan-in
+    C_in x 16 for the convs), zero biases.  Draws do not match the JAX
+    package's; parity tests load its params through
+    `critic_params_from_numpy`."""
+    p: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, want in critic_shapes(cfg).items():
+        if key == "head":
+            d_flat = want["w"][0]
+            p[key] = nn.dense_init(generator, d_flat, 1, cfg.torch_dtype,
+                                   bias=True, device=device)
+            continue
+        k, _, ci, co = want["w"]
+        p[key] = {"w": lecun_init(generator, want["w"], cfg.torch_dtype,
+                                  fan_in=ci * k * k).to(device),
+                  "b": torch.zeros((co,), dtype=cfg.torch_dtype,
+                                   device=device)}
+    return p
+
+
+def critic_params_from_numpy(tree, cfg: DcnnConfig,
+                             device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's critic params from the JAX package's ``{"c{i}": {"w",
+    "b"}, "head": {"w", "b"}}`` as numpy, every shape checked."""
+    return _params_from_numpy(tree, critic_shapes(cfg), cfg, device,
+                              f"c0..c{len(cfg.layers) - 2}, head")
+
+
+def critic_apply(p, cfg: DcnnConfig, x: torch.Tensor) -> torch.Tensor:
+    """Scores ``(B,)`` of NHWC images ``x``: per conv ``F.conv2d`` (stride
+    2, padding 1; cuDNN on the card, TF32 off) on NCHW views of the NHWC
+    activations and HWIO weights, then LeakyReLU(0.2); the head flattens
+    the features in NHWC order, as the reference does."""
+    fp32_exact(x.device)
+    n_conv = len([k for k in p if k.startswith("c")])
+    h = x.permute(0, 3, 1, 2)
+    for i in range(n_conv):
+        h = F.conv2d(h, p[f"c{i}"]["w"].permute(3, 2, 0, 1), p[f"c{i}"]["b"],
+                     stride=2, padding=1)
+        h = F.leaky_relu(h, 0.2)
+    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+    return nn.dense(p["head"], h)[:, 0]

@@ -1,0 +1,25 @@
+"""Learning-rate schedules: functions of the optimizer's int32 step tensor
+returning an f32 scalar tensor (the JAX package's ``repro.optim.schedule``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
+                  final_frac: float = 0.1):
+    def fn(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = peak_lr * step / max(warmup_steps, 1)
+        prog = torch.clamp((step - warmup_steps)
+                           / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        cos = peak_lr * (final_frac + (1 - final_frac)
+                         * 0.5 * (1 + torch.cos(math.pi * prog)))
+        return torch.where(step < warmup_steps, warm, cos)
+    return fn
+
+
+def constant(lr: float):
+    return lambda step: torch.tensor(lr, dtype=torch.float32,
+                                     device=step.device)

@@ -2,8 +2,8 @@
 from .deconv_plan import (PLAN_SCHEMA_VERSION, DeconvPlan, PlanSchemaError,
                           build_layer_plan)
 from .network_plan import (NetworkPlan, build_network_plan,
-                           variant_fingerprints)
+                           executable_fingerprints, variant_fingerprints)
 
 __all__ = ["PLAN_SCHEMA_VERSION", "DeconvPlan", "NetworkPlan",
            "PlanSchemaError", "build_layer_plan", "build_network_plan",
-           "variant_fingerprints"]
+           "executable_fingerprints", "variant_fingerprints"]

@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from ..kernels.autotune import TileChoice
 from .deconv_plan import (PLAN_SCHEMA_VERSION, DeconvPlan, PlanSchemaError,
                           _sparse_digest, build_layer_plan)
 
@@ -59,6 +60,13 @@ class NetworkPlan:
 
     def __post_init__(self):
         _check_precision(self.precision)
+
+    def tile_overrides(self) -> Optional[Dict[int, TileChoice]]:
+        """Per-layer `autotune.TileChoice` map, or None when a layer has no
+        resolved tiles."""
+        if any(l.tiles is None for l in self.layers):
+            return None
+        return {i: l.tiles for i, l in enumerate(self.layers)}
 
     def sparse_plans(self) -> Optional[Dict[int, tuple]]:
         """Per-layer zero-skip schedules of a zero-skip plan ("cuda_sparse",
@@ -274,6 +282,23 @@ def build_network_plan(
                        batch=batch, layers=layers,
                        quant_strategy=quant_cfg.strategy if int8 else None,
                        workload=workload_name_for(cfg))
+
+
+def executable_fingerprints(plans) -> Dict[int, str]:
+    """{per-device batch -> stable hash} over a collection of
+    `NetworkPlan`s: the "same executable everywhere" check (a trainer's
+    ``plan_fingerprints`` against a serving engine's plans).  Two plans
+    for the same batch must agree on the hash; raises when they do not.
+    The JAX package's function, copied."""
+    out: Dict[int, str] = {}
+    for p in plans:
+        h = p.stable_hash()
+        prev = out.setdefault(p.batch, h)
+        if prev != h:
+            raise ValueError(
+                f"two plans for per-device batch {p.batch} disagree: "
+                f"{prev} vs {h}")
+    return out
 
 
 def variant_fingerprints(plans) -> Dict[str, str]:

@@ -8,7 +8,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_dcnn_torch.py"]
+    [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_dcnn_torch.py",
+     ROOT / "examples" / "train_wgan_mnist_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 

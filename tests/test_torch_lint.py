@@ -14,7 +14,9 @@ TARGETS = ["src/repro_torch/serve/engine.py",
            "src/repro_torch/serve/scheduler.py",
            "src/repro_torch/obs/metrics.py",
            "src/repro_torch/obs/trace.py",
-           "src/repro_torch/dist/fault.py"]
+           "src/repro_torch/dist/fault.py",
+           "src/repro_torch/ckpt/checkpoint.py",
+           "src/repro_torch/data/pipeline.py"]
 
 
 @pytest.mark.parametrize("path", TARGETS)
