@@ -6,12 +6,22 @@ frontend.
     PYTHONPATH=src python examples/serve_dcnn_torch.py [--net celeba]
         [--reqs 20] [--batch 16] [--precision int8] [--backend cuda]
         [--async [--slo-ms 50]] [--trace out.json] [--device cuda]
+        [--plan-json plan.json]
 
 The engine runs on the card (``--device cuda``, the default; without a
 card it raises instead of running on the CPU) unless ``--device cpu``
 asks for the CPU, where the "cuda" backend runs each kernel's plain
 version.  Each bucket is one pinned plan and, on the card, one captured
 CUDA graph; mixed request sizes never build another.
+
+``--plan-json`` writes the engine's largest-bucket NetworkPlan to disk:
+the artifact a deployment pins next to its checkpoint and reloads with
+``NetworkPlan.load`` to serve exactly the validated configuration.  If
+the file already exists it is loaded instead: the static plan DRC
+(`repro_torch.analysis.check`, against the H100) runs before the engine
+is built, and a plan that fails prints the rule-by-rule report and exits
+2 (a plan pinned by the JAX package fails until `NetworkPlan.for_hopper`
+has mapped it).
 
 ``--async`` routes the stream through `AsyncServeFrontend`: requests carry
 a per-tenant deadline (``--slo-ms``), admission control sheds typed what
@@ -90,14 +100,36 @@ def run_async(cfg, params, args):
         fe.close()
 
 
+def load_pinned(path):
+    """The pinned plan at ``path`` after a clean DRC; prints the report and
+    exits 2 when the check fails."""
+    from repro_torch.analysis.check import check_plan_json
+    from repro_torch.plan import NetworkPlan
+
+    report = check_plan_json(path)
+    if not report.ok():
+        print(f"pinned plan {path} failed design-rule check:")
+        print(report.render())
+        sys.exit(2)
+    pinned = NetworkPlan.load(path)
+    print(f"pinned plan {pinned.stable_hash()} <- {path} "
+          f"(DRC clean: {len(report.rules_run)} rules)")
+    return pinned
+
+
 def run_sync(cfg, params, args):
     """The request stream through one engine's submit/collect queue;
-    returns the engine."""
+    returns the engine.  A pre-existing ``--plan-json`` is a pinned
+    deployment artifact: DRC'd and served; a fresh path is written at the
+    end instead."""
+    pinned = None
+    if args.plan_json and os.path.exists(args.plan_json):
+        pinned = load_pinned(args.plan_json)
     eng = DcnnServeEngine.from_config(
         EngineConfig(model=cfg, backend=args.backend,
                      precision=args.precision, max_batch=args.batch,
                      warmup=True, calib_batch=32, device=args.device),
-        params)
+        params, plan=pinned)
     ops_per_img = sum(g.ops for g in cfg.geometries())
     rng = np.random.RandomState(0)
     lat, imgs = [], None
@@ -114,6 +146,10 @@ def run_sync(cfg, params, args):
           f"{1000 * lat.mean():.2f} ms/image, last images {imgs.shape}, "
           f"{eng.total_captures} executables / {eng.plan_stats['builds']} "
           f"plan builds over {len(eng.buckets)} buckets")
+    if args.plan_json and pinned is None:
+        plan = eng.plans[eng.max_bucket]
+        plan.to_json(args.plan_json)
+        print(f"pinned plan {plan.stable_hash()} -> {args.plan_json}")
     eng.close()
     return eng
 
@@ -138,6 +174,9 @@ def main(argv=None):
                     help="gold-tenant latency SLO for --async (ms)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record a Perfetto trace of the run to this path")
+    ap.add_argument("--plan-json", default=None, metavar="PATH",
+                    help="write the largest bucket's NetworkPlan here, or "
+                         "DRC and serve the plan pinned there")
     args = ap.parse_args(argv)
 
     try:

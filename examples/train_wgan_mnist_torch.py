@@ -4,10 +4,14 @@ the PyTorch port, with async checkpointing, and report the final MMD
 
     PYTHONPATH=src python examples/train_wgan_mnist_torch.py [--steps 200]
     PYTHONPATH=src python examples/train_wgan_mnist_torch.py --device cpu --steps 4
+    PYTHONPATH=src python examples/train_wgan_mnist_torch.py --mesh --steps 4
 
 ``--backend cuda`` runs the generator's forward through the serving
 kernel (the plain version of it on the CPU) with the reverse loop's
-autograd as the backward.  The default device is the card.
+autograd as the backward.  The default device is the card.  ``--mesh``
+shards the critic and generator steps over every visible card
+(`launch.mesh.make_serving_mesh`; ``--mesh N`` over the first N, or with
+``--device cpu`` over N shards on the CPU).
 """
 import argparse
 import os
@@ -23,6 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.ckpt import AsyncCheckpointer  # noqa: E402
 from repro_torch.core.mmd import mmd  # noqa: E402
 from repro_torch.data import image_source  # noqa: E402
+from repro_torch.launch import make_serving_mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import MNIST_DCNN, generator_apply  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.train import train_wgan  # noqa: E402
@@ -42,6 +47,10 @@ def main():
                          "the serving kernel with the reverse-loop backward)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
+    ap.add_argument("--mesh", nargs="?", const=0, type=int, default=None,
+                    metavar="N",
+                    help="shard the steps over N devices (default: every "
+                         "visible card; with --device cpu, N CPU shards)")
     args = ap.parse_args()
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         sys.exit("no CUDA device; pass --device cpu to train on the CPU")
@@ -52,13 +61,19 @@ def main():
     src = image_source("mnist", seed=0, batch=args.batch)
     ck = AsyncCheckpointer(ckpt_dir, keep=2)
 
+    mesh = None
+    if args.mesh is not None:
+        mesh = (make_test_mesh(args.mesh or 2, device="cpu")
+                if args.device == "cpu" else make_serving_mesh(args.mesh))
+        print(f"mesh: {mesh.shape} over {[str(d) for d in mesh.devices]}")
+
     gp, dp, hist = train_wgan(
         cfg, src, steps=args.steps, seed=0,
         g_opt=AdamW(lr=2e-4, b1=0.5, b2=0.9),
         d_opt=AdamW(lr=2e-4, b1=0.5, b2=0.9),
         n_critic=5, log_every=max(args.steps // 10, 1),
         ckpt=ck, ckpt_every=max(args.steps // 4, 1),
-        backend=args.backend, device=args.device,
+        backend=args.backend, device=args.device, mesh=mesh,
         resume_from=ckpt_dir if args.resume else None)
     ck.wait()
 
@@ -69,12 +84,13 @@ def main():
 
     # quality: MMD between generated samples and held-out synthetic data
     z = torch.randn((64, cfg.z_dim), generator=torch.Generator().manual_seed(7))
+    device = gp["l0"]["w"].device
     with torch.no_grad():
-        fake = generator_apply(gp, cfg, z.to(args.device)).reshape(64, -1)
+        fake = generator_apply(gp, cfg, z.to(device)).reshape(64, -1)
     # enough held-out batches to reach 64 rows whatever --batch is
     held = np.concatenate([src.batch(10_000 + i)["images"]
                            for i in range(-(-64 // args.batch))])[:64]
-    real = torch.from_numpy(held).to(args.device).reshape(64, -1)
+    real = torch.from_numpy(held).to(device).reshape(64, -1)
     print(f"\nfinal MMD(fake, real) = {float(mmd(real, fake)):.4f}")
     print(f"checkpoints in {ckpt_dir}")
 

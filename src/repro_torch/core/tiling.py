@@ -425,6 +425,18 @@ def dtype_name(dtype) -> str:
     return {"fp32": "float32", "bf16": "bfloat16"}.get(name, name)
 
 
+# bytes per element and the channels one k-step of the kernel's mma takes
+# (its CI chunks are a multiple of it: m16n8k8 TF32, m16n8k16 bf16,
+# m16n8k32 s8), per dtype name
+DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+CI_STEP = {"float32": 8, "bfloat16": 16, "int8": 32}
+
+
+def dtype_bytes(dtype) -> int:
+    """Bytes per element of a dtype (or its name)."""
+    return DTYPE_BYTES[dtype_name(dtype)]
+
+
 def kernel_for(dtype) -> str:
     """The kernel that runs a layer of ``dtype``: fp32, bf16 and int8 all
     on the tensor cores."""

@@ -1,13 +1,13 @@
-"""Fault tolerance on one device: deterministic fault injection, straggler
-detection and liveness heartbeats (the single-device part of the JAX
-package's ``dist``; sharding, meshes and elastic remesh wait for the
-multi-device port)."""
-from .fault import Heartbeat, StragglerMonitor
+"""Fault tolerance and data parallelism: deterministic fault injection,
+straggler detection, liveness heartbeats, elastic meshes and the DCNN
+paths' batch sharding (the JAX package's ``dist`` without its LM-side
+context, pipeline and rule policies)."""
+from .fault import Heartbeat, StragglerMonitor, elastic_mesh, reshard_tree
 from .inject import (DeviceLoss, DeviceLossError, FaultError, FaultInjector,
                      SlowCall, TransientCallError, TransientFailure)
 
 __all__ = [
-    "Heartbeat", "StragglerMonitor",
+    "Heartbeat", "StragglerMonitor", "elastic_mesh", "reshard_tree",
     "DeviceLoss", "DeviceLossError", "FaultError", "FaultInjector",
     "SlowCall", "TransientCallError", "TransientFailure",
 ]

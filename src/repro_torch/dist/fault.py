@@ -1,11 +1,11 @@
-"""Fault-tolerance primitives for one device: straggler detection and
-liveness heartbeats.
+"""Fault-tolerance primitives: straggler detection, liveness heartbeats
+and elastic meshes (the JAX package's ``dist/fault.py``).
 
-The single-device half of the JAX package's ``dist/fault.py``, copied:
 `StragglerMonitor` flags a dispatch slower than a factor of its bucket's
 healthy EMA, and `Heartbeat` fires a callback when an armed caller stays
-silent past a timeout.  Elastic meshes (``elastic_mesh``,
-``reshard_tree``) wait for the multi-device port.
+silent past a timeout (both copied).  `elastic_mesh` shrinks a
+`launch.mesh.DeviceMesh` onto the surviving prefix of its devices, and
+`reshard_tree` moves a tree of tensors onto the devices of the new mesh.
 
 The serving engine arms its heartbeat around each dispatch attempt; the
 watcher thread only reads the clock and runs the callback, which counts
@@ -16,9 +16,9 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
-__all__ = ["Heartbeat", "StragglerMonitor"]
+__all__ = ["Heartbeat", "StragglerMonitor", "elastic_mesh", "reshard_tree"]
 
 
 class StragglerMonitor:
@@ -140,3 +140,36 @@ class Heartbeat:
     def close(self) -> None:
         self._stop.set()
         self._thread.join(timeout=1.0)
+
+
+def elastic_mesh(devices: Sequence, model_parallel: int = 1):
+    """(data, model) `launch.mesh.DeviceMesh` over the largest usable
+    prefix of ``devices``.
+
+    The model axis is fixed by the sharded weights; losing devices shrinks
+    the data axis: data = len(devices) // model_parallel.  Surviving
+    devices beyond data*model are left idle (they rejoin at the next
+    remesh): the paper-style graceful degradation for edge fleets.
+    """
+    from ..launch.mesh import DeviceMesh
+
+    if model_parallel < 1:
+        raise ValueError("model_parallel must be >= 1")
+    data = len(devices) // model_parallel
+    if data < 1:
+        raise ValueError(
+            f"{len(devices)} device(s) cannot host model_parallel="
+            f"{model_parallel}")
+    return DeviceMesh(tuple(devices[: data * model_parallel]),
+                      model=model_parallel)
+
+
+def reshard_tree(tree, devices):
+    """Migrate a tree of tensors (e.g. after an elastic remesh): with one
+    device, a copy of ``tree`` on it; with a sequence of devices, one copy
+    per device (a replicated tree, `sharding.replicate`)."""
+    from .sharding import replicate
+
+    if isinstance(devices, (list, tuple)):
+        return replicate(tree, devices)
+    return replicate(tree, [devices])[0]

@@ -31,7 +31,7 @@ import torch
 
 from ...core.deconv import fp32_exact, phase_products
 from ...core.offsets import PhasePlan, make_phase_plan
-from ...core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_STRIDE,
+from ...core.tiling import (CI_STEP, KERNEL_MAX_SMEM, KERNEL_MAX_STRIDE,
                             KERNEL_MAX_TAPS, KERNEL_MAX_THREADS, halo_tile,
                             launch_threads, tc_smem_layout)
 from ..autotune import MAX_SPLIT, ci_split
@@ -41,10 +41,10 @@ _ACT_CODE = {None: 0, "none": 0, "relu": 1, "tanh": 2}
 # In step with `enum Dtype` in csrc/deconv2d_tc.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # per dtype code: its name, its kernel's, and the channels the kernel's CI
-# chunks are a multiple of (one k-step: m16n8k8 TF32, m16n8k16 bf16,
-# m16n8k32 s8)
-_KERNEL_OF_CODE = {0: ("float32", "fp32", 8), 1: ("bfloat16", "bf16", 16),
-                   2: ("int8", "int8", 32)}
+# chunks are a multiple of (`core.tiling.CI_STEP`)
+_KERNEL_OF_CODE = {code: (name, short, CI_STEP[name]) for code, name, short
+                   in ((0, "float32", "fp32"), (1, "bfloat16", "bf16"),
+                       (2, "int8", "int8"))}
 # In step with `enum Param` in csrc/deconv2d_tc.cu; the tap table follows.
 _TC_PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
                     "t_n", "t_oh", "t_ow", "t_ci", "t_co", "t_ih", "t_iw",
@@ -294,6 +294,18 @@ def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
                            f"says {want} bytes, the kernel {got}")
     params.flags.writeable = False
     return params
+
+
+def launch_report(params: np.ndarray) -> dict:
+    """What a launch with the parameter array ``params`` (from
+    `launch_params`) takes on the card: ``smem_bytes`` as the library's
+    ``deconv2d_tc_smem_bytes`` computes it, ``threads`` and ``split``."""
+    got = tc_library().deconv2d_tc_smem_bytes(
+        params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    check_rc("deconv2d", min(got, 0))
+    return {"smem_bytes": int(got),
+            "threads": int(params[_TC_PARAM_FIELDS.index("threads")]),
+            "split": int(params[_TC_PARAM_FIELDS.index("split")])}
 
 
 _lib: Optional[ctypes.CDLL] = None

@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from ..core.tiling import DeconvGeometry, dtype_name
+from ..core.tiling import DeconvGeometry, dtype_bytes, dtype_name
 from ..kernels.autotune import TileChoice, choose_tiles, hopper_tiles
 
 # Bump when the serialized plan layout changes incompatibly (the same
@@ -104,6 +104,34 @@ class DeconvPlan:
         blob = json.dumps(self.request_dict(scope), sort_keys=True,
                           separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()[:24]
+
+    # -- convenience ----------------------------------------------------
+    @property
+    def dtype_bytes(self) -> int:
+        return dtype_bytes(self.dtype)
+
+    def tile_kwargs(self) -> Dict[str, int]:
+        if self.tiles is None:
+            raise ValueError("plan has no resolved tiles "
+                             f"(backend={self.backend!r})")
+        return self.tiles.as_kwargs()
+
+    def padded_geometry(self) -> Tuple[int, ...]:
+        """`kernels.deconv2d.ops.halo_pad_geometry` at this plan's batch
+        and tiles: ``(oh, ow, ohp, owp, pad_l, pad_rh, pad_rw, cip, cop,
+        t_n, np_)``, the padded extents a launch of the layer has (the
+        launcher computes the same numbers from the same inputs)."""
+        from ..core.offsets import make_phase_plan
+        from ..kernels.deconv2d.ops import halo_pad_geometry
+
+        g, t = self.geometry, self.tiles
+        if t is None:
+            raise ValueError("plan has no resolved tiles "
+                             f"(backend={self.backend!r})")
+        pp = make_phase_plan(g.kernel, g.stride, g.padding)
+        return halo_pad_geometry(self.batch, g.in_h, g.in_w, g.c_in,
+                                 g.c_out, pp, t.t_oh, t.t_ow, t.t_ci,
+                                 t.t_co, t.t_n)
 
     # -- (de)serialization ---------------------------------------------
     def to_json_dict(self) -> Dict[str, Any]:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -166,8 +166,9 @@ class NetworkPlan:
         blob = json.dumps(d, sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()[:24]
 
-    def to_json(self) -> str:
-        return json.dumps({
+    def to_json(self, path: Optional[str] = None) -> str:
+        """The plan's JSON document (written to ``path`` too when given)."""
+        s = json.dumps({
             "schema": self.schema_version,
             "kind": "repro.NetworkPlan",
             "name": self.name,
@@ -179,6 +180,10 @@ class NetworkPlan:
             "stable_hash": self.stable_hash(),
             "layers": [l.to_json_dict() for l in self.layers],
         }, indent=1, sort_keys=True)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(s)
+        return s
 
     @classmethod
     def from_json(cls, s: str) -> "NetworkPlan":
@@ -213,6 +218,62 @@ class NetworkPlan:
                 "NetworkPlan content hash mismatch: the document was "
                 "edited after it was pinned")
         return plan
+
+    @classmethod
+    def load(cls, path: str) -> "NetworkPlan":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+    # -- roofline / traffic estimates ----------------------------------
+    def traffic_report(self) -> Dict[int, Any]:
+        """Per-layer modeled HBM traffic (`core.tiling.DeconvTraffic`) at
+        this plan's batch and tiles; empty for untiled backends."""
+        from ..core.tiling import deconv_traffic_batched
+
+        out: Dict[int, Any] = {}
+        for i, l in enumerate(self.layers):
+            if l.tiles is None:
+                continue
+            t = l.tiles
+            out[i] = deconv_traffic_batched(
+                l.geometry, self.batch, t.t_n, t.t_oh, t.t_ow, t.t_ci,
+                t.t_co, l.dtype_bytes, out_dtype_bytes=l.out_dtype_bytes)
+        return out
+
+    def modeled_attainable(self, device=None) -> Dict[int, Any]:
+        """Per-layer roofline `core.dse.DsePoint` at this plan's tiles, on
+        ``device`` (default `core.dse.H100_SXM`) at the layer's dtype peak:
+        int8 at its int8 rate (`Device.peak_for`), bf16 at its bf16
+        tensor-core rate where the device has one."""
+        from ..core.dse import H100_SXM, tile_attainable
+
+        device = H100_SXM if device is None else device
+        out: Dict[int, Any] = {}
+        for i, l in enumerate(self.layers):
+            if l.tiles is None:
+                continue
+            t = l.tiles
+            dev = device
+            if l.dtype == "bfloat16" and device.bf16_peak_ops > 0.0:
+                dev = dataclasses.replace(device,
+                                          peak_ops=device.bf16_peak_ops)
+            out[i] = tile_attainable(
+                l.geometry, t.t_oh, t.t_ow, t.t_ci, t.t_co, dev,
+                t_n=t.t_n, batch=self.batch, dtype_bytes=l.dtype_bytes,
+                out_dtype_bytes=l.out_dtype_bytes)
+        return out
+
+    def modeled_network_ops(self, device=None) -> Optional[float]:
+        """Whole-network modeled throughput (total ops / the sum of the
+        per-layer roofline times), the paper's network metric; None if a
+        layer is untiled."""
+        pts = self.modeled_attainable(device)
+        if len(pts) != len(self.layers):
+            return None
+        total_ops = sum(l.geometry.ops * self.batch for l in self.layers)
+        total_t = sum(l.geometry.ops * self.batch / pts[i].attainable_ops
+                      for i, l in enumerate(self.layers))
+        return total_ops / total_t
 
 
 def build_network_plan(

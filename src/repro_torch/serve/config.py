@@ -26,6 +26,12 @@ class EngineConfig:
                       self-calibrates with the ``calib_*`` knobs on
                       `workloads.calibration_input` (or takes the
                       calibration pinned in a provided int8 plan).
+    * ``mesh``      — an optional `launch.mesh.DeviceMesh`: every
+                      bucket's batch splits over the mesh's data axis,
+                      buckets round up to multiples of the device count,
+                      params replicate on every device, and the engine
+                      runs on the mesh's devices (``device`` is then not
+                      read).
     * ``buckets``/``max_batch`` — explicit bucket set, or power-of-two
                       buckets up to ``max_batch``.
     * ``warmup``    — build every bucket's executable (its plan and, on a
@@ -56,6 +62,9 @@ class EngineConfig:
     * ``default_deadline_s`` — queue deadline applied to `submit` when
       the caller gives none; an expired ticket fails typed
       (`DeadlineExceeded`) instead of executing stale work.
+    * ``elastic``   — on a device loss, remesh onto the survivors,
+                      re-align the buckets and re-plan (needs a mesh;
+                      False, or no mesh: the loss raises `EngineDegraded`).
     * ``device``    — where the engine runs: "cuda" unless the caller asks
                       for "cpu".  A missing card raises; the engine never
                       carries on quietly on the CPU.
@@ -65,6 +74,7 @@ class EngineConfig:
     backend: str = "cuda"
     precision: str = "fp32"
     quant_cfg: Any = None
+    mesh: Any = None
     calib_batch: int = 64
     calib_seed: int = 0
     calib_strategy: str = "mean_ksigma"
@@ -78,6 +88,7 @@ class EngineConfig:
     straggler_factor: float = 3.0
     straggler_warmup: int = 3
     default_deadline_s: Optional[float] = None
+    elastic: bool = True
     device: str = "cuda"
     refine: bool = False
 
@@ -94,13 +105,14 @@ class EngineConfig:
                              "variant")
 
     def torch_device(self) -> torch.device:
-        """The engine's device; raises if it is a CUDA device and no card
-        is present."""
-        dev = torch.device(self.device)
+        """The engine's device (the mesh's first where there is a mesh);
+        raises if it is a CUDA device and no card is present."""
+        dev = (self.mesh.devices[0] if self.mesh is not None
+               else torch.device(self.device))
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
-                f"EngineConfig.device={self.device!r} but no CUDA device is "
+                f"EngineConfig.device={str(dev)!r} but no CUDA device is "
                 "available; pass device='cpu' to serve on the CPU")
         if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device!r}")
+            raise ValueError(f"unsupported device {str(dev)!r}")
         return dev

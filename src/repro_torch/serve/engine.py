@@ -1,4 +1,4 @@
-"""Bucketed DCNN serving engine on one device.
+"""Bucketed DCNN serving engine, on one device or a data-parallel mesh.
 
 `DcnnServeEngine` is the paper's serving path: batched z -> image
 generation through a selectable deconvolution backend.  Request batches
@@ -22,14 +22,14 @@ so it returns float32 arrays whose values are all bf16 values.  (The JAX
 package returns bfloat16 arrays, which numpy cannot hold without
 ``ml_dtypes``.)
 
-Each bucket runs one `BucketExecutable`, built once from its pinned plan
+Each bucket runs one `ShardedExecutable`, built once from its pinned plan
 (the counterpart of the JAX engine's per-bucket ``jax.jit``): on a card,
 after one eager pass, everything from the static input z to the cropped
 images in a static output is captured in one CUDA graph, and a dispatch
 is a pinned host-to-device copy, one replay and a device-to-host copy of
 the images into pinned memory of their own, within a process-wide bound
 (`PINNED_RESULT_BYTES`), else into the bucket's pinned buffer and a copy
-out of it.  Capture or replay
+out of it.  On one device the executable holds one shard.  Capture or replay
 failures raise; nothing falls back to eager execution on the card.  A
 capture runs alone among the process's engines: their construction and
 dispatches wait for it (`CAPTURE_GATE`).  On the CPU (when the caller asks for it) the same
@@ -40,13 +40,32 @@ sums them; the counterparts of ``trace_counts`` and ``total_compiles``);
 path made by that bucket's dispatches, so a run can show that serving went
 through it.
 
+A pinned plan passes the plan DRC (`analysis.check.check_network_plan`)
+before anything else happens: a plan that would fail the kernel's launch
+checks (a tile over the card's shared memory, a reference backend not
+mapped by `NetworkPlan.for_hopper`, a broken int8 scale chain) is refused
+with a typed `PlanCheckError`, before any planning, static-operand
+preparation, kernel build or graph capture.
+
+With ``EngineConfig.mesh`` (a `launch.mesh.DeviceMesh`) the engine is one
+controller over the mesh's data axis, as the JAX engine's ``shard_map``
+is: buckets round up to multiples of the device count
+(`shard_aligned_buckets`), each bucket's plan is built for the per-shard
+batch (`shard_batch`), every device holds its own replica of the params
+and of the static operands and its own CUDA graph per bucket, and a
+dispatch splits the staged rows into contiguous shards, replays each
+device's graph and gathers the shards in order, through the same
+`ShardedExecutable` as one device's single shard.
+``throughput()`` then reports per-device rates.
+
 Faults and observability follow the JAX package's engine.  Every dispatch
 is guarded: an optional `dist.inject.FaultInjector` hook inside the timed
 window, a `dist.fault.Heartbeat` armed around each attempt (its callback
 only counts), bounded retry with backoff on `TransientCallError` (a retry
 replays the same executable; the backoff sleeps outside the dispatch lock
-and `CAPTURE_GATE`), exhausted retries and device loss raised as
-`EngineDegraded` (one device: nothing to remesh onto), and a per-bucket
+and `CAPTURE_GATE`), exhausted retries raised as `EngineDegraded`, a
+device loss remeshed onto the surviving devices when the engine serves an
+elastic mesh (`_remesh`; else `EngineDegraded`), and a per-bucket
 `StragglerMonitor` over the healthy steady samples.  A retried dispatch
 is *tainted*: counted beside, never inside, the Table II mean/std/CV.  The
 engine dual-writes an `obs.MetricsRegistry` (``engine.*`` series labelled
@@ -66,7 +85,8 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from ..dist.fault import Heartbeat, StragglerMonitor
+from ..dist.fault import Heartbeat, StragglerMonitor, elastic_mesh
+from ..dist.sharding import batch_slices, replicate
 from ..dist.inject import DeviceLossError, TransientCallError
 from ..kernels.deconv2d import int8 as int8_kernel
 from ..kernels.deconv2d import kernel as deconv_kernel
@@ -159,20 +179,36 @@ class _PinnedBudget:
 PINNED_RESULTS = _PinnedBudget(PINNED_RESULT_BYTES)
 
 
-class BucketExecutable:
-    """The device side of one bucket's dispatch, built once.
+def pinned_result(shape, dtype):
+    """``(tensor, its numpy view)``: new pinned memory for a dispatch's
+    images while `PINNED_RESULTS` allows (the budget gets its bytes back
+    when the view and every slice of it are dropped), else None."""
+    nbytes = int(np.prod(shape)) * dtype.itemsize
+    block = 1 << max(0, nbytes - 1).bit_length()
+    if not PINNED_RESULTS.take(block):
+        return None
+    try:
+        dst = torch.empty(shape, dtype=dtype, pin_memory=True)
+    except Exception:
+        PINNED_RESULTS.give(block)
+        raise
+    # the view holds the memory but not ``dst`` itself: watch the view
+    view = dst.numpy()
+    weakref.finalize(view, PINNED_RESULTS.give, block)
+    return dst, view
 
-    ``z_dev`` is the static input ``(bucket, *input_shape)`` and ``out_dev``
-    the static output ``(bucket, H, W, C)``; ``z_host`` and ``out_host``
+
+class BucketExecutable:
+    """One device's part of a bucket's dispatch, built once: one batch
+    shard (the whole bucket on a single device).
+
+    ``z_dev`` is the static input ``(rows, *input_shape)`` and ``out_dev``
+    the static output ``(rows, H, W, C)``; ``z_host`` and ``out_host``
     their host staging buffers (pinned on a card; on the CPU ``z_dev`` and
     ``out_dev`` themselves).  ``graph`` is the captured
     `torch.cuda.CUDAGraph` (None on the CPU, where ``body`` runs eagerly),
     and ``launches`` the launches of the path's kernel one replay makes
-    (counted while capturing; None on the CPU).
-
-    The next dispatch reuses the staging buffers, so no result aliases
-    them: the images come back into a pinned tensor of their own while
-    `PINNED_RESULTS` allows, else into ``out_host`` and are copied out."""
+    (counted while capturing; None on the CPU)."""
 
     def __init__(self, bucket, body, z_dev, out_dev, z_host, out_host,
                  graph=None, launches=None):
@@ -198,50 +234,83 @@ class BucketExecutable:
             raise RuntimeError(f"bucket {self.bucket}: CUDA graph replay "
                                f"failed: {e}") from e
 
-    def fetch(self, take: int) -> Optional[np.ndarray]:
-        """Enqueue the copy of the first ``take`` images (read it after the
-        stream has synchronised).  While `PINNED_RESULTS` allows they land
-        in a new pinned tensor, returned as its numpy view (the budget gets
-        its bytes back when the view and every slice of it are dropped);
-        else in ``out_host``, and None is returned."""
-        src = self.out_dev[:take]
-        block = 1 << max(0, src.nbytes - 1).bit_length()
-        if not PINNED_RESULTS.take(block):
-            self.out_host[:take].copy_(src, non_blocking=True)
-            return None
-        try:
-            dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        except Exception:
-            PINNED_RESULTS.give(block)
-            raise
-        dst.copy_(src, non_blocking=True)
-        # the view holds the memory but not ``dst`` itself: watch the view
-        view = dst.numpy()
-        weakref.finalize(view, PINNED_RESULTS.give, block)
-        return view
 
-    def images(self, view: Optional[np.ndarray], take: int) -> np.ndarray:
-        """``fetch``'s images in memory of their own: its pinned view, or
-        one thread's copy out of ``out_host`` (spread over torch's intra-op
-        threads, the copy waited on straggling threads often enough to
-        raise the mean and the CV; ``tools/probe_dispatch.py``)."""
-        if view is not None:
-            return view
-        return self.out_host[:take].numpy().copy()
+class ShardedExecutable:
+    """One bucket's dispatch: a `BucketExecutable` per batch shard, each
+    at the per-shard batch on its device (one shard on a single device).
+    A call splits the rows into contiguous shards in shard order and
+    stages each (padded with zeros), then per shard in order copies its
+    rows to its device, replays its graph and copies its images back:
+    into its rows of one new pinned result while `PINNED_RESULTS` allows
+    (the result is its numpy view), else into the shard's ``out_host``,
+    copied out on the host (the next dispatch reuses the staging buffers,
+    so no result aliases them).  On the CPU each shard's body runs
+    eagerly.  ``launches`` sums the shards'."""
+
+    def __init__(self, bucket, shards: List[BucketExecutable]):
+        self.bucket = bucket
+        self.shards = shards
+        self.slices = batch_slices(len(shards), bucket)
+        self.graph = shards[0].graph
+        self.launches = (None if shards[0].launches is None
+                         else sum(s.launches for s in shards))
+
+    def _takes(self, take: int):
+        """Per shard, its slice and how many of the first ``take`` rows
+        fall in it."""
+        return [(s, sl, max(0, min(take, sl.stop) - sl.start))
+                for s, sl in zip(self.shards, self.slices)]
+
+    def stage(self, rows: np.ndarray) -> None:
+        for s, sl in zip(self.shards, self.slices):
+            s.stage(rows[sl])
+
+    def enqueue(self, take: int):
+        """Per shard: the host-to-device copy, the replay and the copy of
+        its share of the first ``take`` images back (read them after
+        `wait`): into one new pinned tensor, returned with its numpy view,
+        while `PINNED_RESULTS` allows; else into each shard's
+        ``out_host``, and None is returned."""
+        out = self.shards[0].out_dev
+        got = pinned_result((take,) + tuple(out.shape[1:]), out.dtype)
+        for s, sl, n in self._takes(take):
+            with torch.cuda.device(s.z_dev.device):
+                s.z_dev.copy_(s.z_host, non_blocking=True)
+                s.replay()
+                if n:
+                    dst = (got[0][sl.start:sl.start + n] if got is not None
+                           else s.out_host[:n])
+                    dst.copy_(s.out_dev[:n], non_blocking=True)
+        return got
+
+    def wait(self) -> None:
+        for dev in {s.out_dev.device for s in self.shards}:
+            torch.cuda.current_stream(dev).synchronize()
+
+    def images(self, got, take: int) -> np.ndarray:
+        """`enqueue`'s images in memory of their own: its pinned view, or a
+        host copy out of the shards' ``out_host`` (one thread's copy:
+        spread over torch's intra-op threads, the copy waited on
+        straggling threads often enough to raise the mean and the CV;
+        ``tools/probe_dispatch.py``)."""
+        if got is not None:
+            return got[1]
+        return np.concatenate([s.out_host[:n].numpy()
+                               for s, _, n in self._takes(take)])
 
     def __call__(self, rows: np.ndarray) -> np.ndarray:
         """Images of ``rows`` (at most ``bucket`` of them), in memory of
         their own."""
-        self.stage(rows)
         take = rows.shape[0]
+        self.stage(rows)
         if self.graph is None:
-            self.body()
-            return self.out_dev[:take].numpy().copy()
-        self.z_dev.copy_(self.z_host, non_blocking=True)
-        self.replay()
-        view = self.fetch(take)
-        torch.cuda.current_stream(self.out_dev.device).synchronize()
-        return self.images(view, take)
+            for s in self.shards:
+                s.body()
+            return np.concatenate([s.out_dev[:n].numpy()
+                                   for s, _, n in self._takes(take)])
+        got = self.enqueue(take)
+        self.wait()
+        return self.images(got, take)
 
 
 def pow2_buckets(max_batch: int) -> Tuple[int, ...]:
@@ -254,13 +323,21 @@ def pow2_buckets(max_batch: int) -> Tuple[int, ...]:
     return tuple(sorted(set(out)))
 
 
+def shard_aligned_buckets(buckets, n_shards: int) -> Tuple[int, ...]:
+    """Round every bucket up to a multiple of the data-shard count (so each
+    device owns an equal sub-batch) and dedupe.  n_shards=1 is identity."""
+    if n_shards <= 1:
+        return tuple(sorted(set(int(b) for b in buckets)))
+    return tuple(sorted({-(-int(b) // n_shards) * n_shards for b in buckets}))
+
+
 class DcnnServeEngine:
     """The paper's inference workload: batched image generation through
     fixed batch buckets, one pinned plan per bucket.
 
     * **Bucketing** — `plan_chunks` decomposes a request batch into bucket
       calls, trading padded rows against per-call overhead.
-    * **Plan/execute** — each bucket's `NetworkPlan` and `BucketExecutable`
+    * **Plan/execute** — each bucket's `NetworkPlan` and `ShardedExecutable`
       are built once (lazily, or at construction with ``warmup=True``) and
       every dispatch executes them unchanged; ``plan_stats`` counts plan
       builds, ``capture_counts`` executables.
@@ -272,9 +349,12 @@ class DcnnServeEngine:
       the rows to the bucket to the images back on the host, started after
       a ``torch.cuda.synchronize()``; retried dispatches are tainted and
       kept out of those samples.
+    * **Mesh** — with ``EngineConfig.mesh`` each bucket's batch splits
+      over the mesh's data axis, one shard per device; buckets are rounded
+      up to device-count multiples and plans fitted to `shard_batch`.
     * **Faults** — ``fault_stats`` counts retries, transient failures,
-      stragglers, heartbeat fires, expired deadlines and sheds (the JAX
-      package's keys; ``remesh_events`` stays empty on one device).
+      stragglers, heartbeat fires, expired deadlines and sheds, and lists
+      the remesh events of an elastic mesh (the JAX package's keys).
     """
 
     @classmethod
@@ -284,9 +364,11 @@ class DcnnServeEngine:
         (moved to the engine's device and cast to the tower's dtype; pruned
         for "cuda_sparse"); ``plan`` an optional pinned `NetworkPlan` (for
         example a JAX-pinned document after `for_hopper`) for the bucket
-        whose batch matches ``plan.batch``.  An int8 plan also supplies the
-        calibration when ``cfg.quant_cfg`` is None, so a pinned deployment
-        never re-calibrates.  ``fault_injector`` is an optional
+        whose per-device batch matches ``plan.batch``.  The plan passes the
+        plan DRC first (`PlanCheckError` on a failure, before anything is
+        planned, prepared, built or captured).  An int8 plan also supplies
+        the calibration when ``cfg.quant_cfg`` is None, so a pinned
+        deployment never re-calibrates.  ``fault_injector`` is an optional
         `dist.inject.FaultInjector` hooked before every bucket dispatch
         (fault drills); ``metrics`` an optional shared
         `obs.MetricsRegistry` (the async frontend passes one to every
@@ -305,6 +387,8 @@ class DcnnServeEngine:
                fault_injector=None, metrics=None) -> None:
         self.config = config
         self.device = config.torch_device()
+        self.mesh = config.mesh
+        self.n_devices = self.mesh.data if self.mesh is not None else 1
         self.cfg = resolve_model(config.model)
         self.workload = workload_name_for(self.cfg)
         self.backend = config.backend
@@ -314,9 +398,18 @@ class DcnnServeEngine:
         dtype = self.cfg.torch_dtype
         params = {k: {n: t.to(device=self.device, dtype=dtype)
                       for n, t in v.items()} for k, v in params.items()}
-        self.buckets = tuple(sorted(set(
-            int(b) for b in (config.buckets if config.buckets
-                             else pow2_buckets(config.max_batch)))))
+        self.buckets = shard_aligned_buckets(
+            config.buckets if config.buckets
+            else pow2_buckets(config.max_batch), self.n_devices)
+        if plan is not None:
+            # static DRC before anything is planned, prepared, built or
+            # captured: a pinned plan that drifted from the code or was
+            # resolved for another part is refused here with the
+            # rule-by-rule report, not in a kernel's launch check
+            from ..analysis.check.plan_drc import check_network_plan
+
+            check_network_plan(plan, n_devices=self.n_devices,
+                               buckets=self.buckets).raise_if_failed()
         if self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive: {self.buckets}")
         self.max_bucket = self.buckets[-1]
@@ -327,14 +420,21 @@ class DcnnServeEngine:
         # capture_counts: per bucket, executables built (one, ever).
         self.launch_counts: Dict[int, int] = {}
         self.capture_counts: Dict[int, int] = {}
-        self._fns: Dict[int, BucketExecutable] = {}
-        # the launches' static operands under (layer, CIp, COp), across
-        # buckets; they live as long as the engine (graphs hold their
-        # addresses)
-        self._static: Dict[tuple, object] = {}
-        # all buckets' graphs share one memory pool: dispatches never overlap
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if self.device.type == "cuda" else None)
+        self._fns: Dict[int, ShardedExecutable] = {}
+        # per batch shard, the launches' static operands under (layer, CIp,
+        # COp), across buckets; they live as long as the engine (graphs
+        # hold their addresses).  ``_static`` is the first shard's.
+        self._statics: List[Dict[tuple, object]] = [
+            {} for _ in range(self.n_devices)]
+        self._static = self._statics[0]
+        # per device, all its buckets' graphs share one memory pool
+        # (dispatches never overlap) and one capture stream on that device
+        # (torch.cuda.graph's default stream is made once per process, on
+        # whichever device captured first)
+        self._capture = {d: (torch.cuda.graph_pool_handle(),
+                             torch.cuda.Stream(device=d))
+                         for d in set(self._shard_devices())
+                         if d.type == "cuda"}
         # guards every bucket's static buffers: generate may be called
         # outside drain, from another thread (CAPTURE_GATE orders it
         # against other engines' captures)
@@ -344,9 +444,9 @@ class DcnnServeEngine:
                         ("cuda_sparse", "fp32"): sparse_kernel}.get(
                             (self.backend, self.precision))
         # host schedules memoised under (layer, t_ci, t_co) across buckets;
-        # their device copies once per bucket plan
+        # their device copies once per bucket plan and shard
         self._sparse_tables: Dict[tuple, tuple] = {}
-        self._sparse_device: Dict[int, Dict[int, tuple]] = {}
+        self._sparse_device: Dict[tuple, Dict[int, tuple]] = {}
         self._warm: Set[int] = set()
         self.plan_stats = {"builds": 0, "build_seconds": 0.0}
         if plan is not None:
@@ -357,9 +457,13 @@ class DcnnServeEngine:
                     f"precision={plan.precision!r}; the engine config says "
                     f"{self.backend!r} / {self.precision!r}")
             plan.validate_for(self.cfg)
-            if plan.batch not in self.buckets:
-                raise ValueError(f"plan.batch={plan.batch} matches no bucket "
-                                 f"(buckets={self.buckets})")
+            seeded = [b for b in self.buckets
+                      if self.shard_batch(b) == plan.batch]
+            if not seeded:
+                raise ValueError(
+                    f"plan.batch={plan.batch} matches no bucket's per-device "
+                    f"batch (buckets={self.buckets}, {self.n_devices} "
+                    "device(s))")
             # a stale zero-skip schedule would skip now-nonzero slabs
             plan.verify_sparse_tables(params)
             if self.precision == "int8":
@@ -370,7 +474,8 @@ class DcnnServeEngine:
                         "EngineConfig.quant_cfg and the pinned plan carry "
                         "different calibrations; drop one of them (the "
                         "plan's scales are the ones its epilogues use)")
-            self.plans[plan.batch] = plan
+            for b in seeded:
+                self.plans[b] = plan
         if self.precision == "int8":
             from ..quant.calibrate import calibrate, quantize_params
             from ..quant.infer import pack_quantized_params
@@ -387,6 +492,10 @@ class DcnnServeEngine:
                 quantize_params(params, self.cfg, self.quant_cfg,
                                 device=self.device), self.cfg)
         self.params = params
+        # one replica per batch shard: the first is ``params`` itself, the
+        # others copies on their devices (even where a device repeats)
+        self._replicas = [params] + replicate(
+            params, self._shard_devices()[1:])
         # queue entries are (ticket, rows, absolute deadline or None).
         # _qlock guards the queue state; _drain_lock serializes drains;
         # _inflight names tickets a drain has taken off the queue but not
@@ -398,7 +507,6 @@ class DcnnServeEngine:
         self._results: Dict[int, np.ndarray] = {}
         self._failures: Dict[int, Exception] = {}
         self._next_id = 0
-        self.n_devices = 1
         self.stats = {"generate_calls": 0, "images": 0, "padded_images": 0,
                       "device_count": self.n_devices}
         self.bucket_stats: Dict[int, Dict[str, float]] = {}
@@ -446,14 +554,27 @@ class DcnnServeEngine:
             self._heartbeat.disarm()
 
     # -- per-bucket plans -----------------------------------------------
+    def _shard_devices(self) -> Tuple[torch.device, ...]:
+        """The device of each batch shard, in shard order."""
+        if self.mesh is None:
+            return (self.device,)
+        return self.mesh.data_devices
+
+    def shard_batch(self, bucket: int) -> int:
+        """The batch one device runs for a bucket (the bucket itself on one
+        device); plans and tiles are fitted to it."""
+        return bucket // self.n_devices
+
     def _plan_for(self, bucket: int):
-        """The bucket's pinned `NetworkPlan`, built on first use."""
+        """The bucket's pinned `NetworkPlan` (at its per-device batch),
+        built on first use."""
         if bucket not in self.plans:
             from ..plan import build_network_plan
 
             t0 = obsclock.now()
             self.plans[bucket] = build_network_plan(
-                self.cfg, batch=bucket, backend=self.backend,
+                self.cfg, batch=self.shard_batch(bucket),
+                backend=self.backend,
                 precision=self.precision, quant_cfg=self.quant_cfg,
                 params=(self.params if self.backend == "cuda_sparse"
                         else None),
@@ -468,31 +589,34 @@ class DcnnServeEngine:
                                   **self._mlabels)
         return self.plans[bucket]
 
-    def _apply(self, bucket: int, plan, z: torch.Tensor) -> torch.Tensor:
-        """The generator of the engine's path on one padded bucket, on the
-        engine's prepared static operands."""
+    def _apply(self, bucket: int, plan, z: torch.Tensor,
+               shard: int = 0) -> torch.Tensor:
+        """The generator of the engine's path on one padded bucket (on a
+        mesh: one shard of it, on that shard's device), on the shard's
+        params and prepared static operands."""
+        params = self._replicas[shard]
         if self.precision == "int8":
             from ..quant.infer import quantized_generator_apply
 
-            return quantized_generator_apply(self.params, self.cfg,
+            return quantized_generator_apply(params, self.cfg,
                                              self.quant_cfg, z, plan=plan)
         sparse = None
         if self.backend == "cuda_sparse":
             from ..kernels.deconv2d_sparse import schedule_tensors
 
-            sparse = self._sparse_device.get(bucket)
+            sparse = self._sparse_device.get((bucket, shard))
             if sparse is None:
-                sparse = self._sparse_device[bucket] = {
-                    i: schedule_tensors(t, self.device)
+                sparse = self._sparse_device[bucket, shard] = {
+                    i: schedule_tensors(t, z.device)
                     for i, t in plan.sparse_plans().items()}
-        return generator_apply(self.params, self.cfg, z, plan=plan,
+        return generator_apply(params, self.cfg, z, plan=plan,
                                sparse_plans=sparse,
-                               prepared=self._prepared(plan))
+                               prepared=self._prepared(plan, shard))
 
-    def _prepared(self, plan) -> Optional[Dict[int, object]]:
-        """Per layer the `StaticOperands` of ``plan``'s tiles, prepared at
-        the first plan that needs them and held (None on untiled
-        backends)."""
+    def _prepared(self, plan, shard: int = 0) -> Optional[Dict[int, object]]:
+        """Per layer the `StaticOperands` of ``plan``'s tiles on the shard's
+        device, prepared at the first plan that needs them and held (None
+        on untiled backends)."""
         if self.backend not in ("cuda", "cuda_sparse"):
             return None
         from ..kernels.deconv2d.ops import _round_up, prepare_static
@@ -501,15 +625,15 @@ class DcnnServeEngine:
         for i, l in enumerate(plan.layers):
             g, t = l.geometry, l.tiles
             key = (i, _round_up(g.c_in, t.t_ci), _round_up(g.c_out, t.t_co))
-            st = self._static.get(key)
+            statics = self._statics[shard]
+            st = statics.get(key)
             if st is None:
-                p = self.params[f"l{i}"]
-                st = self._static[key] = prepare_static(p["w"], p["b"],
-                                                        *key[1:])
+                p = self._replicas[shard][f"l{i}"]
+                st = statics[key] = prepare_static(p["w"], p["b"], *key[1:])
             out[i] = st
         return out
 
-    def _get_fn(self, bucket: int) -> BucketExecutable:
+    def _get_fn(self, bucket: int) -> ShardedExecutable:
         """The bucket's executable, built once from its pinned plan, with
         `CAPTURE_GATE` held exclusive (planning may time tiles on the
         card)."""
@@ -522,34 +646,44 @@ class DcnnServeEngine:
                 self.capture_counts.get(bucket, 0) + 1
         return ex
 
-    def _build(self, bucket: int, plan) -> BucketExecutable:
-        """On a card: one eager pass (it builds the kernel library, sets the
-        kernels' shared-memory attribute, copies the schedules, prepares the
-        static operands and warms the allocator), then the capture of
-        everything from the static input to the static output on a side
-        stream, in thread-local mode (`CAPTURE_GATE` keeps the engines'
-        dispatches out of it; other threads' CUDA work does not break it).
-        On the CPU the body runs eagerly at each dispatch.  The static
-        input and output are float32 whatever the tower's dtype: the body
-        casts z to it and the images back."""
+    def _build(self, bucket: int, plan) -> ShardedExecutable:
+        """The bucket's executable: a `BucketExecutable` per batch shard."""
+        return ShardedExecutable(bucket, [
+            self._build_shard(bucket, plan, i)
+            for i in range(self.n_devices)])
+
+    def _build_shard(self, bucket: int, plan, shard: int) -> BucketExecutable:
+        """One shard's `BucketExecutable` at the per-device batch, on the
+        shard's device.  On a card: one eager pass (it builds the kernel
+        library, sets the kernels' shared-memory attribute, copies the
+        schedules, prepares the static operands and warms the allocator),
+        then the capture of everything from the static input to the static
+        output on a side stream, in thread-local mode (`CAPTURE_GATE` keeps
+        the engines' dispatches out of it; other threads' CUDA work does
+        not break it).  On the CPU the body runs eagerly at each dispatch.
+        The static input and output are float32 whatever the tower's
+        dtype: the body casts z to it and the images back."""
         dtype = torch.float32
-        z_dev = torch.zeros((bucket,) + self.cfg.input_shape, dtype=dtype,
-                            device=self.device)
-        out_dev = torch.empty((bucket,) + self.output_shape, dtype=dtype,
-                              device=self.device)
+        device = self._shard_devices()[shard]
+        rows = self.shard_batch(bucket)
+        z_dev = torch.zeros((rows,) + self.cfg.input_shape, dtype=dtype,
+                            device=device)
+        out_dev = torch.empty((rows,) + self.output_shape, dtype=dtype,
+                              device=device)
 
         def body():
             with torch.no_grad():
-                out_dev.copy_(self._apply(bucket, plan, z_dev))
+                out_dev.copy_(self._apply(bucket, plan, z_dev, shard))
 
-        if self.device.type == "cpu":
-            return BucketExecutable(bucket, body, z_dev, out_dev, z_dev,
+        if device.type == "cpu":
+            return BucketExecutable(rows, body, z_dev, out_dev, z_dev,
                                     out_dev)
         try:
-            with torch.cuda.device(self.device):
+            with torch.cuda.device(device):
                 body()
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(device)
                 graph = torch.cuda.CUDAGraph()
+                pool, stream = self._capture[device]
                 before = self._launches()
                 # a collection inside the capture could free a dropped
                 # engine's graph or pinned buffers: calls a capture refuses
@@ -557,7 +691,7 @@ class DcnnServeEngine:
                 gc_on = gc.isenabled()
                 gc.disable()
                 try:
-                    with torch.cuda.graph(graph, pool=self._pool,
+                    with torch.cuda.graph(graph, pool=pool, stream=stream,
                                           capture_error_mode="thread_local"):
                         body()
                 finally:
@@ -565,11 +699,12 @@ class DcnnServeEngine:
                         gc.enable()
                 launches = self._launches() - before
         except Exception as e:
-            raise RuntimeError(f"bucket {bucket}: capturing its CUDA graph "
-                               f"failed: {e}") from e
+            where = f" shard {shard} ({device})" if self.mesh is not None else ""
+            raise RuntimeError(f"bucket {bucket}{where}: capturing its CUDA "
+                               f"graph failed: {e}") from e
         z_host = torch.zeros(z_dev.shape, dtype=dtype, pin_memory=True)
         out_host = torch.empty(out_dev.shape, dtype=dtype, pin_memory=True)
-        return BucketExecutable(bucket, body, z_dev, out_dev, z_host,
+        return BucketExecutable(rows, body, z_dev, out_dev, z_host,
                                 out_host, graph, launches)
 
     @property
@@ -586,8 +721,9 @@ class DcnnServeEngine:
         self._call(bucket, ex, z, inject=False)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for device in set(self._shard_devices()):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
     # -- guarded dispatch -----------------------------------------------
     def _on_stall(self) -> None:
@@ -607,7 +743,7 @@ class DcnnServeEngine:
         if self._heartbeat is not None:
             self._heartbeat.close()
 
-    def _call(self, bucket: int, ex: BucketExecutable, rows: np.ndarray,
+    def _call(self, bucket: int, ex: ShardedExecutable, rows: np.ndarray,
               inject: bool = True):
         """One attempt of a bucket call on ``rows`` (at most ``bucket`` of
         them): ``(images, t0, seconds, steady)``.  The clock starts after
@@ -692,6 +828,87 @@ class DcnnServeEngine:
                                   retried=retried, **self._mlabels)
             return images, dt, steady, retried
 
+    def _remesh(self, keep: int) -> None:
+        """Elastic recovery from a device loss, as the JAX engine's: shrink
+        onto the surviving ``keep``-device prefix of the mesh, re-align the
+        bucket set to the new device count, keep the survivors' replicas,
+        drop every executable, re-plan every bucket and DRC each plan
+        again, recording `plan.executable_fingerprints` before and after,
+        so that "the same plan for the same per-device batch" is asserted,
+        not assumed: a hash mismatch raises `EngineDegraded`.  The event
+        goes to ``fault_stats["remesh_events"]``, ``stats["device_count"]``
+        and the ``engine.device_count`` gauge, and a ``remesh`` tracer
+        instant."""
+        if self.mesh is None or not self.config.elastic:
+            raise EngineDegraded(
+                "device loss without an elastic mesh: nothing to shrink "
+                "onto (serve with mesh=... and elastic=True)")
+        from ..analysis.check.plan_drc import check_network_plan
+        from ..plan import executable_fingerprints
+
+        t0 = obsclock.now()
+        devs = list(self.mesh.devices)
+        if not 1 <= keep <= len(devs):
+            raise EngineDegraded(
+                f"cannot remesh: {keep} survivor(s) of {len(devs)} "
+                "device(s)")
+        before = executable_fingerprints(self.plans.values())
+        devices_before = self.n_devices
+        # planning may time tiles on the card: no capture runs meanwhile
+        with CAPTURE_GATE.exclusive():
+            self.mesh = elastic_mesh(devs[:keep],
+                                     model_parallel=self.mesh.model)
+            self.n_devices = self.mesh.data
+            # the survivors keep their replicas, static operands and pools
+            self._replicas = self._replicas[:self.n_devices]
+            self._statics = self._statics[:self.n_devices]
+            self.buckets = shard_aligned_buckets(
+                self.config.buckets if self.config.buckets
+                else pow2_buckets(self.config.max_batch), self.n_devices)
+            self.max_bucket = self.buckets[-1]
+            # executables and plans were fitted to the old device count;
+            # re-plan everything up front (recovery pays it once)
+            self._fns.clear()
+            self._sparse_device.clear()
+            with self._qlock:
+                self._stragglers.clear()
+            self._warm.clear()
+            self.plans = {}
+            for b in self.buckets:
+                check_network_plan(self._plan_for(b),
+                                   n_devices=self.n_devices,
+                                   buckets=self.buckets).raise_if_failed()
+        after = executable_fingerprints(self.plans.values())
+        matches = {sb: after[sb] == h for sb, h in before.items()
+                   if sb in after}
+        self.stats["device_count"] = self.n_devices
+        # timing samples of the lost mesh describe a capacity that no longer
+        # exists: snapshot them into the event and start afresh
+        stats_before = {b: dict(st) for b, st in self.bucket_stats.items()}
+        self.bucket_stats = {}
+        event = {
+            "bucket_stats_before": stats_before,
+            "devices_before": devices_before,
+            "devices_after": self.n_devices,
+            "buckets": list(self.buckets),
+            "plan_hashes_before": before,
+            "plan_hashes_after": after,
+            "plan_hash_matches": matches,
+            "seconds": obsclock.now() - t0,
+        }
+        with self._qlock:
+            self.fault_stats["remesh_events"].append(event)
+        self._m_fault.inc(event="remesh_events", **self._mlabels)
+        self._m_devices.set(self.n_devices, **self._mlabels)
+        self._tracer.instant("remesh", cat="fault",
+                             devices_before=devices_before,
+                             devices_after=self.n_devices,
+                             seconds=event["seconds"], **self._mlabels)
+        if not all(matches.values()):
+            raise EngineDegraded(
+                f"post-remesh plan hash mismatch {matches}: the shrunken "
+                "mesh did not re-derive the validated executables")
+
     def _launches(self) -> int:
         """Launches so far of the kernel of the engine's path through its
         Python wrapper (the module's ``LAUNCHES``: eager runs and captures;
@@ -752,21 +969,30 @@ class DcnnServeEngine:
 
         A transient dispatch failure retries inside `_dispatch`; a retried
         dispatch counts as ``tainted_calls``/``tainted_seconds`` and stays
-        out of the timing samples.  A device loss raises `EngineDegraded`:
-        one device leaves nothing to shrink onto."""
+        out of the timing samples.  A device loss remeshes onto the
+        survivors of an elastic mesh (`_remesh`); then the interrupted
+        chunk and everything after it are re-chunked against the new
+        bucket set and run there.  Without an elastic mesh it raises
+        `EngineDegraded`."""
         z = np.asarray(z, dtype=np.float32)
         n = z.shape[0]
         t_gen = obsclock.now()
         outs: List[np.ndarray] = []
         i = 0
-        for take, bucket in self.plan_chunks(n):
+        chunks = self.plan_chunks(n)
+        while chunks:
+            take, bucket = chunks[0]
             try:
                 y, dt, steady, retried = self._dispatch(bucket,
                                                         z[i:i + take])
             except DeviceLossError as e:
-                raise EngineDegraded(
-                    "device loss without an elastic mesh: nothing to shrink "
-                    "onto (this engine serves one device)") from e
+                try:
+                    self._remesh(e.keep)
+                except EngineDegraded as err:
+                    raise err from e
+                chunks = self.plan_chunks(n - i)
+                continue
+            chunks.pop(0)
             pad = bucket - take
             if pad:
                 self.stats["padded_images"] += pad

@@ -8,11 +8,17 @@ train both DCNNs (Fig. 4); the JAX package's ``repro.train.wgan`` in torch.
   sum/n_valid accounting; the generator's z batch is drawn at the bucket
   size), so each bucket's step and plan are built once.  ``build_counts``
   shows it.  Steps run eagerly.
-* **z shards.**  ``z_shards=n`` runs the reference's per-shard math on one
-  device: each shard draws its own noise and owns an equal sub-batch, and
-  the shards' losses and grads are summed before one optimizer update
-  (the single-device form of the reference's mesh-sharded step; meshes
-  wait for the multi-device port).
+* **z shards and meshes.**  ``z_shards=n`` runs the reference's
+  per-shard math on one device: each shard draws its own noise and owns
+  an equal sub-batch, and the shards' losses and grads are summed (the
+  reference's sum over its data axis of per-shard terms with the global
+  divisor, i.e. the whole batch's mean) before one optimizer update.
+  ``mesh=`` (a `launch.mesh.DeviceMesh`) runs shard i on the mesh's i-th
+  data device: its params, sub-batch and noise are moved there, its loss
+  and grads computed there and the grads summed on the first device in
+  shard order; the one update there is what every device's params become
+  (the next step moves them again).  So a mesh of n devices equals
+  ``z_shards=n`` on one, as the reference's mesh trainer does.
 * **The kernel in the generator's forward.**  ``backend="cuda"`` runs the
   generator's forward through the serving kernel (one B1 launch per
   layer, at the tiles of the bucket's plan, built for the per-shard
@@ -128,6 +134,12 @@ def requiring_grad(tree):
     return tree_map(lambda t: t.detach().requires_grad_(), tree)
 
 
+def to_device(tree, device):
+    """``tree``'s tensors on ``device`` (themselves where they are there
+    already; a move keeps the autograd graph to the originals)."""
+    return tree_map(lambda t: t.to(device), tree)
+
+
 def critic_loss(dp, gp_params, cfg: DcnnConfig, real, z, eps, gp_coef=10.0,
                 mask=None, n_valid=None, gen_fn=None):
     """WGAN-GP critic loss and ``{"wdist", "gp"}``.
@@ -186,7 +198,7 @@ class WganTrainer:
                  n_critic: int = 5, gp_coef: float = 10.0,
                  backend: str = "reverse_loop",
                  autotune: bool = True, z_shards: Optional[int] = None,
-                 plan=None, device="cuda"):
+                 mesh=None, plan=None, device="cuda"):
         if n_critic < 1:
             raise ValueError(
                 f"n_critic must be >= 1 (got {n_critic}): the generator "
@@ -200,9 +212,20 @@ class WganTrainer:
         self.n_critic = n_critic
         self.gp_coef = gp_coef
         self.backend = backend
-        self.device = torch.device(device)
         self._autotune = autotune
-        self.shards = z_shards or 1
+        self.mesh = mesh
+        if mesh is not None:
+            self.shards = mesh.data
+            if z_shards is not None and z_shards != self.shards:
+                raise ValueError(
+                    f"z_shards ({z_shards}) must match the mesh's data "
+                    f"extent ({self.shards}): each device draws one shard")
+            self._devices = tuple(mesh.data_devices)
+        else:
+            self.shards = z_shards or 1
+            self._devices = (torch.device(device),) * self.shards
+        # params live on the first shard's device
+        self.device = self._devices[0]
         self._pinned_plan = plan
         self._critic_fns: Dict[int, Callable] = {}
         self._gen_fns: Dict[int, Callable] = {}
@@ -254,7 +277,7 @@ class WganTrainer:
     # -- step construction ----------------------------------------------
     def _build_critic_fn(self, bucket: int) -> Callable:
         cfg, gp_coef, d_opt = self.cfg, self.gp_coef, self.d_opt
-        local, shards = self._local(bucket), self.shards
+        local, devices = self._local(bucket), self._devices
         gen_fn = self._gen_for(bucket)
 
         def body(dp, d_state, gp, real, nv, z, eps):
@@ -263,13 +286,17 @@ class WganTrainer:
             mask = (torch.arange(bucket, device=real.device) < nv).to(
                 real.dtype)
             loss = met = grads = None
-            for i in range(shards):
+            for i, dev in enumerate(devices):
+                # shard i on its device; the grads flow back to the leaves
                 sl = slice(i * local, (i + 1) * local)
-                l, m = critic_loss(dpg, gp, cfg, real[sl], z[sl], eps[sl],
-                                   gp_coef=gp_coef, mask=mask[sl],
-                                   n_valid=nv, gen_fn=gen_fn)
+                l, m = critic_loss(
+                    to_device(dpg, dev), to_device(gp, dev), cfg,
+                    real[sl].to(dev), z[sl].to(dev), eps[sl].to(dev),
+                    gp_coef=gp_coef, mask=mask[sl].to(dev), n_valid=nv,
+                    gen_fn=gen_fn)
                 grads = _add(grads, torch.autograd.grad(l, leaves))
-                l, m = l.detach(), {k: v.detach() for k, v in m.items()}
+                l = l.detach().to(real.device)
+                m = {k: v.detach().to(real.device) for k, v in m.items()}
                 loss = l if loss is None else loss + l
                 met = m if met is None else {k: met[k] + m[k] for k in met}
             dp, d_state = d_opt.update(tree_unflatten(dp, grads), d_state, dp)
@@ -279,7 +306,7 @@ class WganTrainer:
 
     def _build_gen_fn(self, bucket: int) -> Callable:
         cfg, g_opt = self.cfg, self.g_opt
-        local, shards = self._local(bucket), self.shards
+        local, devices = self._local(bucket), self._devices
         gen_fn = self._gen_for(bucket)
         denom = float(bucket)
 
@@ -287,11 +314,13 @@ class WganTrainer:
             gpg = requiring_grad(gp)
             leaves = tree_leaves(gpg)
             loss = grads = None
-            for i in range(shards):
-                l = generator_loss(gpg, dp, cfg, z[i * local:(i + 1) * local],
+            for i, dev in enumerate(devices):
+                l = generator_loss(to_device(gpg, dev), to_device(dp, dev),
+                                   cfg, z[i * local:(i + 1) * local].to(dev),
                                    gen_fn=gen_fn, denom=denom)
                 grads = _add(grads, torch.autograd.grad(l, leaves))
-                loss = l.detach() if loss is None else loss + l.detach()
+                l = l.detach().to(z.device)
+                loss = l if loss is None else loss + l
             gp, g_state = g_opt.update(tree_unflatten(gp, grads), g_state, gp)
             return gp, g_state, {"g_loss": loss}
 
@@ -433,11 +462,13 @@ class WganTrainer:
         return gp, dp, history
 
 
-def make_wgan_steps(cfg: DcnnConfig, g_opt, d_opt,
+def make_wgan_steps(cfg: DcnnConfig, g_opt, d_opt, mesh=None,
                     backend: str = "reverse_loop", **kwargs):
-    """Returns ``(critic_step, gen_step)`` of a `WganTrainer` (reachable as
+    """Returns ``(critic_step, gen_step)`` of a `WganTrainer`, bucketed
+    (and sharded over ``mesh`` when given; reachable as
     ``critic_step.__self__``)."""
-    trainer = WganTrainer(cfg, g_opt, d_opt, backend=backend, **kwargs)
+    trainer = WganTrainer(cfg, g_opt, d_opt, mesh=mesh, backend=backend,
+                          **kwargs)
     return trainer.critic_step, trainer.gen_step
 
 
@@ -455,8 +486,9 @@ def train_wgan(
     backend: str = "reverse_loop",
     resume_from: Optional[str] = None,
     device="cuda",
+    mesh=None,
 ):
     trainer = WganTrainer(cfg, g_opt, d_opt, n_critic=n_critic,
-                          backend=backend, device=device)
+                          backend=backend, device=device, mesh=mesh)
     return trainer.fit(source, steps, seed, log_every=log_every, ckpt=ckpt,
                        ckpt_every=ckpt_every, resume_from=resume_from)

@@ -508,7 +508,7 @@ def test_results_past_the_pinned_budget_are_copies(card, monkeypatch):
     kept = [eng.generate(z) for z in zs[:2]]
     want = [k.copy() for k in kept]
     assert budget.held == block                 # the first one is pinned
-    out_host = eng._fns[4].out_host.numpy()
+    out_host = eng._fns[4].shards[0].out_host.numpy()
     assert not any(np.shares_memory(k, out_host) for k in kept)
     for z in zs[2:]:
         eng.generate(z)

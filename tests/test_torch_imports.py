@@ -9,7 +9,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_dcnn_torch.py",
-     ROOT / "examples" / "train_wgan_mnist_torch.py"]
+     ROOT / "examples" / "train_wgan_mnist_torch.py",
+     ROOT / "tools" / "probe_mesh.py", ROOT / "tools" / "probe_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -47,3 +48,16 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_every_port_module_is_covered():
+    """The static checks, the mesh and the sharding helpers are among the
+    files the two tests above read and import."""
+    mods = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+            for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"analysis/__init__.py", "analysis/check/__init__.py",
+            "analysis/check/__main__.py", "analysis/check/rules.py",
+            "analysis/check/plan_drc.py", "analysis/check/bench_schema.py",
+            "analysis/check/concurrency.py", "launch/__init__.py",
+            "launch/mesh.py", "dist/sharding.py"} <= mods
+

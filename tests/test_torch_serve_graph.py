@@ -96,7 +96,7 @@ def test_collected_results_are_copies(mnist, path, rng):
     eng.generate(rng.randn(4, 100).astype(np.float32))
     np.testing.assert_array_equal(a, kept)
     assert not np.array_equal(a, b[:3])
-    ex = eng._fns[4]
+    ex, = eng._fns[4].shards
     for r in (a, b):
         for buf in (ex.out_dev, ex.out_host, ex.z_host):
             assert not np.shares_memory(r, buf.numpy())
@@ -110,7 +110,7 @@ def test_rows_past_the_request_are_zeroed(mnist, rng):
     eng.generate(rng.randn(4, 100).astype(np.float32))
     z = rng.randn(1, 100).astype(np.float32)
     eng.generate(z)
-    staged = eng._fns[4].z_host
+    staged = eng._fns[4].shards[0].z_host
     np.testing.assert_array_equal(staged[0].numpy(), z[0])
     assert not staged[1:].any()
 

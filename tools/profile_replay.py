@@ -64,7 +64,7 @@ def profile(tower: str, path: str, bucket: int, replays: int) -> dict:
     else:
         x = w.training_pairs(0, bucket)[0]
     eng.generate(np.asarray(x, np.float32))
-    ex = eng._get_fn(bucket)
+    ex = eng._get_fn(bucket).shards[0]
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
