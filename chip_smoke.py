@@ -136,9 +136,33 @@ scratch, and a second loss fails):
     WGAN-GP at full width, 2 steps on 2 shards against z_shards=2
     (losses rtol 1e-4, Adam's moments 1e-4 as a tree-norm ratio; traced
     B1 = layers x shards x 6 x 2);
-11. the kernels line (launches summed over the serving paths, the
-    frontend run, the training runs and the mesh phase); 12. the result
-    line.
+11. the examples whose every import is ported, each on the card in a
+    process of its own and exiting 0: ``examples/serve_sr_torch.py``
+    (sr trained on "cuda", its plan pinned, DRC'd and served, the
+    trainer's plan hash equal to the engine's, images within 1e-4 of the
+    reverse loop) and ``examples/quickstart_torch.py`` (B1 against the
+    oracle within 1e-4 with its and cuDNN's times, the DSE on H100_SXM,
+    WGAN-GP steps on "cuda", a pinned plan served); the B1 launches each
+    reports;
+12. LM serving: deepseek-7b at its published width (30 layers, d_model
+    4096, 32 heads, d_ff 11008, vocab 102400), bf16 with the int8 KV
+    cache, seeded weights drawn on the card: `ServeEngine` (batch 4,
+    max_len 256) serves 8 requests of 32-128 prompt tokens, each exactly
+    its budget of 4-16 tokens, with no deconv kernel launched; printed:
+    prefill and decode ms against their bounds, tokens/s and
+    `torch.cuda.max_memory_allocated`, beside the card's name and power
+    limit.  Hard checks at the same width with 2 layers in float32 (TF32
+    off, no KV quantization): greedy tokens equal to the full-recompute
+    oracle's, and the prefill and decode logits within 1e-4 x max|logits|
+    of the port's on the CPU with the same weights;
+13. the kernels line (launches summed over the serving paths, the
+    frontend run, the training runs, the mesh phase and the examples);
+    14. the result line.
+
+Phase 10's rerun after a trace loss runs in a process of its own
+(``chip_smoke.py --mesh-phase``, on CelebA engines built as phase 4
+builds them): the profiler loses its records in an aged process, not in
+a fresh one.
 
 Imports nothing of JAX: only torch, numpy and the port (src/repro_torch).
 """
@@ -170,12 +194,13 @@ from repro_torch.analysis.check import (PlanCheckError,  # noqa: E402
                                         check_network_plan)
 from repro_torch.analysis.check.plan_drc import launch_resources  # noqa: E402
 from repro_torch.ckpt import AsyncCheckpointer, restore  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.deconv import fp32_exact  # noqa: E402
 from repro_torch.core.dse import H100_SXM  # noqa: E402
 from repro_torch.core.mmd import mmd  # noqa: E402
 from repro_torch.core.sparsity import magnitude_prune, prune_tree  # noqa: E402
 from repro_torch.core.tiling import DeconvGeometry, tc_warp_tile  # noqa: E402
-from repro_torch.core.tree import tree_leaves  # noqa: E402
+from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import image_source  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels.autotune import (SMS, fill_tiles,  # noqa: E402
@@ -188,6 +213,9 @@ from repro_torch.kernels.deconv2d_sparse import (make_sparse_plan,  # noqa: E402
                                                  schedule_tensors)
 from repro_torch.models.dcnn import (CELEBA_DCNN, MNIST_DCNN,  # noqa: E402
                                      generator_apply, generator_init)
+from repro_torch.models.nn import tree_bytes, tree_size  # noqa: E402
+from repro_torch.models.transformer import (apply_lm, init_cache,  # noqa: E402
+                                            init_lm)
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.quant import (calibrate, quantize_params,  # noqa: E402
                                quantize_symmetric, quantized_generator_apply,
@@ -199,7 +227,8 @@ from repro_torch.obs import trace as obstrace  # noqa: E402
 from repro_torch.obs.report import render_table2, table2_rows  # noqa: E402
 from repro_torch.serve import (AdmissionRejected,  # noqa: E402
                                AsyncServeFrontend, DcnnServeEngine,
-                               EngineConfig, EngineDegraded, TenantClass)
+                               EngineConfig, EngineDegraded, Request,
+                               ServeEngine, TenantClass)
 from repro_torch.train import (SupervisedTrainer, WganTrainer,  # noqa: E402
                                pair_source)
 from repro_torch.train.wgan import requiring_grad  # noqa: E402
@@ -324,6 +353,28 @@ MESH_REQUESTS = (64, 64, 37)
 MESH_TOL = 1e-5
 MESH_RUNS = 30
 MESH_TRAIN_STEPS = 2
+# the examples phase: both examples whose every import is ported, run on
+# the card in their own processes
+EXAMPLE_TIMEOUT_S = 300
+SR_EXAMPLE_STEPS = 5
+# the LM phase: deepseek-7b at its published width (30 layers, d_model
+# 4096, 32 heads, d_ff 11008, vocab 102400, bf16, int8 KV cache), seeded
+# random weights drawn on the card
+LM_ARCH = "deepseek-7b"
+LM_BATCH = 4
+LM_MAX_LEN = 256
+LM_REQUESTS = 8
+LM_PROMPT = (32, 128)          # prompt tokens, inclusive
+LM_BUDGET = (4, 16)            # new tokens per request, inclusive
+LM_TIME_PROMPT = 128           # the timed prefill and decode
+LM_TIME_DECODE = 16
+# the hard checks: the same width, 2 layers, float32 (TF32 off), no KV
+# quantization
+LM_CHECK_LAYERS = 2
+LM_CHECK_BATCH = 2
+LM_CHECK_PROMPT = 24
+LM_CHECK_NEW = 8
+LM_LOGIT_TOL = 1e-4            # of max|logits| on the CPU
 
 
 @functools.lru_cache(maxsize=None)
@@ -627,16 +678,17 @@ def failure(traced, want, exact):
     return TraceLoss if lost else AssertionError
 
 
-def once_more_on_trace_loss(label, phase, *args):
+def once_more_on_trace_loss(label, phase, *args, rerun=None):
     """``phase(*args)``, run once more from scratch (new engines or
-    trainers, the same seeds) if a launch check met the profiler's record
-    loss; every check holds in that run, and a second loss fails."""
+    trainers, the same seeds; ``rerun()`` instead where given) if a launch
+    check met the profiler's record loss; every check holds in that run,
+    and a second loss fails."""
     try:
         return phase(*args)
     except TraceLoss as e:
         print(f"  {label}: the profiler dropped device records ({e}); the "
               "phase runs once more from scratch", flush=True)
-        return phase(*args)
+        return (rerun or functools.partial(phase, *args))()
 
 
 def zero_launch_counts():
@@ -2398,6 +2450,275 @@ def phase_mesh(engines, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the examples whose every import is ported
+# ---------------------------------------------------------------------------
+def run_example(name, *args):
+    """``examples/<name>.py`` on the card in a process of its own: its
+    standard output and seconds, after checking that it exited 0."""
+    cmd = [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
+           *args]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=EXAMPLE_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"{name}.py: rc {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return res.stdout, time.perf_counter() - t0
+
+
+def example_line(name, out, prefix):
+    lines = [l for l in out.splitlines() if l.startswith(prefix)]
+    if not lines:
+        raise AssertionError(f"{name}.py printed no {prefix!r} line:\n{out}")
+    return lines[-1]
+
+
+def example_launches(name, out):
+    """The B1 launches an example reports: by the wrapper (the trainers'
+    forwards, the engine's eager and capture passes) and in the engine's
+    dispatches (its graph replays)."""
+    line = example_line(name, out, "B1 launches:")
+    m = re.fullmatch(r"B1 launches: (\d+) by its wrapper, (\d+) in the "
+                     r"engine's dispatches", line)
+    if m is None:
+        raise AssertionError(f"{name}.py: unreadable {line!r}")
+    n = int(m[1]) + int(m[2])
+    if n == 0:
+        raise AssertionError(f"{name}.py launched no B1")
+    return n
+
+
+def phase_examples(smi):
+    """``examples/serve_sr_torch.py`` (train sr on "cuda", pin, DRC,
+    serve pinned; the trainer's plan hash equal to the engine's) and
+    ``examples/quickstart_torch.py`` (B1 against the oracle with its and
+    cuDNN's times, the DSE on H100_SXM, WGAN-GP steps on "cuda", a pinned
+    plan served), each on the card in a process of its own, each exiting
+    0; returns their B1 launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out, sec = run_example("serve_sr_torch", "--steps",
+                               str(SR_EXAMPLE_STEPS), "--plan-json",
+                               os.path.join(tmp, "sr_plan.json"))
+    line = example_line("serve_sr_torch", out, "plan hashes:")
+    m = re.fullmatch(r"plan hashes: trainer (\S+) engine (\S+)", line)
+    if m is None or m[1] != m[2]:
+        raise AssertionError(f"serve_sr_torch.py: the trainer's plan is "
+                             f"not the engine's: {line!r}")
+    n_sr = example_launches("serve_sr_torch", out)
+    print(f"  examples/serve_sr_torch.py: exit 0 in {sec:.1f} s; trainer "
+          f"plan {m[1]} == engine plan {m[2]}; "
+          f"{example_line('serve_sr_torch', out, 'served')}; "
+          f"B1 launches {n_sr}", flush=True)
+    out, sec = run_example("quickstart_torch")
+    n_q = example_launches("quickstart_torch", out)
+    print(f"  examples/quickstart_torch.py: exit 0 in {sec:.1f} s; "
+          f"B1 launches {n_q}; {smi}", flush=True)
+    for prefix in ("[kernel]", "[dse]", "[wgan]", "[serve]"):
+        for line in out.splitlines():
+            if line.startswith(prefix):
+                print(f"    {line}", flush=True)
+    return {("deconv2d_kernel", "fp32"): n_sr + n_q}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: LM serving at full width
+# ---------------------------------------------------------------------------
+def lm_requests(cfg, rng):
+    return [Request(prompt=rng.randint(1, cfg.vocab_size,
+                                       (int(rng.randint(LM_PROMPT[0],
+                                                        LM_PROMPT[1] + 1)),))
+                    .astype(np.int32),
+                    max_new_tokens=int(rng.randint(LM_BUDGET[0],
+                                                   LM_BUDGET[1] + 1)))
+            for _ in range(LM_REQUESTS)]
+
+
+def lm_step_times(eng, cfg, rng):
+    """Host-clock ms (around a synchronise) of the engine's prefill of a
+    (LM_BATCH, LM_TIME_PROMPT) batch, median of 3, and of its decode
+    steps after it, median of LM_TIME_DECODE."""
+    prompts = rng.randint(1, cfg.vocab_size,
+                          (LM_BATCH, LM_TIME_PROMPT)).astype(np.int32)
+    pre, dec = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = eng._prefill(prompts)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(LM_TIME_DECODE):
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("the LM's logits are not finite")
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = eng._decode(cache, nxt[:, None])
+        torch.cuda.synchronize()
+        dec.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(pre), statistics.median(dec)
+
+
+def phase_lm(smi, peaks):
+    """deepseek-7b at its published width in bf16 with the int8 KV cache,
+    its weights drawn on the card from a seed: `ServeEngine` (batch
+    LM_BATCH, max_len LM_MAX_LEN) serves LM_REQUESTS requests, each of
+    exactly its budget; prefill and decode times, tokens/s and peak
+    memory; no deconv kernel launched.  Then the hard checks of
+    `lm_checks`."""
+    cfg = get_config(LM_ARCH)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, n_bytes = tree_size(params), tree_bytes(params)
+    init_peak = torch.cuda.max_memory_allocated()
+    eng = ServeEngine(cfg, params, LM_BATCH, LM_MAX_LEN, device="cuda")
+    rng = np.random.RandomState(0)
+    reqs = lm_requests(cfg, rng)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = eng.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    if len(done) != LM_REQUESTS:
+        raise AssertionError(f"served {len(done)} of {LM_REQUESTS} requests")
+    for r in reqs:
+        if r.out is None or r.out.shape != (r.max_new_tokens,):
+            raise AssertionError(
+                f"a request with budget {r.max_new_tokens} got "
+                f"{None if r.out is None else r.out.shape}")
+        if ((r.out < 0) | (r.out >= cfg.vocab_size)).any():
+            raise AssertionError(f"tokens out of the vocabulary: {r.out}")
+    new_tokens = sum(r.max_new_tokens for r in reqs)
+    prefill_ms, decode_ms = lm_step_times(eng, cfg, rng)
+    if any(launch_counts().values()):
+        raise AssertionError(f"the LM path launched a deconv kernel: "
+                             f"{launch_counts()}")
+    # the least time: a prefill's operations at the bf16 tensor-core peak
+    # (2 per weight per token, the unembedding included, attention not),
+    # a decode step's weight bytes read once at the memory rate
+    prefill_bound = 2 * n_params * LM_BATCH * LM_TIME_PROMPT / peaks["bf16"]
+    decode_bound = n_bytes / peaks["bw"]
+    print(f"  {LM_ARCH}: {n_params} params, {n_bytes / 1e9:.3f} GB of "
+          f"weights drawn on the card in {init_s:.2f} s (peak "
+          f"{init_peak / 2**30:.2f} GiB); {smi}", flush=True)
+    print(f"  served {LM_REQUESTS} requests (prompts {LM_PROMPT[0]}-"
+          f"{LM_PROMPT[1]}, budgets {LM_BUDGET[0]}-{LM_BUDGET[1]}, "
+          f"{new_tokens} new tokens, each request exactly its budget) at "
+          f"batch {LM_BATCH}, max_len {LM_MAX_LEN} in {serve_s:.3f} s: "
+          f"{new_tokens / serve_s:.1f} tokens/s; {eng.prefill_steps} "
+          f"prefills, {eng.decode_steps} decode steps, {eng.sample_steps} "
+          f"samples; max_memory_allocated {serve_peak / 2**30:.2f} GiB; "
+          f"{smi}", flush=True)
+    print(f"  prefill ({LM_BATCH} x {LM_TIME_PROMPT}) {prefill_ms:.3f} ms "
+          f"(bound {prefill_bound * 1e3:.3f} ms by operations); decode "
+          f"{decode_ms:.3f} ms per token step of {LM_BATCH} (bound "
+          f"{decode_bound * 1e3:.3f} ms by the weights' bytes); "
+          f"{LM_BATCH * 1e3 / decode_ms:.1f} decode tokens/s; no deconv "
+          f"kernel launched; {smi}", flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    lm_checks(cfg, smi)
+
+
+def lm_checks(cfg, smi):
+    """At LM_ARCH's width with LM_CHECK_LAYERS layers in float32 (TF32
+    off, no KV quantization): greedy tokens from `ServeEngine.generate`
+    equal to the full-recompute oracle's (``apply_lm(mode="train")`` on
+    the growing sequence), and the prefill and one decode step's logits
+    on the card within LM_LOGIT_TOL x max|logits| of the port's on the
+    CPU with the same weights."""
+    cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype="float32",
+                              kv_quant=False)
+    dev = torch.device("cuda")
+    fp32_exact(dev)
+    params = init_lm(torch.Generator("cuda").manual_seed(1), cfg)
+    rng = np.random.RandomState(1)
+    prompts = rng.randint(1, cfg.vocab_size,
+                          (LM_CHECK_BATCH, LM_CHECK_PROMPT)).astype(np.int32)
+    max_len = LM_CHECK_PROMPT + LM_CHECK_NEW
+    out = ServeEngine(cfg, params, LM_CHECK_BATCH, max_len,
+                      device=dev).generate(prompts, LM_CHECK_NEW)
+    seq = torch.from_numpy(prompts).to(dev)
+    with torch.inference_mode():
+        for t in range(LM_CHECK_NEW):
+            logits, _, _ = apply_lm(params, cfg, seq, mode="train")
+            nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+            if not np.array_equal(nxt.cpu().numpy(), out[:, t]):
+                raise AssertionError(f"greedy token {t}: engine {out[:, t]}, "
+                                     f"full recompute {nxt.cpu().numpy()}")
+            seq = torch.cat([seq, nxt[:, None]], dim=1)
+
+    def prefill_decode(p, device):
+        with torch.inference_mode():
+            cache = init_cache(cfg, LM_CHECK_BATCH, max_len, device)
+            lp, cache, _ = apply_lm(p, cfg, torch.from_numpy(prompts),
+                                    mode="prefill", cache=cache)
+            ld, _, _ = apply_lm(p, cfg, torch.from_numpy(out[:, :1]),
+                                mode="decode", cache=cache)
+        return lp.cpu(), ld.cpu()
+
+    card = prefill_decode(params, dev)
+    host = prefill_decode(tree_map(lambda t: t.cpu(), params),
+                          torch.device("cpu"))
+    errs = []
+    for name, a, b in zip(("prefill", "decode"), card, host):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not err <= LM_LOGIT_TOL * scale:
+            raise AssertionError(f"{name} logits: card vs CPU {err:.3e} > "
+                                 f"{LM_LOGIT_TOL} x {scale:.3e}")
+        errs.append(f"{name} {err:.2e} of max {scale:.2f}")
+    print(f"  {LM_ARCH} at full width, {LM_CHECK_LAYERS} layers, float32: "
+          f"{LM_CHECK_NEW} greedy tokens x {LM_CHECK_BATCH} == full "
+          f"recompute; logits card vs CPU: {', '.join(errs)}; {smi}",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+MESH_PHASE_ARG = "--mesh-phase"
+
+
+def mesh_phase_in_a_fresh_process(smi):
+    """Phase 10 once more, in a process of its own (``chip_smoke.py
+    --mesh-phase``): the profiler's record loss hits phase 10 in an aged
+    process and not in a fresh one (PERF.md §7); returns its
+    traced launches."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          MESH_PHASE_ARG], capture_output=True, text=True,
+                         timeout=600)
+    lines = res.stdout.rstrip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if res.returncode != 0:
+        raise AssertionError(f"phase 10 in a fresh process: rc "
+                             f"{res.returncode}\n{res.stdout[-2000:]}"
+                             f"{res.stderr[-3000:]}")
+    return {tuple(k.split("|")): n
+            for k, n in json.loads(lines[-1])["mesh_launches"].items()}
+
+
+def mesh_phase_only(smi) -> int:
+    """Phase 10 alone, on the single-device CelebA fp32 and int8 engines
+    phase 4 builds; its traced launches as the last line."""
+    deconv_kernel.build()
+    params = generator_init(torch.Generator().manual_seed(0), CELEBA_DCNN,
+                            "cuda")
+    engines = {path: {CELEBA_DCNN.name: DcnnServeEngine.from_config(
+        EngineConfig(model=CELEBA_DCNN, max_batch=64, warmup=True,
+                     **PATHS[path][1]), params)} for path in ("fp32", "int8")}
+    launches = phase_mesh(engines, smi)
+    print(json.dumps({"mesh_launches": {"|".join(k): n
+                                        for k, n in launches.items()}}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     smi, name, peaks = device_info()
     # no run reads another's tile timings
@@ -2405,6 +2726,8 @@ def main() -> int:
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir,
                                                             "autotune.json")
     try:
+        if sys.argv[1:] == [MESH_PHASE_ARG]:
+            return mesh_phase_only(smi)
         return run(smi, name, peaks)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
@@ -2457,9 +2780,16 @@ def run(smi, name, peaks) -> int:
     phase_drc(engines, smi)
 
     print(f"[10] mesh (at {time.perf_counter() - t0:.1f} s)", flush=True)
-    launches["mesh"] = once_more_on_trace_loss("mesh", phase_mesh, engines,
-                                               smi)
-    print(f"[11] kernels line (at {time.perf_counter() - t0:.1f} s)",
+    launches["mesh"] = once_more_on_trace_loss(
+        "mesh", phase_mesh, engines, smi,
+        rerun=functools.partial(mesh_phase_in_a_fresh_process, smi))
+    print(f"[11] examples (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    launches["examples"] = phase_examples(smi)
+
+    print(f"[12] LM serving (at {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    phase_lm(smi, peaks)
+    print(f"[13] kernels line (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
 
     print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,

@@ -1,29 +1,72 @@
-"""The parts of the JAX package's functional NN substrate
-(``repro.models.nn``) that the WGAN critic needs: LeCun-normal init and a
-dense layer.  Params are dicts of tensors; the reference's logical-axis
-specs wait for the multi-device port."""
+"""The JAX package's functional NN substrate (``repro.models.nn``) in
+torch: inits, a dense layer, the norms, the (tied) embedding, the
+activations and the tree helpers.  Params are dicts of tensors; the
+reference's logical-axis specs wait for sharding within a model
+(ROADMAP.md A16).
+
+Every init draws from a ``torch.Generator`` on that generator's own
+device: the DCNN towers draw on the CPU (a seed gives the same weights
+whatever device they go to), the LM draws on the card it serves from.
+With ``generator=None`` an init returns an uninitialised tensor on
+``device``: on the "meta" device that is a shape template.  The draws do
+not match the reference's ``jax.random``; parity tests load its params.
+"""
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
+
+from ..core.tree import tree_leaves, tree_map
+
+Params = Dict[str, Any]
 
 
-def lecun_init(generator: torch.Generator, shape, dtype: torch.dtype,
-               fan_in: Optional[int] = None) -> torch.Tensor:
-    """N(0, 1/fan_in) weights (fan_in defaults to ``shape[0]``) drawn from
-    ``generator`` on the CPU, so a seed gives the same weights whatever
-    device they go to."""
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+def _draw(generator: Optional[torch.Generator], shape,
+          device) -> torch.Tensor:
+    """N(0, 1) of ``shape`` from ``generator`` on its device, or (no
+    generator) an uninitialised float32 tensor on ``device``."""
+    if generator is None:
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def normal_init(generator: Optional[torch.Generator], shape,
+                dtype: torch.dtype, scale: float = 0.02,
+                device=None) -> torch.Tensor:
+    return (scale * _draw(generator, shape, device)).to(dtype)
+
+
+def lecun_init(generator: Optional[torch.Generator], shape,
+               dtype: torch.dtype, fan_in: Optional[int] = None,
+               device=None) -> torch.Tensor:
+    """N(0, 1/fan_in) weights (fan_in defaults to ``shape[0]``)."""
     fan = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan, 1))
-    return (scale * torch.randn(shape, generator=generator)).to(dtype)
+    return (scale * _draw(generator, shape, device)).to(dtype)
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+def zeros_init(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Dense
+# ---------------------------------------------------------------------------
+def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
                dtype: torch.dtype, bias: bool = False,
                device="cpu") -> Dict[str, torch.Tensor]:
-    p = {"w": lecun_init(generator, (d_in, d_out), dtype).to(device)}
+    p = {"w": lecun_init(generator, (d_in, d_out), dtype,
+                         device=device).to(device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
@@ -34,3 +77,83 @@ def dense(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_init(d: int, dtype: torch.dtype, device) -> Params:
+    return {"scale": ones_init((d,), dtype, device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(dt)
+
+
+def layernorm_init(d: int, dtype: torch.dtype, device) -> Params:
+    return {"scale": ones_init((d,), dtype, device),
+            "bias": zeros_init((d,), dtype, device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding (tied: the unembedding is the table's transpose)
+# ---------------------------------------------------------------------------
+def embedding_init(generator: Optional[torch.Generator], vocab: int, d: int,
+                   dtype: torch.dtype, device=None) -> Params:
+    return {"table": normal_init(generator, (vocab, d), dtype,
+                                 device=device)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens.long()]
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["table"].T
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# tree utilities
+# ---------------------------------------------------------------------------
+def tree_size(params) -> int:
+    return sum(p.numel() for p in tree_leaves(params))
+
+
+def tree_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in tree_leaves(params))
+
+
+def stack_trees(trees: Sequence[Params]) -> Params:
+    """Stack a list of identical trees along a new leading axis (the
+    model's unit axis)."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)

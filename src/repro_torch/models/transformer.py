@@ -1,0 +1,462 @@
+"""The unified decoder LM of the JAX package (``repro.models.transformer``)
+in torch, for the dense model family: GQA/MQA/MHA attention blocks,
+local/global alternation, softcaps, partial and multi-section RoPE, the
+dense FFNs and the modality-frontend stub.
+
+The tree is the reference's: layers grouped into repeat *units* (the
+block pattern) whose params are stacked along a leading unit axis
+(``units``), the remainder blocks (``rem``), the tied ``embed`` table,
+``final_norm`` and, with a frontend, ``frontend_proj``; a serving cache is
+``{"units", "pos"}`` (and ``rem``).  A Python loop over the unit axis
+takes the place of the reference's ``lax.scan``.
+
+Not ported yet (ROADMAP.md A16): the MoE FFN (a block of a config with
+``n_experts``) and the recurrent blocks ("griffin", "mlstm", "slstm").
+Their init, apply and cache raise `NotImplementedError`; nothing runs in
+their place.
+
+``init_lm`` draws every tensor from a ``torch.Generator`` on that
+generator's device (at full width, a ~6.5 G-parameter model is drawn on
+the card, not on the host); the draws do not match the reference's, so
+parity tests load its params through `lm_params_from_numpy`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.tree import tree_leaves, tree_map, tree_unflatten
+from ..dist.context import constrain
+from . import nn
+from .attention import (apply_rope, attention_apply, attention_init,
+                        init_kv_cache, quantize_kv, update_slice)
+from .ffn import ffn_apply, ffn_init
+
+ATTN_KINDS = ("global", "local")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | vlm | audio | hybrid | ssm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    block_pattern: tuple = ("global",)
+    activation: str = "swiglu"
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-6
+    rope: str = "standard"           # standard | 2d | mrope | none
+    rope_theta: float = 10000.0
+    rotary_frac: float = 1.0
+    mrope_sections: Optional[tuple] = None
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    attn_scale: Optional[float] = None
+    local_window: int = 4096
+    qkv_bias: bool = False
+    embed_scale: bool = False
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 2
+    expert_d_ff: int = 0
+    n_shared_experts: int = 0
+    moe_norm_topk: bool = True
+    moe_capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+    # recurrent
+    rnn_width: int = 0
+    # modality frontend stub
+    frontend: Optional[str] = None   # vision | audio
+    frontend_len: int = 0
+    frontend_dim: int = 0
+    # execution
+    dtype: str = "bfloat16"
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    remat: bool = True
+    # int8 KV cache (per-token-per-head symmetric scales)
+    kv_quant: bool = False
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // len(self.block_pattern)
+
+    @property
+    def n_rem(self) -> int:
+        return self.n_layers % len(self.block_pattern)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic archs: every block is recurrent or windowed."""
+        return all(k in ("griffin", "mlstm", "slstm", "local")
+                   for k in self.block_pattern)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (tied embeddings)."""
+        d, dh = self.d_model, self.head_dim
+        n_attn = sum(1 for k in self.block_pattern if k in ATTN_KINDS)
+        n_grif = sum(1 for k in self.block_pattern if k == "griffin")
+        n_ml = sum(1 for k in self.block_pattern if k == "mlstm")
+        n_sl = sum(1 for k in self.block_pattern if k == "slstm")
+        per_unit = 0
+        per_unit += n_attn * (d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh
+                              + self.n_heads * dh * d)
+        if self.n_experts:
+            per_unit += n_attn * (d * self.n_experts
+                                  + 3 * self.n_experts * d * self.expert_d_ff)
+            if self.n_shared_experts:
+                per_unit += n_attn * 3 * d * self.n_shared_experts * self.expert_d_ff
+        else:
+            mult = 3 if self.activation in ("swiglu", "geglu") else 2
+            per_unit += n_attn * mult * d * self.d_ff
+        dr = self.rnn_width or d
+        per_unit += n_grif * (2 * d * dr + 2 * dr * dr + dr * d
+                              + 3 * d * self.d_ff)
+        di = 2 * d
+        per_unit += n_ml * (d * 2 * di + 3 * di * (di // self.n_heads)
+                            + di * d)
+        per_unit += n_sl * (4 * d * d + 4 * d * (d // self.n_heads) + 2 * d * d)
+        total = self.n_units * per_unit
+        if self.n_rem:
+            total += per_unit * self.n_rem // max(len(self.block_pattern), 1)
+        total += self.vocab_size * d  # tied embeddings
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        routed_all = 3 * self.n_experts * d * self.expert_d_ff
+        routed_act = 3 * self.moe_top_k * d * self.expert_d_ff
+        n_attn_layers = sum(1 for k in self.block_pattern if k in ATTN_KINDS)
+        n_moe = self.n_units * n_attn_layers + self.n_rem
+        return self.param_count() - n_moe * (routed_all - routed_act)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+def _refuse(cfg: ModelConfig, kind: str) -> None:
+    """Raise for a block this port cannot run yet (ROADMAP.md A16)."""
+    if kind in ("griffin", "mlstm", "slstm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {kind!r} recurrent block is not ported yet "
+            "(ROADMAP.md A16)")
+    if kind in ATTN_KINDS and cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN ({cfg.n_experts} experts) is not "
+            "ported yet (ROADMAP.md A16)")
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind}")
+
+
+def _norm_init(cfg: ModelConfig, device) -> nn.Params:
+    if cfg.norm == "layernorm":
+        return nn.layernorm_init(cfg.d_model, cfg.tdtype, device)
+    return nn.rmsnorm_init(cfg.d_model, cfg.tdtype, device)
+
+
+def _norm(cfg: ModelConfig, p, x):
+    if cfg.norm == "layernorm":
+        return nn.layernorm(p, x, cfg.norm_eps)
+    return nn.rmsnorm(p, x, cfg.norm_eps)
+
+
+def init_block(generator: Optional[torch.Generator], cfg: ModelConfig,
+               kind: str, device=None) -> nn.Params:
+    _refuse(cfg, kind)
+    dt = cfg.tdtype
+    return {
+        "norm1": _norm_init(cfg, device),
+        "attn": attention_init(generator, cfg, dt, kind, device=device),
+        "norm2": _norm_init(cfg, device),
+        "ffn": ffn_init(generator, cfg.d_model, cfg.d_ff, dt, cfg.activation,
+                        device=device),
+    }
+
+
+def apply_block(p, cfg: ModelConfig, kind: str, x, positions, mode: str,
+                cache, cache_pos: int):
+    """Returns (x, new_cache, aux_loss)."""
+    _refuse(cfg, kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = _norm(cfg, p["norm1"], x)
+    if mode == "train":
+        out, new_cache = attention_apply(p["attn"], cfg, h, positions, kind)
+    elif mode == "prefill":
+        out, _ = attention_apply(p["attn"], cfg, h, positions, kind)
+        new_cache = _fill_cache(cfg, cache, h, p, positions)
+    else:  # decode
+        out, new_cache = attention_apply(p["attn"], cfg, h, positions, kind,
+                                         cache, cache_pos)
+    x = x + out
+    h2 = _norm(cfg, p["norm2"], x)
+    x = x + ffn_apply(p["ffn"], h2, cfg.activation)
+    return x, new_cache, aux
+
+
+def _fill_cache(cfg: ModelConfig, cache, h, p, positions):
+    """Prefill: recompute k/v once more into the cache buffers (cheap linear
+    projections; avoids threading k/v out of attention_apply)."""
+    b, sl, _ = h.shape
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = (h @ p["attn"]["wk"]["w"]).reshape(b, sl, hkv, dh)
+    v = (h @ p["attn"]["wv"]["w"]).reshape(b, sl, hkv, dh)
+    if "b" in p["attn"]["wk"]:
+        k = k + p["attn"]["wk"]["b"].reshape(1, 1, hkv, dh)
+        v = v + p["attn"]["wv"]["b"].reshape(1, 1, hkv, dh)
+    if cfg.rope != "none":
+        k = apply_rope(k, positions, theta=cfg.rope_theta,
+                       rotary_frac=cfg.rotary_frac,
+                       mrope_sections=cfg.mrope_sections)
+    scales = {}
+    if cfg.kv_quant:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    size = cache["k"].shape[1]
+    if sl >= size:
+        ck, cv = k[:, -size:], v[:, -size:]
+        spos = torch.arange(sl - size, sl, dtype=torch.int32, device=h.device)
+        if cfg.kv_quant:
+            scales = {"k_scale": ks[:, -size:], "v_scale": vs[:, -size:]}
+    else:
+        ck = update_slice(cache["k"], k, 0, 1)
+        cv = update_slice(cache["v"], v, 0, 1)
+        idx = torch.arange(size, dtype=torch.int32, device=h.device)
+        spos = torch.where(idx < sl, idx, torch.full_like(idx, -1))
+        if cfg.kv_quant:
+            scales = {"k_scale": update_slice(cache["k_scale"], ks, 0, 1),
+                      "v_scale": update_slice(cache["v_scale"], vs, 0, 1)}
+    return {"k": ck, "v": cv, "slot_pos": spos, **scales}
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device="cuda"):
+    _refuse(cfg, kind)
+    return init_kv_cache(cfg, batch, max_len, kind, cfg.tdtype, device)
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+def _stacked(make: Callable[[], Any], n: int):
+    """``n`` trees from ``make()`` stacked along a new leading axis, each
+    written into the stack as soon as it is drawn (so a full-width model
+    never holds its units twice)."""
+    first = make()
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+    for u in range(n):
+        tree = first if u == 0 else make()
+        tree_map(lambda dst, src: dst[u].copy_(src), out, tree)
+    return out
+
+
+def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
+            device=None):
+    """Params with unit-stacked block params, drawn from ``generator`` on
+    its device (with ``generator=None``, uninitialised tensors on
+    ``device``: ``device="meta"`` gives the tree's shapes alone)."""
+    dev = generator.device if generator is not None else torch.device(device)
+    pattern = cfg.block_pattern
+
+    def init_unit():
+        return {f"b{i}": init_block(generator, cfg, kind, dev)
+                for i, kind in enumerate(pattern)}
+
+    params: Dict[str, Any] = {"units": _stacked(init_unit, cfg.n_units)}
+    if cfg.n_rem:
+        params["rem"] = {f"b{i}": init_block(generator, cfg, pattern[i], dev)
+                         for i in range(cfg.n_rem)}
+    params["embed"] = nn.embedding_init(generator, cfg.vocab_size,
+                                        cfg.d_model, cfg.tdtype, device=dev)
+    params["final_norm"] = _norm_init(cfg, dev)
+    if cfg.frontend is not None:
+        params["frontend_proj"] = nn.dense_init(
+            generator, cfg.frontend_dim, cfg.d_model, cfg.tdtype, device=dev)
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Serving cache: unit-stacked block caches, remainder, and ``pos``."""
+    pattern = cfg.block_pattern
+
+    def one_unit():
+        return {f"b{i}": init_block_cache(cfg, kind, batch, max_len, device)
+                for i, kind in enumerate(pattern)}
+
+    cache = {"units": nn.stack_trees([one_unit()
+                                      for _ in range(cfg.n_units)]),
+             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.n_rem:
+        cache["rem"] = {f"b{i}": init_block_cache(cfg, pattern[i], batch,
+                                                  max_len, device)
+                        for i in range(cfg.n_rem)}
+    return cache
+
+
+def default_positions(cfg: ModelConfig, batch: int, start: int, length: int,
+                      device="cuda") -> torch.Tensor:
+    """Position ids; (3, B, S) for M-RoPE (text: t=h=w)."""
+    pos = start + torch.arange(length, dtype=torch.int32, device=device)
+    pos = pos.expand(batch, length)
+    if cfg.rope == "mrope":
+        return pos.expand(3, batch, length)
+    return pos
+
+
+def apply_lm(
+    params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                          # (B, S_tok) int
+    frontend_embeds: Optional[torch.Tensor] = None,  # (B, L_f, frontend_dim)
+    mode: str = "train",
+    cache: Optional[Dict] = None,
+    positions: Optional[torch.Tensor] = None,
+):
+    """Returns (logits (B, S_total, V) float32, new_cache, aux_loss), on
+    the device of the params."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    dev = params["embed"]["table"].device
+    dt = cfg.tdtype
+    tokens = torch.as_tensor(tokens, device=dev)
+    b = tokens.shape[0]
+    x = nn.embed(params["embed"], tokens).to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=dev)
+    if frontend_embeds is not None:
+        fe = nn.dense(params["frontend_proj"],
+                      torch.as_tensor(frontend_embeds, device=dev).to(dt))
+        x = torch.cat([fe, x], dim=1)
+    s_total = x.shape[1]
+
+    cache_pos = int(cache["pos"]) if cache is not None else 0
+    if positions is None:
+        start = cache_pos if mode == "decode" else 0
+        positions = default_positions(cfg, b, start, s_total, dev)
+
+    pattern = cfg.block_pattern
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def run(x, blocks_p, blocks_c):
+        nonlocal aux
+        new_c = {}
+        for i, kind in enumerate(pattern[:len(blocks_p)]):
+            c_i = blocks_c[f"b{i}"] if blocks_c is not None else None
+            x, nc, a = apply_block(blocks_p[f"b{i}"], cfg, kind, x, positions,
+                                   mode, c_i, cache_pos)
+            aux = aux + a
+            if nc is not None:
+                new_c[f"b{i}"] = nc
+        return x, new_c
+
+    new_units: List[Any] = []
+    for u in range(cfg.n_units):
+        unit_p = tree_map(lambda t: t[u], params["units"])
+        unit_c = (None if mode == "train"
+                  else tree_map(lambda t: t[u], cache["units"]))
+        x = constrain(x, "batch", None, None)
+        x, new_c = run(x, unit_p, unit_c)
+        new_units.append(new_c)
+    new_cache = None
+    if mode != "train":
+        new_cache = {"units": nn.stack_trees(new_units),
+                     "pos": torch.tensor(cache_pos + s_total,
+                                         dtype=torch.int32, device=dev)}
+
+    if cfg.n_rem:
+        rem_c = cache["rem"] if cache is not None else None
+        x, new_rem = run(x, params["rem"], rem_c)
+        if new_cache is not None:
+            new_cache["rem"] = new_rem
+
+    x = _norm(cfg, params["final_norm"], x)
+    logits = nn.unembed(params["embed"], x)
+    logits = constrain(logits, "batch", None, "vocab")
+    logits = nn.softcap(logits.float(), cfg.final_softcap)
+    return logits, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# trees across the packages (numpy, in the reference's leaf order)
+# ---------------------------------------------------------------------------
+def _key_paths(tree, prefix=()) -> List[tuple]:
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _key_paths(tree[k],
+                                                            prefix + (k,))]
+    return [prefix]
+
+
+def _tensor_from_numpy(a, like: torch.Tensor, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":    # ml_dtypes' bfloat16, by its bits
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))   # a writable copy
+    return t.to(device=device, dtype=like.dtype)
+
+
+def _tree_from_numpy(tree, like, device, what: str):
+    got, want = _key_paths(tree), _key_paths(like)
+    if got != want:
+        raise ValueError(f"{what}: expected the leaves "
+                         f"{['/'.join(p) for p in want]}, got "
+                         f"{['/'.join(p) for p in got]}")
+    leaves, out = tree_leaves(tree), []
+    for path, a, l in zip(want, leaves, tree_leaves(like)):
+        if tuple(np.shape(a)) != tuple(l.shape):
+            raise ValueError(f"{what}: {'/'.join(path)} has shape "
+                             f"{tuple(np.shape(a))}, expected {tuple(l.shape)}")
+        out.append(_tensor_from_numpy(a, l, device))
+    return tree_unflatten(like, out)
+
+
+def _tree_to_numpy(tree):
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(one, tree)
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
+    """The port's LM params from the reference's params as numpy (a
+    ``jax.tree_util.tree_map(np.asarray, params)``), every key and shape
+    checked against `init_lm`'s tree and cast to ``cfg``'s dtype."""
+    like = init_lm(None, cfg, device="meta")
+    return _tree_from_numpy(tree, like, device, f"{cfg.name} params")
+
+
+def lm_params_to_numpy(params):
+    """The params as a tree of numpy arrays (bfloat16 leaves as float32,
+    exactly), the reference's tree and leaf order."""
+    return _tree_to_numpy(params)
+
+
+def lm_cache_from_numpy(tree, cfg: ModelConfig, batch: int, max_len: int,
+                        device="cuda"):
+    """A serving cache from the reference's cache as numpy."""
+    like = init_cache(cfg, batch, max_len, device="meta")
+    return _tree_from_numpy(tree, like, device, f"{cfg.name} cache")
+
+
+def lm_cache_to_numpy(cache):
+    return _tree_to_numpy(cache)

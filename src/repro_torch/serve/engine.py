@@ -1,4 +1,5 @@
-"""Bucketed DCNN serving engine, on one device or a data-parallel mesh.
+"""Serving engines: the bucketed DCNN engine, on one device or a
+data-parallel mesh, and the LM's continuous-batching `ServeEngine`.
 
 `DcnnServeEngine` is the paper's serving path: batched z -> image
 generation through a selectable deconvolution backend.  Request batches
@@ -76,6 +77,7 @@ dispatch span ends when the stream has synchronised on the images.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import threading
 import time
@@ -91,13 +93,16 @@ from ..dist.inject import DeviceLossError, TransientCallError
 from ..kernels.deconv2d import int8 as int8_kernel
 from ..kernels.deconv2d import kernel as deconv_kernel
 from ..kernels.deconv2d_sparse import kernel as sparse_kernel
+from ..core.tree import tree_map
 from ..models.dcnn import generator_apply
+from ..models.transformer import apply_lm, init_cache
 from ..obs import clock as obsclock
 from ..obs import metrics as obsmetrics
 from ..obs import trace as obstrace
 from ..workloads import resolve_model, workload_name_for
 from .config import EngineConfig
 from .errors import AdmissionRejected, DeadlineExceeded, EngineDegraded
+from .sampling import sample
 
 
 class _CaptureGate:
@@ -311,6 +316,141 @@ class ShardedExecutable:
         got = self.enqueue(take)
         self.wait()
         return self.images(got, take)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray          # (S,) int32
+    max_new_tokens: int
+    out: Optional[np.ndarray] = None
+
+
+class ServeEngine:
+    """LM serving over a fixed batch of sequence slots (the JAX package's
+    ``ServeEngine``): a static-batch `generate` and a continuous-batching
+    `serve` with the reference's slot scheduler.  The model
+    (`models.transformer.apply_lm`) runs eagerly on ``device`` ("cuda"
+    unless the caller asks for "cpu"; a missing card raises), under
+    ``torch.inference_mode``; each step's tokens come back to the host for
+    the scheduler, as the reference's do.  Sampling draws from a
+    ``torch.Generator`` of the device seeded with ``seed``."""
+
+    def __init__(self, cfg, params, batch_size: int, max_len: int,
+                 temperature: float = 0.0, seed: int = 0, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ServeEngine(device='cuda') but no CUDA device "
+                               "is available; pass device='cpu'")
+        self.cfg = cfg
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.batch = batch_size
+        self.max_len = max_len
+        self.temperature = temperature
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        # scheduler observability (reset per serve() call)
+        self.prefill_steps = 0
+        self.decode_steps = 0
+        self.sample_steps = 0
+
+    def _prefill(self, tokens: np.ndarray):
+        with torch.inference_mode():
+            cache = init_cache(self.cfg, self.batch, self.max_len,
+                               self.device)
+            logits, cache, _ = apply_lm(self.params, self.cfg,
+                                        torch.from_numpy(tokens),
+                                        mode="prefill", cache=cache)
+        return logits[:, -1], cache
+
+    def _decode(self, cache, tokens: torch.Tensor):
+        with torch.inference_mode():
+            logits, cache, _ = apply_lm(self.params, self.cfg, tokens,
+                                        mode="decode", cache=cache)
+        return logits[:, -1], cache
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        return sample(logits, self.generator, self.temperature)
+
+    def generate(self, prompts: np.ndarray, max_new_tokens: int,
+                 eos_id: int = -1) -> np.ndarray:
+        """prompts: (B, S) int32 (B == engine batch).  Static batch path."""
+        assert prompts.shape[0] == self.batch
+        logits, cache = self._prefill(np.asarray(prompts, np.int32))
+        nxt = self._sample(logits)
+        toks = [nxt.cpu().numpy()]
+        for _ in range(max_new_tokens - 1):
+            logits, cache = self._decode(cache, nxt[:, None])
+            nxt = self._sample(logits)
+            toks.append(nxt.cpu().numpy())
+        return np.stack(toks, axis=1)
+
+    # ------------------------------------------------------------------
+    # continuous batching: slot scheduler over queued requests
+    # ------------------------------------------------------------------
+    def serve(self, requests: List[Request]) -> List[Request]:
+        """Continuous batching over the fixed slot batch, as the
+        reference's: a request is admitted the moment a slot frees;
+        admission re-prefills the accumulated histories of every active
+        slot, left-padded so all slots share the scalar cache position
+        (left-pad tokens are ordinary tokens to the causal, unmasked
+        model); between admissions every slot advances through one decode
+        step.  Each request generates exactly its ``max_new_tokens``; a
+        zero-budget request completes empty without a slot, and a
+        history plus budget past ``max_len`` fails an assertion."""
+        queue = list(requests)
+        done: List[Request] = []
+        slots: List[Optional[dict]] = [None] * self.batch
+        self.prefill_steps = self.decode_steps = self.sample_steps = 0
+        nxt = None
+        cache = None
+        while queue or any(s is not None for s in slots):
+            admitted = False
+            for i in range(self.batch):
+                while slots[i] is None and queue:
+                    r = queue.pop(0)
+                    if r.max_new_tokens <= 0:
+                        r.out = np.zeros((0,), np.int32)
+                        done.append(r)
+                        continue
+                    slots[i] = {
+                        "req": r,
+                        "hist": [int(t) for t in np.asarray(r.prompt)],
+                        "left": int(r.max_new_tokens),
+                        "gen": [],
+                    }
+                    admitted = True
+            if not any(s is not None for s in slots):
+                break  # every remaining request was zero-budget
+            if admitted:
+                s_max = max(len(s["hist"]) for s in slots if s is not None)
+                worst = s_max + max(s["left"] for s in slots
+                                    if s is not None)
+                assert worst <= self.max_len, (
+                    f"history+budget ({worst}) exceeds max_len "
+                    f"({self.max_len}); the KV cache would overflow")
+                pad = np.zeros((self.batch, s_max), np.int32)
+                for i, s in enumerate(slots):
+                    if s is not None:
+                        pad[i, s_max - len(s["hist"]):] = s["hist"]
+                logits, cache = self._prefill(pad)
+                self.prefill_steps += 1
+            else:
+                logits, cache = self._decode(cache, nxt[:, None])
+                self.decode_steps += 1
+            nxt = self._sample(logits)
+            self.sample_steps += 1
+            nxt_np = nxt.cpu().numpy()
+            for i, s in enumerate(slots):
+                if s is None:
+                    continue
+                tok = int(nxt_np[i])
+                s["gen"].append(tok)
+                s["hist"].append(tok)
+                s["left"] -= 1
+                if s["left"] == 0:
+                    s["req"].out = np.asarray(s["gen"], np.int32)
+                    done.append(s["req"])
+                    slots[i] = None   # freed: admitted from queue next step
+        return done
 
 
 def pow2_buckets(max_batch: int) -> Tuple[int, ...]:

@@ -10,6 +10,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_dcnn_torch.py",
      ROOT / "examples" / "train_wgan_mnist_torch.py",
+     ROOT / "examples" / "serve_sr_torch.py",
+     ROOT / "examples" / "quickstart_torch.py",
      ROOT / "tools" / "probe_mesh.py", ROOT / "tools" / "probe_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
@@ -51,13 +53,17 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_every_port_module_is_covered():
-    """The static checks, the mesh and the sharding helpers are among the
-    files the two tests above read and import."""
+    """The static checks, the mesh, the sharding helpers and the LM side
+    are among the files the two tests above read and import."""
     mods = {str(p.relative_to(ROOT / "src" / "repro_torch"))
             for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"analysis/__init__.py", "analysis/check/__init__.py",
             "analysis/check/__main__.py", "analysis/check/rules.py",
             "analysis/check/plan_drc.py", "analysis/check/bench_schema.py",
             "analysis/check/concurrency.py", "launch/__init__.py",
-            "launch/mesh.py", "dist/sharding.py"} <= mods
+            "launch/mesh.py", "dist/sharding.py", "dist/context.py",
+            "models/nn.py", "models/attention.py", "models/ffn.py",
+            "models/transformer.py", "configs/__init__.py",
+            "configs/shapes.py", "configs/deepseek_7b.py",
+            "serve/sampling.py"} <= mods
 
