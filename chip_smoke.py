@@ -155,9 +155,30 @@ scratch, and a second loss fails):
     off, no KV quantization): greedy tokens equal to the full-recompute
     oracle's, and the prefill and decode logits within 1e-4 x max|logits|
     of the port's on the CPU with the same weights;
-13. the kernels line (launches summed over the serving paths, the
+13. the MoE and recurrent LM families at their published widths, one
+    model on the card at a time, each as phase 12 serves deepseek-7b:
+    qwen2-moe-a2.7b (bf16, int8 KV cache; 60 experts top-4 plus 4 shared),
+    recurrentgemma-2b (Griffin: RG-LRU and local attention) and xlstm-1.3b
+    (mLSTM and sLSTM), bf16; the prefill bound counts a MoE's grouped
+    einsums over all g x e x cap slots, the decode bound reads every
+    expert's weights and reads and writes every recurrent state.  Hard
+    checks at full width and reduced depth in float32 (qwen2-moe 2 layers,
+    recurrentgemma 5, xlstm 8; TF32 off, no KV quantization, capacity
+    factor 16): greedy tokens == the full-recompute oracle, card logits
+    within 1e-4 x max|logits| of the CPU's, and for xlstm a 2 x 128
+    prefill through the chunkwise mLSTM likewise;
+14. LM training: ``python -m repro_torch.launch.train --arch xlstm-1.3b
+    --steps 3 --batch 4 --seq 128`` at full width (bf16, remat on, the
+    chunkwise mLSTM) exits 0 with finite losses and every param leaf moved
+    but the bf16 norm scales, printing ms per step and peak memory;
+    ``examples/train_lm_torch.py --steps 10`` exits 0; one
+    ``make_train_step(grad_accum=2)`` step at xlstm's width, 8 layers,
+    float32, batch 2 x 128, on the card and on the CPU from the same
+    params and fresh AdamW states: losses rtol 1e-4, Adam's moments within
+    1e-4 as a tree-norm ratio; no deconv kernel launched;
+15. the kernels line (launches summed over the serving paths, the
     frontend run, the training runs, the mesh phase and the examples);
-    14. the result line.
+    16. the result line.
 
 Phase 10's rerun after a trace loss runs in a process of its own
 (``chip_smoke.py --mesh-phase``, on CelebA engines built as phase 4
@@ -171,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import queue
@@ -201,7 +223,7 @@ from repro_torch.core.mmd import mmd  # noqa: E402
 from repro_torch.core.sparsity import magnitude_prune, prune_tree  # noqa: E402
 from repro_torch.core.tiling import DeconvGeometry, tc_warp_tile  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
-from repro_torch.data import image_source  # noqa: E402
+from repro_torch.data import image_source, lm_source  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
 from repro_torch.kernels.autotune import (SMS, fill_tiles,  # noqa: E402
                                           grid_blocks, hopper_tiles, time_ms)
@@ -214,8 +236,10 @@ from repro_torch.kernels.deconv2d_sparse import (make_sparse_plan,  # noqa: E402
 from repro_torch.models.dcnn import (CELEBA_DCNN, MNIST_DCNN,  # noqa: E402
                                      generator_apply, generator_init)
 from repro_torch.models.nn import tree_bytes, tree_size  # noqa: E402
-from repro_torch.models.transformer import (apply_lm, init_cache,  # noqa: E402
-                                            init_lm)
+from repro_torch.models.ffn import _dispatch_groups  # noqa: E402
+from repro_torch.models.transformer import (ATTN_KINDS,  # noqa: E402
+                                            apply_lm, init_block_cache,
+                                            init_cache, init_lm)
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.quant import (calibrate, quantize_params,  # noqa: E402
                                quantize_symmetric, quantized_generator_apply,
@@ -231,6 +255,7 @@ from repro_torch.serve import (AdmissionRejected,  # noqa: E402
                                ServeEngine, TenantClass)
 from repro_torch.train import (SupervisedTrainer, WganTrainer,  # noqa: E402
                                pair_source)
+from repro_torch.train.lm import make_train_step  # noqa: E402
 from repro_torch.train.wgan import requiring_grad  # noqa: E402
 from repro_torch.workloads import (DAE_DENOISE, SR_X2,  # noqa: E402
                                    calibration_input, workload_for)
@@ -375,6 +400,24 @@ LM_CHECK_BATCH = 2
 LM_CHECK_PROMPT = 24
 LM_CHECK_NEW = 8
 LM_LOGIT_TOL = 1e-4            # of max|logits| on the CPU
+# phase 13: the MoE and recurrent families at their published widths,
+# served as phase 12 serves deepseek-7b, one model on the card at a time;
+# the hard checks at each one's reduced depth (qwen2-moe: 2 layers;
+# recurrentgemma: one unit plus its two remainder blocks; xlstm: one unit)
+# with the capacity factor of the reference's own prefill/decode test, so
+# that no assignment drops and the full recompute is an oracle
+LM_FAMILIES = {"qwen2-moe-a2.7b": 2, "recurrentgemma-2b": 5, "xlstm-1.3b": 8}
+LM_CHECK_CAPACITY = 16.0
+LM_CHUNK_CHECK = (2, 128)      # xlstm's chunkwise mLSTM prefill, card vs CPU
+# phase 14: LM training, xlstm-1.3b at its published width through the
+# launcher (bf16, remat on), the example, and one float32 step at 8 layers
+# on the card against the CPU
+TRAIN_LM_ARCH = "xlstm-1.3b"
+TRAIN_LM_ARGS = ("--steps", "3", "--batch", "4", "--seq", "128")
+TRAIN_LM_EXAMPLE_STEPS = 10
+TRAIN_LM_CHECK_LAYERS = 8
+TRAIN_LM_CHECK = (2, 128)      # batch, seq; grad_accum 2
+TRAIN_LM_TOL = 1e-4            # losses rtol; Adam's moments as a norm ratio
 
 
 @functools.lru_cache(maxsize=None)
@@ -2559,14 +2602,52 @@ def lm_step_times(eng, cfg, rng):
     return statistics.median(pre), statistics.median(dec)
 
 
-def phase_lm(smi, peaks):
-    """deepseek-7b at its published width in bf16 with the int8 KV cache,
-    its weights drawn on the card from a seed: `ServeEngine` (batch
-    LM_BATCH, max_len LM_MAX_LEN) serves LM_REQUESTS requests, each of
-    exactly its budget; prefill and decode times, tokens/s and peak
-    memory; no deconv kernel launched.  Then the hard checks of
-    `lm_checks`."""
-    cfg = get_config(LM_ARCH)
+def lm_bounds(cfg, params, peaks):
+    """The least times of the timed prefill (LM_BATCH x LM_TIME_PROMPT
+    tokens; by operations at the bf16 tensor-core peak) and decode step
+    (by bytes at the memory rate), counted from what the model's design
+    does: 2 operations per weight per token, the unembedding included and
+    attention left out, except a MoE layer's routed experts, whose grouped
+    einsums run over all ``g x e x cap`` slots of the dispatch buffer; a
+    decode step reads every weight once (a MoE's einsum runs over every
+    expert) and reads and writes every recurrent state.  Returns (prefill
+    s, decode s, a note of what was counted)."""
+    n_params, n_bytes = tree_size(params), tree_bytes(params)
+    tokens = LM_BATCH * LM_TIME_PROMPT
+    ops, note = 2 * n_params * tokens, ""
+    if cfg.n_experts:
+        e, k, d, f = (cfg.n_experts, cfg.moe_top_k, cfg.d_model,
+                      cfg.expert_d_ff)
+        n_moe = (cfg.n_units * sum(kd in ATTN_KINDS
+                                   for kd in cfg.block_pattern)
+                 + sum(kd in ATTN_KINDS
+                       for kd in cfg.block_pattern[:cfg.n_rem]))
+        g = _dispatch_groups(tokens)
+        cap = int(max(1, round(tokens // g * k / e
+                               * cfg.moe_capacity_factor)))
+        routed = 3 * e * d * f
+        ops = (2 * (n_params - n_moe * routed) * tokens
+               + n_moe * 2 * 3 * d * f * g * e * cap)
+        note = f"; g x e x cap = {g} x {e} x {cap} slots a layer"
+    state = 0
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind not in ATTN_KINDS:
+            layers = cfg.n_units + (i < cfg.n_rem)
+            state += layers * tree_bytes(init_block_cache(
+                cfg, kind, LM_BATCH, LM_MAX_LEN, "meta"))
+    if state:
+        note += (f"; decode reads and writes {state / 1e9:.3f} GB of "
+                 f"recurrent state")
+    return ops / peaks["bf16"], (n_bytes + 2 * state) / peaks["bw"], note
+
+
+def lm_serve(cfg, smi, peaks):
+    """``cfg`` at its published width in bf16 (its own KV cache
+    quantization), its weights drawn on the card from a seed:
+    `ServeEngine` (batch LM_BATCH, max_len LM_MAX_LEN) serves LM_REQUESTS
+    requests, each of exactly its budget; prefill and decode times against
+    `lm_bounds`, tokens/s and peak memory; no deconv kernel launched.  The
+    weights are freed on return."""
     zero_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2599,12 +2680,8 @@ def phase_lm(smi, peaks):
     if any(launch_counts().values()):
         raise AssertionError(f"the LM path launched a deconv kernel: "
                              f"{launch_counts()}")
-    # the least time: a prefill's operations at the bf16 tensor-core peak
-    # (2 per weight per token, the unembedding included, attention not),
-    # a decode step's weight bytes read once at the memory rate
-    prefill_bound = 2 * n_params * LM_BATCH * LM_TIME_PROMPT / peaks["bf16"]
-    decode_bound = n_bytes / peaks["bw"]
-    print(f"  {LM_ARCH}: {n_params} params, {n_bytes / 1e9:.3f} GB of "
+    prefill_bound, decode_bound, note = lm_bounds(cfg, params, peaks)
+    print(f"  {cfg.name}: {n_params} params, {n_bytes / 1e9:.3f} GB of "
           f"weights drawn on the card in {init_s:.2f} s (peak "
           f"{init_peak / 2**30:.2f} GiB); {smi}", flush=True)
     print(f"  served {LM_REQUESTS} requests (prompts {LM_PROMPT[0]}-"
@@ -2618,23 +2695,44 @@ def phase_lm(smi, peaks):
     print(f"  prefill ({LM_BATCH} x {LM_TIME_PROMPT}) {prefill_ms:.3f} ms "
           f"(bound {prefill_bound * 1e3:.3f} ms by operations); decode "
           f"{decode_ms:.3f} ms per token step of {LM_BATCH} (bound "
-          f"{decode_bound * 1e3:.3f} ms by the weights' bytes); "
+          f"{decode_bound * 1e3:.3f} ms by bytes{note}); "
           f"{LM_BATCH * 1e3 / decode_ms:.1f} decode tokens/s; no deconv "
           f"kernel launched; {smi}", flush=True)
     del eng, params
     torch.cuda.empty_cache()
-    lm_checks(cfg, smi)
 
 
-def lm_checks(cfg, smi):
-    """At LM_ARCH's width with LM_CHECK_LAYERS layers in float32 (TF32
-    off, no KV quantization): greedy tokens from `ServeEngine.generate`
-    equal to the full-recompute oracle's (``apply_lm(mode="train")`` on
-    the growing sequence), and the prefill and one decode step's logits
-    on the card within LM_LOGIT_TOL x max|logits| of the port's on the
-    CPU with the same weights."""
-    cfg = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype="float32",
-                              kv_quant=False)
+def phase_lm(smi, peaks):
+    """Phase 12: deepseek-7b at its published width in bf16 with the int8
+    KV cache served by `lm_serve`; then the hard checks of `lm_checks` at
+    LM_CHECK_LAYERS layers."""
+    cfg = get_config(LM_ARCH)
+    lm_serve(cfg, smi, peaks)
+    lm_checks(cfg, LM_CHECK_LAYERS, smi)
+
+
+def phase_lm_families(smi, peaks):
+    """Phase 13: qwen2-moe-a2.7b (bf16, int8 KV cache), recurrentgemma-2b
+    and xlstm-1.3b (bf16) at their published widths, one after another,
+    each served by `lm_serve` and then held by `lm_checks` at its reduced
+    depth, xlstm also through its chunkwise mLSTM prefill."""
+    for arch, layers in LM_FAMILIES.items():
+        cfg = get_config(arch)
+        lm_serve(cfg, smi, peaks)
+        lm_checks(cfg, layers, smi, chunkwise=arch == "xlstm-1.3b")
+
+
+def lm_checks(cfg, layers, smi, chunkwise=False):
+    """At ``cfg``'s width with ``layers`` layers in float32 (TF32 off, no KV
+    quantization, a MoE's capacity factor LM_CHECK_CAPACITY): greedy tokens
+    from `ServeEngine.generate` equal to the full-recompute oracle's
+    (``apply_lm(mode="train")`` on the growing sequence), and the prefill
+    and one decode step's logits on the card within LM_LOGIT_TOL x
+    max|logits| of the port's on the CPU with the same weights; with
+    ``chunkwise``, also a LM_CHUNK_CHECK prefill (the chunkwise mLSTM)."""
+    cfg = dataclasses.replace(cfg, n_layers=layers, dtype="float32",
+                              kv_quant=False,
+                              moe_capacity_factor=LM_CHECK_CAPACITY)
     dev = torch.device("cuda")
     fp32_exact(dev)
     params = init_lm(torch.Generator("cuda").manual_seed(1), cfg)
@@ -2653,32 +2751,151 @@ def lm_checks(cfg, smi):
                 raise AssertionError(f"greedy token {t}: engine {out[:, t]}, "
                                      f"full recompute {nxt.cpu().numpy()}")
             seq = torch.cat([seq, nxt[:, None]], dim=1)
+    long = rng.randint(1, cfg.vocab_size, LM_CHUNK_CHECK).astype(np.int32)
 
-    def prefill_decode(p, device):
+    def logits_on(p, device):
         with torch.inference_mode():
             cache = init_cache(cfg, LM_CHECK_BATCH, max_len, device)
             lp, cache, _ = apply_lm(p, cfg, torch.from_numpy(prompts),
                                     mode="prefill", cache=cache)
             ld, _, _ = apply_lm(p, cfg, torch.from_numpy(out[:, :1]),
                                 mode="decode", cache=cache)
-        return lp.cpu(), ld.cpu()
+            got = {"prefill": lp.cpu(), "decode": ld.cpu()}
+            if chunkwise:
+                cache = init_cache(cfg, LM_CHUNK_CHECK[0], LM_CHUNK_CHECK[1],
+                                   device)
+                got["chunkwise prefill"] = apply_lm(
+                    p, cfg, torch.from_numpy(long), mode="prefill",
+                    cache=cache)[0].cpu()
+        return got
 
-    card = prefill_decode(params, dev)
-    host = prefill_decode(tree_map(lambda t: t.cpu(), params),
-                          torch.device("cpu"))
+    card = logits_on(params, dev)
+    host = logits_on(tree_map(lambda t: t.cpu(), params), torch.device("cpu"))
     errs = []
-    for name, a, b in zip(("prefill", "decode"), card, host):
+    for name, a in card.items():
+        b = host[name]
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
         if not err <= LM_LOGIT_TOL * scale:
-            raise AssertionError(f"{name} logits: card vs CPU {err:.3e} > "
-                                 f"{LM_LOGIT_TOL} x {scale:.3e}")
+            raise AssertionError(f"{cfg.name} {name} logits: card vs CPU "
+                                 f"{err:.3e} > {LM_LOGIT_TOL} x {scale:.3e}")
         errs.append(f"{name} {err:.2e} of max {scale:.2f}")
-    print(f"  {LM_ARCH} at full width, {LM_CHECK_LAYERS} layers, float32: "
+    print(f"  {cfg.name} at full width, {layers} layers, float32: "
           f"{LM_CHECK_NEW} greedy tokens x {LM_CHECK_BATCH} == full "
           f"recompute; logits card vs CPU: {', '.join(errs)}; {smi}",
           flush=True)
     del params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: LM training
+# ---------------------------------------------------------------------------
+def run_module(module, *args):
+    """``python -m module args`` on the card in a process of its own (the
+    checkout's ``src`` on its path): its standard output and seconds,
+    after checking that it exited 0."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]]
+                                       if os.environ.get("PYTHONPATH")
+                                       else [])))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *args],
+                         capture_output=True, text=True, env=env,
+                         timeout=EXAMPLE_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"{module}: rc {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return res.stdout, time.perf_counter() - t0
+
+
+def launcher_losses(name, out):
+    """The losses a run of the launcher printed, each finite."""
+    losses = [float(x) for x in
+              example_line(name, out, "losses:").split()[1:]]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    return losses
+
+
+def phase_lm_training(smi):
+    """Phase 14: ``python -m repro_torch.launch.train`` trains
+    TRAIN_LM_ARCH at its published width on the card (bf16, remat on; the
+    mLSTM takes its chunkwise order at 128 tokens) for 3 steps: finite
+    losses, every param leaf moved but the norm scales (a bf16 1.0 stays
+    put under a first step of ~lr, below half its ulp), ms per step and
+    peak memory; ``examples/train_lm_torch.py`` exits 0; then `lm_train_check`."""
+    zero_launch_counts()
+    name = "repro_torch.launch.train"
+    out, sec = run_module(name, "--arch", TRAIN_LM_ARCH, *TRAIN_LM_ARGS,
+                          "--log-every", "1")
+    losses = launcher_losses(name, out)
+    moved = example_line(name, out, "params moved:")
+    m = re.fullmatch(r"params moved: (\d+) of (\d+) leaves; unmoved: (.*)",
+                     moved)
+    if m is None or int(m[1]) == 0 or any(
+            not p.endswith("scale") for p in m[3].split() if m[3] != "none"):
+        raise AssertionError(f"{name}: {moved!r}")
+    print(f"  {TRAIN_LM_ARCH} at full width through {name} "
+          f"{' '.join(TRAIN_LM_ARGS)} (bf16, remat): exit 0 in {sec:.1f} s; "
+          f"losses {losses}; {example_line(name, out, 'ms per step:')}; "
+          f"{moved}; {example_line(name, out, 'max_memory_allocated:')}; "
+          f"{example_line(name, out, 'instantiated params:')}; {smi}",
+          flush=True)
+    out, sec = run_example("train_lm_torch", "--steps",
+                           str(TRAIN_LM_EXAMPLE_STEPS))
+    losses = launcher_losses("train_lm_torch", out)
+    if len(losses) != TRAIN_LM_EXAMPLE_STEPS:
+        raise AssertionError(f"train_lm_torch.py: {len(losses)} losses")
+    print(f"  examples/train_lm_torch.py --steps {TRAIN_LM_EXAMPLE_STEPS}: "
+          f"exit 0 in {sec:.1f} s; {example_line('train_lm_torch', out, 'arch=')}"
+          f"; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{example_line('train_lm_torch', out, 'ms per step:')}", flush=True)
+    lm_train_check(smi)
+    if any(launch_counts().values()):
+        raise AssertionError(f"LM training launched a deconv kernel: "
+                             f"{launch_counts()}")
+
+
+def lm_train_check(smi):
+    """One `make_train_step` step (grad_accum 2) at TRAIN_LM_ARCH's width
+    with TRAIN_LM_CHECK_LAYERS layers in float32 (TF32 off) on a
+    TRAIN_LM_CHECK batch, on the card and on the CPU from the same params
+    and fresh AdamW states: the losses within rtol TRAIN_LM_TOL and Adam's
+    moments (the step's grads) within TRAIN_LM_TOL as a tree-norm ratio."""
+    cfg = dataclasses.replace(get_config(TRAIN_LM_ARCH),
+                              n_layers=TRAIN_LM_CHECK_LAYERS,
+                              dtype="float32")
+    dev = torch.device("cuda")
+    fp32_exact(dev)
+    params = init_lm(torch.Generator("cuda").manual_seed(2), cfg)
+    host_params = tree_map(lambda t: t.cpu(), params)
+    batch = lm_source(2, *TRAIN_LM_CHECK, cfg.vocab_size).batch(0)
+    opt = AdamW(lr=1e-4)
+    step = make_train_step(cfg, opt, grad_accum=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, card_state, _, card_met = step(params, opt.init(params), None, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del params
+    t0 = time.perf_counter()
+    _, host_state, _, host_met = step(host_params, opt.init(host_params),
+                                      None, batch)
+    host_s = time.perf_counter() - t0
+    lc, lh = float(card_met["loss"]), float(host_met["loss"])
+    if not (np.isfinite(lc) and abs(lc - lh) <= TRAIN_LM_TOL * abs(lh)):
+        raise AssertionError(f"LM step loss card {lc} vs CPU {lh}")
+    md = moment_diff(tree_map(lambda t: t.cpu(), card_state), host_state)
+    if not md <= TRAIN_LM_TOL:
+        raise AssertionError(f"LM step: Adam's moments card vs CPU {md:.3e} "
+                             f"> {TRAIN_LM_TOL}")
+    print(f"  {TRAIN_LM_ARCH} at full width, {TRAIN_LM_CHECK_LAYERS} layers, "
+          f"float32, one step of {TRAIN_LM_CHECK[0]} x {TRAIN_LM_CHECK[1]} "
+          f"with grad_accum 2: loss card {lc!r} vs CPU {lh!r}; Adam's "
+          f"moments {md:.2e} as a norm ratio; {card_s:.2f} s on the card, "
+          f"{host_s:.2f} s on the CPU; {smi}", flush=True)
+    del card_state
     torch.cuda.empty_cache()
 
 
@@ -2783,13 +3000,24 @@ def run(smi, name, peaks) -> int:
     launches["mesh"] = once_more_on_trace_loss(
         "mesh", phase_mesh, engines, smi,
         rerun=functools.partial(mesh_phase_in_a_fresh_process, smi))
+    # phase 4's engines and their graph pools are done with: the LM phases
+    # and phase 14's training process need the card's memory
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"[11] examples (at {time.perf_counter() - t0:.1f} s)", flush=True)
     launches["examples"] = phase_examples(smi)
 
     print(f"[12] LM serving (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
     phase_lm(smi, peaks)
-    print(f"[13] kernels line (at {time.perf_counter() - t0:.1f} s)",
+    print(f"[13] MoE and recurrent LM serving (at "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_lm_families(smi, peaks)
+    print(f"[14] LM training (at {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    phase_lm_training(smi)
+    print(f"[15] kernels line (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
 
     print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,

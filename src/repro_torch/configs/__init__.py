@@ -1,8 +1,9 @@
 """Config registry (the JAX package's ``repro.configs``): the 10 LM
 architectures, at their published widths, and the paper's own DCNN
 configs, selectable by name.  Pure data: nothing here downloads or
-allocates.  The port serves the dense-family LMs; a MoE or recurrent
-config raises at init (ROADMAP.md A16)."""
+allocates.  The port serves and trains all ten LMs on one device;
+phi3.5-moe's 83.5 GB of bf16 weights wait at full width for expert
+sharding over four cards (ROADMAP.md A16, item 4)."""
 from __future__ import annotations
 
 import dataclasses

@@ -43,6 +43,18 @@ def tree_leaves(tree) -> List[Any]:
     return out
 
 
+def tree_paths(tree, prefix: tuple = ()) -> List[tuple]:
+    """The path of every leaf of ``tree``, in `tree_leaves` order: a dict
+    key or a sequence index per level."""
+    if not _is_node(tree):
+        return [prefix]
+    keys = sorted(tree) if isinstance(tree, dict) else range(len(tree or ()))
+    out: List[tuple] = []
+    for k, c in zip(keys, _children(tree)):
+        out.extend(tree_paths(c, prefix + (k,)))
+    return out
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the matching leaves of
     ``rest``, trees of the same structure), in a tree of that structure."""

@@ -63,8 +63,11 @@ def ones_init(shape, dtype: torch.dtype, device) -> torch.Tensor:
 # Dense
 # ---------------------------------------------------------------------------
 def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
-               dtype: torch.dtype, bias: bool = False,
-               device="cpu") -> Dict[str, torch.Tensor]:
+               dtype: torch.dtype, bias: bool = False, *,
+               device) -> Dict[str, torch.Tensor]:
+    """``device`` is required: the weight is drawn on the generator's
+    device and then moved to ``device``, so a default would quietly move
+    a draw made on the card to the host."""
     p = {"w": lecun_init(generator, (d_in, d_out), dtype,
                          device=device).to(device)}
     if bias:

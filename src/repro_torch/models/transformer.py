@@ -1,24 +1,32 @@
 """The unified decoder LM of the JAX package (``repro.models.transformer``)
-in torch, for the dense model family: GQA/MQA/MHA attention blocks,
-local/global alternation, softcaps, partial and multi-section RoPE, the
-dense FFNs and the modality-frontend stub.
+in torch, for every family of its ten configs: GQA/MQA/MHA attention
+blocks, local/global alternation, softcaps, partial and multi-section
+RoPE, the dense FFNs and the top-k routed MoE (`models.ffn`), the
+recurrent blocks "griffin", "mlstm" and "slstm" (`models.recurrent`) and
+the modality-frontend stub.
 
 The tree is the reference's: layers grouped into repeat *units* (the
 block pattern) whose params are stacked along a leading unit axis
 (``units``), the remainder blocks (``rem``), the tied ``embed`` table,
 ``final_norm`` and, with a frontend, ``frontend_proj``; a serving cache is
-``{"units", "pos"}`` (and ``rem``).  A Python loop over the unit axis
-takes the place of the reference's ``lax.scan``.
-
-Not ported yet (ROADMAP.md A16): the MoE FFN (a block of a config with
-``n_experts``) and the recurrent blocks ("griffin", "mlstm", "slstm").
-Their init, apply and cache raise `NotImplementedError`; nothing runs in
-their place.
+``{"units", "pos"}`` (and ``rem``): a KV cache per attention block and a
+recurrent state per recurrent block.  A Python loop over the unit axis
+takes the place of the reference's ``lax.scan``; each unit's new cache is
+written into the stacked cache as soon as it is made, so a step holds the
+old cache and the new one, never a third copy.  In "train" mode under
+autograd with ``cfg.remat``, each unit runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``).  A recurrent block starts from no state in "train"
+and "prefill" (its state after the prompt becomes the cache) and from the
+cache in "decode", as the reference's does.  The aux loss is summed over
+every block.
 
 ``init_lm`` draws every tensor from a ``torch.Generator`` on that
 generator's device (at full width, a ~6.5 G-parameter model is drawn on
 the card, not on the host); the draws do not match the reference's, so
-parity tests load its params through `lm_params_from_numpy`.
+parity tests load its params through `lm_params_from_numpy`.  Every leaf
+keeps its own dtype across the packages: in a bf16 model RG-LRU's ``lam``
+and the recurrent states stay float32.
 """
 from __future__ import annotations
 
@@ -28,13 +36,19 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
-from ..core.tree import tree_leaves, tree_map, tree_unflatten
+from ..core.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 from ..dist.context import constrain
 from . import nn
 from .attention import (apply_rope, attention_apply, attention_init,
                         init_kv_cache, quantize_kv, update_slice)
-from .ffn import ffn_apply, ffn_init
+from .ffn import ffn_apply, ffn_init, moe_apply, moe_init
+from .recurrent import (griffin_block_apply, griffin_block_init,
+                        griffin_state_init, mlstm_block_apply,
+                        mlstm_block_init, mlstm_state_init,
+                        slstm_block_apply, slstm_block_init,
+                        slstm_state_init)
 
 ATTN_KINDS = ("global", "local")
 
@@ -154,20 +168,6 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _refuse(cfg: ModelConfig, kind: str) -> None:
-    """Raise for a block this port cannot run yet (ROADMAP.md A16)."""
-    if kind in ("griffin", "mlstm", "slstm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind!r} recurrent block is not ported yet "
-            "(ROADMAP.md A16)")
-    if kind in ATTN_KINDS and cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN ({cfg.n_experts} experts) is not "
-            "ported yet (ROADMAP.md A16)")
-    if kind not in ATTN_KINDS:
-        raise ValueError(f"unknown block kind {kind}")
-
-
 def _norm_init(cfg: ModelConfig, device) -> nn.Params:
     if cfg.norm == "layernorm":
         return nn.layernorm_init(cfg.d_model, cfg.tdtype, device)
@@ -182,35 +182,68 @@ def _norm(cfg: ModelConfig, p, x):
 
 def init_block(generator: Optional[torch.Generator], cfg: ModelConfig,
                kind: str, device=None) -> nn.Params:
-    _refuse(cfg, kind)
     dt = cfg.tdtype
-    return {
-        "norm1": _norm_init(cfg, device),
-        "attn": attention_init(generator, cfg, dt, kind, device=device),
-        "norm2": _norm_init(cfg, device),
-        "ffn": ffn_init(generator, cfg.d_model, cfg.d_ff, dt, cfg.activation,
-                        device=device),
-    }
+    p: Dict[str, Any] = {"norm1": _norm_init(cfg, device)}
+    if kind in ATTN_KINDS:
+        p["attn"] = attention_init(generator, cfg, dt, kind, device=device)
+        p["norm2"] = _norm_init(cfg, device)
+        if cfg.n_experts:
+            p["moe"] = moe_init(generator, cfg, dt, device=device)
+        else:
+            p["ffn"] = ffn_init(generator, cfg.d_model, cfg.d_ff, dt,
+                                cfg.activation, device=device)
+    elif kind == "griffin":
+        p["mixer"] = griffin_block_init(generator, cfg, dt, device)
+        p["norm2"] = _norm_init(cfg, device)
+        p["ffn"] = ffn_init(generator, cfg.d_model, cfg.d_ff, dt,
+                            cfg.activation, device=device)
+    elif kind == "mlstm":
+        p["mixer"] = mlstm_block_init(generator, cfg, dt, device)
+    elif kind == "slstm":
+        p["mixer"] = slstm_block_init(generator, cfg, dt, device)
+    else:
+        raise ValueError(f"unknown block kind {kind}")
+    return p
 
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, mode: str,
                 cache, cache_pos: int):
     """Returns (x, new_cache, aux_loss)."""
-    _refuse(cfg, kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm(cfg, p["norm1"], x)
-    if mode == "train":
-        out, new_cache = attention_apply(p["attn"], cfg, h, positions, kind)
-    elif mode == "prefill":
-        out, _ = attention_apply(p["attn"], cfg, h, positions, kind)
-        new_cache = _fill_cache(cfg, cache, h, p, positions)
-    else:  # decode
-        out, new_cache = attention_apply(p["attn"], cfg, h, positions, kind,
-                                         cache, cache_pos)
-    x = x + out
-    h2 = _norm(cfg, p["norm2"], x)
-    x = x + ffn_apply(p["ffn"], h2, cfg.activation)
-    return x, new_cache, aux
+    if kind in ATTN_KINDS:
+        if mode == "train":
+            out, new_cache = attention_apply(p["attn"], cfg, h, positions,
+                                             kind)
+        elif mode == "prefill":
+            out, _ = attention_apply(p["attn"], cfg, h, positions, kind)
+            new_cache = _fill_cache(cfg, cache, h, p, positions)
+        else:  # decode
+            out, new_cache = attention_apply(p["attn"], cfg, h, positions,
+                                             kind, cache, cache_pos)
+        x = x + out
+        h2 = _norm(cfg, p["norm2"], x)
+        if cfg.n_experts:
+            y, aux = moe_apply(p["moe"], cfg, h2,
+                               capacity_factor=cfg.moe_capacity_factor)
+        else:
+            y = ffn_apply(p["ffn"], h2, cfg.activation)
+        return x + y, new_cache, aux
+    # a recurrent block: from no state in train and prefill (its state
+    # after the prompt is the new cache), from the cache in decode
+    state = cache if mode == "decode" else None
+    if kind == "griffin":
+        out, new_cache = griffin_block_apply(p["mixer"], cfg, h, state)
+        x = x + out
+        h2 = _norm(cfg, p["norm2"], x)
+        x = x + ffn_apply(p["ffn"], h2, cfg.activation)
+    elif kind in ("mlstm", "slstm"):
+        fn = mlstm_block_apply if kind == "mlstm" else slstm_block_apply
+        out, new_cache = fn(p["mixer"], cfg, h, state)
+        x = x + out
+    else:
+        raise ValueError(f"unknown block kind {kind}")
+    return x, (None if mode == "train" else new_cache), aux
 
 
 def _fill_cache(cfg: ModelConfig, cache, h, p, positions):
@@ -250,8 +283,15 @@ def _fill_cache(cfg: ModelConfig, cache, h, p, positions):
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device="cuda"):
-    _refuse(cfg, kind)
-    return init_kv_cache(cfg, batch, max_len, kind, cfg.tdtype, device)
+    if kind in ATTN_KINDS:
+        return init_kv_cache(cfg, batch, max_len, kind, cfg.tdtype, device)
+    if kind == "griffin":
+        return griffin_state_init(cfg, batch, cfg.tdtype, device)
+    if kind == "mlstm":
+        return mlstm_state_init(cfg, batch, cfg.tdtype, device)
+    if kind == "slstm":
+        return slstm_state_init(cfg, batch, cfg.tdtype, device)
+    raise ValueError(f"unknown block kind {kind}")
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +307,15 @@ def _stacked(make: Callable[[], Any], n: int):
         tree = first if u == 0 else make()
         tree_map(lambda dst, src: dst[u].copy_(src), out, tree)
     return out
+
+
+def _unstack(stacked, n: int) -> List[Any]:
+    """The ``n`` unit trees of a unit-stacked tree: one ``unbind`` per
+    leaf, so under autograd each leaf's gradient is stacked once by one
+    node rather than summed over ``n`` full-size slices."""
+    leaves = [t.unbind(0) for t in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [l[u] for l in leaves])
+            for u in range(n)]
 
 
 def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -354,10 +403,10 @@ def apply_lm(
         positions = default_positions(cfg, b, start, s_total, dev)
 
     pattern = cfg.block_pattern
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
 
     def run(x, blocks_p, blocks_c):
-        nonlocal aux
+        """One unit (or the remainder): (x, its new caches, its aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         new_c = {}
         for i, kind in enumerate(pattern[:len(blocks_p)]):
             c_i = blocks_c[f"b{i}"] if blocks_c is not None else None
@@ -366,25 +415,43 @@ def apply_lm(
             aux = aux + a
             if nc is not None:
                 new_c[f"b{i}"] = nc
-        return x, new_c
+        return x, new_c, aux
 
-    new_units: List[Any] = []
-    for u in range(cfg.n_units):
-        unit_p = tree_map(lambda t: t[u], params["units"])
-        unit_c = (None if mode == "train"
-                  else tree_map(lambda t: t[u], cache["units"]))
+    def run_train(x, unit_p):
+        x, _, a = run(x, unit_p, None)
+        return x, a
+
+    remat = (mode == "train" and cfg.remat and torch.is_grad_enabled())
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    new_units = None
+    for u, unit_p in enumerate(_unstack(params["units"], cfg.n_units)):
         x = constrain(x, "batch", None, None)
-        x, new_c = run(x, unit_p, unit_c)
-        new_units.append(new_c)
+        if mode == "train":
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    run_train, x, unit_p, use_reentrant=False)
+            else:
+                x, a = run_train(x, unit_p)
+        else:
+            unit_c = tree_map(lambda t: t[u], cache["units"])
+            x, new_c, a = run(x, unit_p, unit_c)
+            # written into the stack now: no list of per-unit caches
+            if new_units is None:
+                new_units = tree_map(
+                    lambda t: t.new_empty((cfg.n_units, *t.shape)), new_c)
+            tree_map(lambda dst, src: dst[u].copy_(src), new_units, new_c)
+            del new_c, unit_c
+        aux = aux + a
     new_cache = None
     if mode != "train":
-        new_cache = {"units": nn.stack_trees(new_units),
+        new_cache = {"units": new_units,
                      "pos": torch.tensor(cache_pos + s_total,
                                          dtype=torch.int32, device=dev)}
 
     if cfg.n_rem:
-        rem_c = cache["rem"] if cache is not None else None
-        x, new_rem = run(x, params["rem"], rem_c)
+        rem_c = cache["rem"] if cache is not None and mode != "train" else None
+        x, new_rem, a = run(x, params["rem"], rem_c)
+        aux = aux + a
         if new_cache is not None:
             new_cache["rem"] = new_rem
 
@@ -398,13 +465,6 @@ def apply_lm(
 # ---------------------------------------------------------------------------
 # trees across the packages (numpy, in the reference's leaf order)
 # ---------------------------------------------------------------------------
-def _key_paths(tree, prefix=()) -> List[tuple]:
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in _key_paths(tree[k],
-                                                            prefix + (k,))]
-    return [prefix]
-
-
 def _tensor_from_numpy(a, like: torch.Tensor, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":    # ml_dtypes' bfloat16, by its bits
@@ -415,7 +475,7 @@ def _tensor_from_numpy(a, like: torch.Tensor, device) -> torch.Tensor:
 
 
 def _tree_from_numpy(tree, like, device, what: str):
-    got, want = _key_paths(tree), _key_paths(like)
+    got, want = tree_paths(tree), tree_paths(like)
     if got != want:
         raise ValueError(f"{what}: expected the leaves "
                          f"{['/'.join(p) for p in want]}, got "
@@ -440,7 +500,8 @@ def _tree_to_numpy(tree):
 def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """The port's LM params from the reference's params as numpy (a
     ``jax.tree_util.tree_map(np.asarray, params)``), every key and shape
-    checked against `init_lm`'s tree and cast to ``cfg``'s dtype."""
+    checked against `init_lm`'s tree and each leaf cast to its dtype there
+    (``cfg``'s dtype, but float32 for RG-LRU's ``lam``)."""
     like = init_lm(None, cfg, device="meta")
     return _tree_from_numpy(tree, like, device, f"{cfg.name} params")
 
@@ -453,7 +514,8 @@ def lm_params_to_numpy(params):
 
 def lm_cache_from_numpy(tree, cfg: ModelConfig, batch: int, max_len: int,
                         device="cuda"):
-    """A serving cache from the reference's cache as numpy."""
+    """A serving cache from the reference's cache as numpy, each leaf in
+    `init_cache`'s dtype (the recurrent states' float32 in any model)."""
     like = init_cache(cfg, batch, max_len, device="meta")
     return _tree_from_numpy(tree, like, device, f"{cfg.name} cache")
 

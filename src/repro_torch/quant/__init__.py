@@ -13,12 +13,12 @@ from .evaluate import mmd_degradation
 from .infer import (pack_quantized_params, quantized_generator_apply,
                     quantized_generator_ref)
 from .qmath import (QMAX, dequantize_symmetric, fake_quant,
-                    quantize_symmetric, symmetric_scale)
+                    quantize_absmax, quantize_symmetric, symmetric_scale)
 
 __all__ = [
     "OBSERVERS", "LayerQuant", "QuantConfig", "calibrate", "observe_amax",
     "quantize_params", "mmd_degradation", "pack_quantized_params",
     "quantized_generator_apply",
     "quantized_generator_ref", "QMAX", "dequantize_symmetric", "fake_quant",
-    "quantize_symmetric", "symmetric_scale",
+    "quantize_absmax", "quantize_symmetric", "symmetric_scale",
 ]

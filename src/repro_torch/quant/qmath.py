@@ -56,3 +56,14 @@ def dequantize_symmetric(q: torch.Tensor, scale: Scale) -> torch.Tensor:
 def fake_quant(x: torch.Tensor, scale: Scale, qmax: int = QMAX) -> torch.Tensor:
     """Quantize-dequantize in f32 (same rounding, same saturation)."""
     return dequantize_symmetric(quantize_symmetric(x, scale, qmax), scale)
+
+
+def quantize_absmax(x: torch.Tensor, qmax: int = QMAX):
+    """One-shot absmax quantization of a whole tensor: (q int8, its
+    float32 scalar scale).  The gradient-compression entry point.  The
+    scale is ``max|x| / qmax + 1e-12`` in float32, divided as a tensor on
+    ``x``'s device (true division there, as ``jnp`` divides)."""
+    amax = torch.max(torch.abs(x)).float()
+    scale = amax / torch.full((), qmax, dtype=torch.float32,
+                              device=x.device) + _EPS
+    return quantize_symmetric(x, scale, qmax), scale

@@ -333,7 +333,15 @@ class ServeEngine:
     unless the caller asks for "cpu"; a missing card raises), under
     ``torch.inference_mode``; each step's tokens come back to the host for
     the scheduler, as the reference's do.  Sampling draws from a
-    ``torch.Generator`` of the device seeded with ``seed``."""
+    ``torch.Generator`` of the device seeded with ``seed``.
+
+    Every family serves through the same scheduler: the cache is a tree of
+    KV caches and recurrent states (`models.transformer.init_cache`), and
+    each step replaces it whole (a decode step holds the old cache and the
+    new one; an admission drops the old one before its re-prefill), so an
+    xlstm-1.3b batch of 4 never holds its 2.7 GB of mLSTM state more than
+    twice.  A recurrent block runs through the left pads of a re-prefill
+    as through any token, as in the reference."""
 
     def __init__(self, cfg, params, batch_size: int, max_len: int,
                  temperature: float = 0.0, seed: int = 0, device="cuda"):
@@ -431,6 +439,7 @@ class ServeEngine:
                 for i, s in enumerate(slots):
                     if s is not None:
                         pad[i, s_max - len(s["hist"]):] = s["hist"]
+                cache = None   # re-prefilled from the histories: let it go
                 logits, cache = self._prefill(pad)
                 self.prefill_steps += 1
             else:

@@ -1,0 +1,93 @@
+"""LM training step (the JAX package's ``repro.train.lm``): the causal LM
+loss plus the MoE aux loss, gradient accumulation over microbatches, and
+optional int8 gradient compression with error feedback; the recompute of
+each unit follows ``cfg.remat`` (`models.transformer.apply_lm`).
+
+Gradients come from ``torch.autograd`` on detached copies of the params
+that require grad, so the caller's params never carry a graph; the
+update is the port's functional optimizer (`optim.AdamW`).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..core.tree import tree_leaves, tree_map, tree_unflatten
+from ..models.transformer import ModelConfig, apply_lm
+from ..optim.compression import EFState, compress_grads, decompress_grads
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Masked cross-entropy in float32 over the token region (labels < 0
+    masked) plus ``cfg.aux_loss_coef`` x the aux loss; returns (loss,
+    {"ce", "aux"})."""
+    fe = batch.get("frontend_embeds")
+    logits, _, aux = apply_lm(params, cfg, batch["tokens"], fe, mode="train")
+    if fe is not None:  # loss over the token region only
+        logits = logits[:, fe.shape[1]:, :]
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    loss = ce + cfg.aux_loss_coef * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def _grads_of(params, cfg: ModelConfig, batch):
+    """((loss, metrics), grads): the grads in the params' tree and dtypes,
+    zeros for a leaf the loss does not reach (a frontend projection
+    without frontend inputs), as ``jax.grad`` gives."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, met = lm_loss(tree_unflatten(params, leaves), cfg, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(l) if g is None else g
+             for l, g in zip(leaves, grads)]
+    met = {k: v.detach() for k, v in met.items()}
+    return (loss.detach(), met), tree_unflatten(params, grads)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, grad_accum: int = 1,
+                    compress: bool = False):
+    """Returns ``train_step(params, opt_state, ef_state, batch) ->
+    (params, opt_state, ef_state, metrics)``.
+
+    ``grad_accum > 1`` splits the batch as the reference does, into
+    ``(B / grad_accum, grad_accum, ...)`` with microbatch ``i`` the slice
+    ``[:, i]`` (contiguous batch blocks stay on their data shard in the
+    reference's layout), and sums the grads in float32.  ``compress`` runs
+    the grads through int8 quantization with error feedback before the
+    update."""
+
+    def train_step(params, opt_state, ef_state: Optional[EFState], batch):
+        dev = tree_leaves(params)[0].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if grad_accum == 1:
+            (loss, met), grads = _grads_of(params, cfg, batch)
+        else:
+            micro = {k: v.reshape(v.shape[0] // grad_accum, grad_accum,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                 device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(grad_accum):
+                mb = {k: v[:, i] for k, v in micro.items()}
+                (l, _), g = _grads_of(params, cfg, mb)
+                acc = tree_map(lambda a, b: a + b.float(), acc, g)
+                lsum = lsum + l
+                del g
+            grads = tree_map(lambda g: g / grad_accum, acc)
+            loss = lsum / grad_accum
+            met = {"ce": loss,
+                   "aux": torch.zeros((), dtype=torch.float32, device=dev)}
+
+        if compress:
+            q, s, ef_state = compress_grads(grads, ef_state)
+            grads = decompress_grads(q, s)
+
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, ef_state, dict(met, loss=loss)
+
+    return train_step

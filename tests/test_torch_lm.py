@@ -9,8 +9,13 @@ Tolerances, each with its reason (all in float32):
   magnitude of the reference's result (the same float32 products, summed
   in another order);
 * ``quantize_kv``: int8 values and scales equal (both round half to even);
-* ``apply_lm`` logits in "train", "prefill" and "decode" on the six
-  dense-family reduced configs: 1e-5 of their largest magnitude.
+* ``apply_lm`` logits in "train", "prefill" and "decode", and the caches
+  after them, on all ten reduced configs: 1e-5 of their largest
+  magnitude; for xlstm-1.3b 3e-5.  Its eight blocks each agree to ~2e-7
+  (tests/test_torch_recurrent.py), but the stack amplifies a perturbation
+  about twofold per block: scaling the reference's own params by
+  (1 + 1e-7), less than one float32 ulp, moves its train logits by
+  1.4e-5 of their max, and the port's differ by 1.2e-5.
 """
 import dataclasses
 import functools
@@ -35,6 +40,9 @@ from repro_torch.models import attention, ffn, nn, transformer
 TOL = 1e-5
 DENSE = ("deepseek-7b", "chatglm3-6b", "minitron-4b", "gemma2-27b",
          "qwen2-vl-7b", "musicgen-medium")
+ALL = DENSE + ("qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
+               "xlstm-1.3b")
+LM_TOL = {"xlstm-1.3b": 3e-5}
 MODES = ("train", "prefill", "decode")
 BATCH, SEQ, MAX_LEN, DECODE_STEPS = 2, 20, 32, 2
 
@@ -239,12 +247,13 @@ def lm_case(arch):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_apply_lm_matches_reference(arch, mode):
     case = lm_case(arch)
+    tol = LM_TOL.get(arch, TOL)
     for want, got in zip(case["ref"][mode], case["port"][mode]):
         assert got.dtype == torch.float32
-        close(got, want)
+        close(got, want, tol)
     if mode == "decode":
         want, got = case["caches"]
         assert int(got["pos"]) == int(want["pos"]) == SEQ + DECODE_STEPS
@@ -252,13 +261,14 @@ def test_apply_lm_matches_reference(arch, mode):
                           tree_leaves(got))
         assert [a.shape for a in flat_g] == [a.shape for a in flat_w]
         for a, b in zip(flat_g, flat_w):
+            assert a.dtype == b.dtype
             if a.dtype in (np.int8, np.int32):   # quantized k/v, positions
                 np.testing.assert_array_equal(a, b)
             else:
-                close(a, b)
+                close(a, b, tol)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_weights_and_cache_round_trip(arch):
     case = lm_case(arch)
     pn, p = case["params"]
@@ -295,26 +305,18 @@ def test_bf16_leaves_cross_by_their_bits():
         np.testing.assert_array_equal(a, np.asarray(b, np.float32))
 
 
-UNPORTED = {"moe": ("qwen2-moe-a2.7b", "global"),
-            "griffin": ("recurrentgemma-2b", "griffin"),
-            "mlstm": ("xlstm-1.3b", "mlstm"),
-            "slstm": ("xlstm-1.3b", "slstm")}
+def test_dense_init_needs_its_device():
+    """A draw on the card must not move to the host by a default: a call
+    without ``device`` fails on the signature, before any draw (so this
+    runs without a card; the stand-in is never used)."""
+    class CardGenerator:
+        device = torch.device("cuda")
 
-
-@pytest.mark.parametrize("block", sorted(UNPORTED))
-def test_unported_blocks_raise(block):
-    arch, kind = UNPORTED[block]
-    cfg = configs.reduced_config(arch)
-    g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A16"):
-        transformer.init_block(g, cfg, kind, "cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        transformer.init_block_cache(cfg, kind, 2, 8, "cpu")
-    x = torch.zeros((2, 3, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A16"):
-        transformer.apply_block({}, cfg, kind, x, None, "train", None, 0)
-    with pytest.raises(NotImplementedError, match="A16"):
-        transformer.init_lm(g, cfg)
+    with pytest.raises(TypeError, match="device"):
+        nn.dense_init(CardGenerator(), 4, 8, torch.float32)
+    p = nn.dense_init(torch.Generator().manual_seed(0), 4, 8, torch.float32,
+                      bias=True, device="cpu")
+    assert p["w"].shape == (4, 8) and p["b"].device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +343,7 @@ def test_configs_equal_reference():
     assert nn.tree_size(meta) == full.param_count() + 4096 * (2 * 30 + 1)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_input_specs_match_reference(arch):
     cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
     for name, shape in configs.SHAPES.items():

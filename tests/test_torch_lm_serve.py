@@ -2,7 +2,9 @@
 the same params (the reference's, loaded through `lm_params_from_numpy`)
 and the same requests: greedy `generate`, and `serve`'s continuous
 batching in the four scenarios of the reference's own serve tests
-(outputs request by request and the step counters equal), plus sampling.
+(outputs request by request and the step counters equal), plus sampling;
+then `generate` and `serve` per reduced config, the dense family, the MoE
+and the hybrid Griffin family.
 
 Greedy tokens are compared for equality: the logits agree to ~1e-6 of
 their largest magnitude (tests/test_torch_lm.py), far inside the gaps
@@ -166,12 +168,17 @@ def test_sampled_generation_repeats_per_engine_seed(rng):
 
 DENSE = ("deepseek-7b", "chatglm3-6b", "minitron-4b", "gemma2-27b",
          "qwen2-vl-7b", "musicgen-medium")
+# the MoE (capacity drops at decode: 2 slots x top-4 of 8 experts into a
+# capacity of 1) and the hybrid Griffin family, whose recurrences run
+# through the left pads of every re-prefill
+NEW_FAMILIES = ("qwen2-moe-a2.7b", "recurrentgemma-2b")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + NEW_FAMILIES)
 def test_generate_and_serve_match_reference_per_arch(arch):
-    """Every dense-family reduced config: greedy `generate` and a `serve`
-    with a mid-flight admission, tokens and counters equal."""
+    """Every dense-family reduced config, the MoE and the hybrid: greedy
+    `generate` and a `serve` with a mid-flight admission, tokens and
+    counters equal."""
     rng = np.random.RandomState(11)
     jeng, eng = engines(arch, 0, 2, 24)
     prompts = rng.randint(1, 512, (2, 6)).astype(np.int32)
