@@ -176,9 +176,19 @@ scratch, and a second loss fails):
     float32, batch 2 x 128, on the card and on the CPU from the same
     params and fresh AdamW states: losses rtol 1e-4, Adam's moments within
     1e-4 as a tree-norm ratio; no deconv kernel launched;
-15. the kernels line (launches summed over the serving paths, the
+15. the LM sharded within a model: ``tools/probe_tp.py --smoke`` in a
+    process group of its own (``python -m torch.distributed.run
+    --standalone``, one rank per visible card, NCCL): deepseek-7b at full
+    width (bf16, int8 KV cache, weights drawn on the cards in their
+    shards) served through ``launch.steps.build_prefill_step`` and
+    ``build_decode_step`` under ``tp`` on (1, cards), 4 x 128 prompt
+    tokens and 16 greedy decode steps, with prefill and decode ms,
+    tokens/s and peak memory beside the meshless path's from the same
+    weights; hard check at 2 layers in float32: logits within 1e-4 x
+    max|logits| of the meshless path on the card, greedy tokens equal;
+16. the kernels line (launches summed over the serving paths, the
     frontend run, the training runs, the mesh phase and the examples);
-    16. the result line.
+    17. the result line.
 
 Phase 10's rerun after a trace loss runs in a process of its own
 (``chip_smoke.py --mesh-phase``, on CelebA engines built as phase 4
@@ -418,6 +428,8 @@ TRAIN_LM_EXAMPLE_STEPS = 10
 TRAIN_LM_CHECK_LAYERS = 8
 TRAIN_LM_CHECK = (2, 128)      # batch, seq; grad_accum 2
 TRAIN_LM_TOL = 1e-4            # losses rtol; Adam's moments as a norm ratio
+# phase 15: the LM sharded within a model, one rank per card
+TP_PROBE = os.path.join(ROOT, "tools", "probe_tp.py")
 
 
 @functools.lru_cache(maxsize=None)
@@ -2936,6 +2948,63 @@ def mesh_phase_only(smi) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM sharded within a model
+# ---------------------------------------------------------------------------
+def phase_lm_sharded(smi):
+    """Phase 15: ``tools/probe_tp.py --smoke`` over every visible card, one
+    NCCL rank each, in a process group of its own (``torch.distributed.run
+    --standalone``): deepseek-7b served at full width through the sharded
+    step builders beside the meshless path, and the 2-layer float32 check
+    (the probe raises, and the launch exits non-zero, if it fails)."""
+    n = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]]
+                                       if os.environ.get("PYTHONPATH")
+                                       else [])))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", f"--nproc-per-node={n}", TP_PROBE,
+                          "--smoke"], capture_output=True, text=True, env=env,
+                         timeout=EXAMPLE_TIMEOUT_S)
+    sec = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"probe_tp.py --smoke: rc {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}{res.stderr[-3000:]}")
+    rows = [json.loads(l) for l in res.stdout.splitlines()
+            if l.startswith("{")]
+    by = {r.get("what"): r for r in rows}
+    serve, check = by.get("serve deepseek-7b tp"), by.get(
+        "check deepseek-7b tp")
+    if serve is None or check is None or rows[-1] != {
+            "ok": True, "world": n, "card": rows[-1].get("card")}:
+        raise AssertionError(f"probe_tp.py --smoke printed {rows}")
+    if not check["tokens_equal"] or any(
+            v["err"] > check["tol"] * v["max"]
+            for v in check["logits"].values()):
+        raise AssertionError(f"the sharded path disagrees: {check}")
+    print(f"  probe_tp.py --smoke over {n} rank(s) (NCCL): exit 0 in "
+          f"{sec:.1f} s; deepseek-7b at full width, tp on {serve['mesh']}: "
+          f"{serve['params']} params drawn in {serve['draw_s']:.2f} s "
+          f"({serve['local_weight_gib']:.2f} GiB a card); first call at "
+          f"these shapes {serve['first_call_s']:.2f} s; prefill "
+          f"{serve['batch']} x {serve['prompt']} {serve['prefill_ms']:.3f} ms "
+          f"(meshless {serve['meshless_prefill_ms']:.3f}); decode "
+          f"{serve['decode_ms']:.3f} ms a step (meshless "
+          f"{serve['meshless_decode_ms']:.3f}; bound "
+          f"{serve['decode_bound_ms']:.3f} by bytes), "
+          f"{serve['decode_tokens_per_s']:.1f} tokens/s (meshless "
+          f"{serve['meshless_decode_tokens_per_s']:.1f}); "
+          f"max_memory_allocated {serve['max_memory_allocated_gib']:.2f} "
+          f"GiB (meshless {serve['meshless_max_memory_allocated_gib']:.2f})"
+          f"; {smi}", flush=True)
+    print(f"  2 layers, float32: {check['greedy_tokens']} greedy tokens "
+          f"equal; logits sharded vs meshless "
+          + ", ".join(f"{k} {v['err']:.2e} of max {v['max']:.2f}"
+                      for k, v in check["logits"].items()) + f"; {smi}",
+          flush=True)
+
+
 def main() -> int:
     smi, name, peaks = device_info()
     # no run reads another's tile timings
@@ -3017,7 +3086,10 @@ def run(smi, name, peaks) -> int:
     print(f"[14] LM training (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
     phase_lm_training(smi)
-    print(f"[15] kernels line (at {time.perf_counter() - t0:.1f} s)",
+    print(f"[15] LM sharded within a model (at "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    phase_lm_sharded(smi)
+    print(f"[16] kernels line (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
 
     print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,

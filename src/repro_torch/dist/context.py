@@ -1,13 +1,19 @@
 """Thread-local sharding context: (mesh, logical-axis rules), the JAX
 package's ``repro.dist.context`` for the port.
 
-`constrain` is the single annotation primitive the LM models use.  On one
-device, and on the port's data-parallel mesh (a `launch.mesh.DeviceMesh`
-whose ``model`` extent is 1), it returns its input: there is nothing
-within a model to place.  Sharding within a model (the rule policies of
-``dist/sharding.py``, a ``model`` axis above 1) has not been ported yet
-(ROADMAP.md A16, its sharding step), so a context with such a mesh makes
-`constrain` raise rather than quietly run replicated.
+`constrain` is the single annotation primitive the LM models use.  Outside
+a context, and on the DCNN paths' single-controller mesh (a
+`launch.mesh.DeviceMesh` whose ``model`` extent is 1), it returns its
+input: one process holds every shard of every tensor.  On the LM's mesh (a
+`launch.mesh.LmMesh`, one process per device) it places the tensor: a
+DTensor is redistributed to the placements that the rules give its
+logical axes (the reference's ``with_sharding_constraint``), and a plain
+tensor, equal on every rank, becomes a DTensor with those placements.
+
+Under an `LmMesh` the context also turns on DTensor's implicit
+replication: the tensors that the model makes as it runs (positions,
+masks, zero states, gather indices) are the same on every rank, and they
+meet the placed params as replicated DTensors.
 """
 from __future__ import annotations
 
@@ -25,26 +31,101 @@ def current() -> Tuple[Optional[object], Optional[dict]]:
     return getattr(_state, "mesh", None), getattr(_state, "rules", None)
 
 
+def is_lm_mesh(mesh) -> bool:
+    """Whether ``mesh`` places DTensors (an `LmMesh`), as against the
+    DCNN paths' single-controller mesh."""
+    return getattr(mesh, "device_mesh", None) is not None
+
+
 @contextlib.contextmanager
 def sharding_context(mesh, rules):
-    """Activate (mesh, rules) for the dynamic extent of a step function."""
+    """Activate (mesh, rules) for the dynamic extent of a step function.
+
+    A single-controller mesh with a ``model`` axis above 1 has nothing to
+    place a shard of a model on, and is refused."""
+    if (mesh is not None and not is_lm_mesh(mesh)
+            and getattr(mesh, "shape", {}).get("model", 1) > 1):
+        raise TypeError(
+            f"a single-controller mesh of shape {mesh.shape} cannot shard "
+            "within a model: use an LmMesh (launch.mesh.make_lm_mesh)")
     prev = current()
     _state.mesh, _state.rules = mesh, rules
     try:
-        yield
+        with contextlib.ExitStack() as stack:
+            if is_lm_mesh(mesh):
+                from torch.distributed.tensor.experimental import (
+                    implicit_replication)
+                stack.enter_context(implicit_replication())
+            yield
     finally:
         _state.mesh, _state.rules = prev
 
 
 def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """``x`` placed by the logical-axis rules (one logical axis name, or
-    None, per dim of ``x``).  Outside a context, and on a mesh without a
-    ``model`` axis, that placement is ``x`` as it is."""
+    None, per dim of ``x``).  Axes without a rule, an axis already used,
+    one of extent 1, or one whose dim does not divide the mesh extent
+    mean replicated along it (`dist.sharding.spec_to_pspec`).  Outside a
+    context, and on a single-controller mesh, that placement is ``x`` as
+    it is."""
     mesh, rules = current()
-    if mesh is None or rules is None:
+    if mesh is None or rules is None or not is_lm_mesh(mesh):
         return x
-    if getattr(mesh, "shape", {}).get("model", 1) == 1:
+    from .sharding import placements, spec_to_pspec
+
+    pl = placements(mesh, spec_to_pspec(rules, tuple(logical_axes),
+                                        mesh=mesh, shape=tuple(x.shape)))
+    return as_dtensor(x, mesh).redistribute(mesh.device_mesh, pl)
+
+
+def as_dtensor(x, mesh):
+    """``x`` as a DTensor on ``mesh`` (an `LmMesh`): a plain tensor, equal
+    on every rank, is replicated; a DTensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
         return x
-    raise NotImplementedError(
-        f"constrain{tuple(logical_axes)} on a mesh of shape {mesh.shape}: "
-        "sharding within a model is not ported yet (ROADMAP.md A16)")
+    return DTensor.from_local(x, mesh.device_mesh,
+                              [Replicate()] * len(mesh.axis_names),
+                              run_check=False)
+
+
+def local_region(fn, in_specs, out_specs, *tensors):
+    """``fn`` on this rank's shards: the reference's ``shard_map`` through
+    ``torch.distributed.tensor.experimental.local_map``.
+
+    Each tensor is placed by its logical spec in ``in_specs`` (a plain
+    tensor, equal on every rank, counts as replicated), ``fn`` runs on the
+    local shards as plain tensors, and its result comes back as DTensors
+    placed by ``out_specs``: one logical spec for a single tensor, a list
+    of them for a tuple.  Outside an `LmMesh` context ``fn`` runs on the
+    tensors as they are."""
+    mesh, rules = current()
+    if not is_lm_mesh(mesh):
+        return fn(*tensors)
+    from torch.distributed.tensor.experimental import local_map
+
+    from .sharding import placements, spec_to_pspec
+
+    def pl(spec):   # a list: local_map reads a tuple as several outputs
+        return list(placements(mesh, spec_to_pspec(rules, tuple(spec),
+                                                   mesh=mesh)))
+
+    multi = isinstance(out_specs, list)
+    out_pl = tuple(pl(s) for s in out_specs) if multi else pl(out_specs)
+    run = local_map(fn, out_placements=out_pl,
+                    in_placements=tuple(pl(s) for s in in_specs),
+                    device_mesh=mesh.device_mesh, redistribute_inputs=True)
+    return run(*(as_dtensor(t, mesh) for t in tensors))
+
+
+def replicated_local(x: torch.Tensor) -> torch.Tensor:
+    """The whole of ``x`` as a plain tensor on this rank (a DTensor is
+    replicated first; autograd flows back through it), for a
+    `local_region` body to close over."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(
+        x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()

@@ -1,4 +1,5 @@
-"""Data-parallel device meshes for the DCNN serving and WGAN paths.
+"""Device meshes: the single-controller data-parallel mesh of the DCNN
+serving and WGAN paths, and the LM's ``torch.distributed`` mesh.
 
 The JAX package shards a bucket's batch over a ``jax.sharding.Mesh``
 with one ``shard_map`` program.  The port keeps its single controller: a
@@ -8,15 +9,26 @@ every device of it: the serving engine captures one CUDA graph per
 bucket on each device and replays them in shard order, and the trainer
 runs each z shard on its device.  So ``n_devices``, the surviving prefix
 of an elastic remesh and a mesh trainer's equality with ``z_shards`` are
-the reference's.  (``torch.distributed`` process groups are for the
-sharded LM policies, which have not been ported.)
+the reference's.
+
+The LM shards within a model (`dist.sharding`'s rule policies) over an
+`LmMesh`: one process per device, a named
+``torch.distributed.device_mesh.DeviceMesh`` over the whole world with
+the axes ``("data", "model")``, ``"pod"`` first where there is one, and
+DTensor placements on it.  On the card its process group runs NCCL and
+nothing else; the CPU and gloo serve the tests, and only when asked for.
+(``make_production_mesh`` and the compile-only cells wait for the XLA
+analyses' port.)
 
 Defined as functions, so importing this module touches no device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import datetime
+import math
+import os
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -81,3 +93,84 @@ def make_test_mesh(data: int = 2, model: int = 1,
     the CPU in the tests, or 2 shards on one card."""
     return DeviceMesh((torch.device(device),) * (data * model), model=model)
 
+
+
+# ---------------------------------------------------------------------------
+# the LM's mesh: one process per device, DTensor placements
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LmMesh:
+    """A named ``torch.distributed`` device mesh over every rank of the
+    default process group.  ``shape`` is the dict view that the rule
+    functions read (as ``jax.sharding.Mesh.shape``); ``device_mesh`` is
+    what DTensor places on."""
+
+    device_mesh: Any
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.device_mesh.mesh_dim_names)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.device_mesh.shape))
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return self.device_mesh.get_local_rank(axis)
+
+    def get_group(self, axis: str):
+        """The process group of the ranks that differ only along ``axis``
+        (its group rank is the coordinate along ``axis``)."""
+        return self.device_mesh.get_group(axis)
+
+
+def init_distributed(device_type: str = "cuda", store=None, rank: int = -1,
+                     world_size: int = -1) -> None:
+    """Join the default process group: NCCL on the card (each rank on
+    ``cuda:LOCAL_RANK``), gloo only for ``device_type="cpu"``.  With no
+    ``store`` the rendezvous is ``torch.distributed.run``'s environment.
+    There is no fallback: a failing NCCL init raises."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("init_distributed('cuda') without a visible "
+                               "card")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        backend = "nccl"
+    elif device_type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"no process group for device type {device_type!r}")
+    kw = {} if store is None else {"store": store, "rank": rank,
+                                   "world_size": world_size}
+    dist.init_process_group(backend, timeout=datetime.timedelta(minutes=10),
+                            **kw)
+
+
+def make_lm_mesh(data: int = 1, model: int = 1, pod: int = 0,
+                 device_type: str = "cuda") -> LmMesh:
+    """The ``(pod?, data, model)`` mesh over the current world (the
+    reference's ``make_test_mesh(data, model, pod)``, one rank per
+    device).  The world size must be the mesh's size; a mesh on "cuda"
+    needs the NCCL backend."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_lm_mesh needs a process group "
+                           "(launch.mesh.init_distributed)")
+    shape = (pod, data, model) if pod else (data, model)
+    names = ("pod", "data", "model") if pod else ("data", "model")
+    n = math.prod(shape)
+    if n != dist.get_world_size():
+        raise ValueError(f"a {dict(zip(names, shape))} mesh needs {n} ranks, "
+                         f"the world has {dist.get_world_size()}")
+    if device_type == "cuda" and dist.get_backend() != "nccl":
+        raise RuntimeError(f"a mesh on the card runs NCCL, not "
+                           f"{dist.get_backend()}")
+    return LmMesh(init_device_mesh(device_type, shape,
+                                   mesh_dim_names=names))

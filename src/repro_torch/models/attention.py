@@ -18,11 +18,49 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..dist.context import constrain
+from ..dist.context import constrain, current, is_lm_mesh, local_region
+from ..dist.sharding import data_axis_size
 from . import nn
 
 NEG_INF = -1e30
 INT32_MAX = 2 ** 31 - 1
+
+
+def _attn_tp_divisible(n_heads: int) -> bool:
+    """True when the attention heads split the model axis.  When they do
+    not (minitron's 24 heads, qwen2-vl's 28 and musicgen's 24 on a model
+    axis of 16), train and prefill replicate the attention compute and
+    keep the tensor parallelism on the projections and the FFN: sharding
+    the head dim instead would make every score tile a cross-shard
+    contraction."""
+    mesh, _ = current()
+    if mesh is None:
+        return True
+    return n_heads % mesh.shape.get("model", 1) == 0
+
+
+def split_heads(y: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(..., n * dh) -> (..., n, dh).  A feature dim sharded on the model
+    axis across head boundaries (n heads that do not divide it) is
+    gathered first: DTensor cannot split a shard between heads, where the
+    reference's compiler re-lays it out."""
+    if nn.is_dtensor(y) and not _attn_tp_divisible(n):
+        lead = ("batch",) if y.ndim == 3 else (None,)
+        y = constrain(y, *lead, *((None,) * (y.ndim - 1)))
+    return y.reshape(*y.shape[:-1], n, dh)
+
+
+def merge_heads(y: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(..., n, dh) -> (..., n * dh), `split_heads` undone.  With n heads
+    that do not divide the model axis the merged dim's gradient comes back
+    from the row-parallel ``wo`` sharded across head boundaries, which the
+    reshape's backward cannot split either (torch 2.11 refuses it): the
+    constraint, the identity forward, gathers it first."""
+    y = y.reshape(*y.shape[:-2], n * dh)
+    if nn.is_dtensor(y) and not _attn_tp_divisible(n):
+        lead = ("batch",) if y.ndim == 3 else (None,)
+        y = constrain(y, *lead, *((None,) * (y.ndim - 1)))
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +197,39 @@ def blocked_attention(
     return out.reshape(b, sq_p, h, dh)[:, :sq].to(q.dtype)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: bool,
+            k_scale: Optional[torch.Tensor] = None,
+            v_scale: Optional[torch.Tensor] = None,
+            kv_positions: Optional[torch.Tensor] = None,
+            **kw) -> torch.Tensor:
+    """`blocked_attention`; on an `LmMesh`, shard-local
+    (`dist.context.local_region`): each rank attends its batch shard and,
+    with ``heads`` (q and kv heads both divide the model axis), its heads,
+    else every head.  Attention mixes nothing across heads or batch rows,
+    and DTensor cannot run its einsums on sharded heads (on some torch
+    releases it refuses to flatten the batch and a sharded head dim)."""
+    mesh, rules = current()
+    if not is_lm_mesh(mesh):
+        return blocked_attention(q, k, v, k_scale=k_scale, v_scale=v_scale,
+                                 kv_positions=kv_positions, **kw)
+    bat = "batch" if q.shape[0] % data_axis_size(mesh, rules) == 0 else None
+    sq = (bat, None, "heads" if heads else None, None)
+    sk = (bat, None, "kv_heads" if heads else None, None)
+    quant = k_scale is not None
+    tensors = [q, k, v] + ([k_scale, v_scale] if quant else []) + (
+        [kv_positions] if kv_positions is not None else [])
+    specs = [sq, sk, sk] + ([sk, sk] if quant else []) + (
+        [(None,)] if kv_positions is not None else [])
+
+    def body(q, k, v, *rest):
+        scales = rest[:2] if quant else (None, None)
+        pos = rest[-1] if kv_positions is not None else None
+        return blocked_attention(q, k, v, k_scale=scales[0],
+                                 v_scale=scales[1], kv_positions=pos, **kw)
+
+    return local_region(body, specs, sq, *tensors)
+
+
 # ---------------------------------------------------------------------------
 # Attention layer (init/apply) with KV cache
 # ---------------------------------------------------------------------------
@@ -174,6 +245,15 @@ def attention_init(generator: Optional[torch.Generator], cfg,
         "wv": nn.dense_init(generator, d, hkv * dh, dtype,
                             bias=cfg.qkv_bias, device=device),
         "wo": nn.dense_init(generator, h * dh, d, dtype, device=device),
+    }
+
+
+def attention_specs(cfg) -> nn.Specs:
+    return {
+        "wq": nn.dense_specs(("embed", "heads"), bias=cfg.qkv_bias),
+        "wk": nn.dense_specs(("embed", "kv_heads"), bias=cfg.qkv_bias),
+        "wv": nn.dense_specs(("embed", "kv_heads"), bias=cfg.qkv_bias),
+        "wo": nn.dense_specs(("heads", "embed")),
     }
 
 
@@ -231,12 +311,21 @@ def attention_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     b, sq, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = nn.dense(p["wq"], x).reshape(b, sq, h, dh)
-    k = nn.dense(p["wk"], x).reshape(b, sq, hkv, dh)
-    v = nn.dense(p["wv"], x).reshape(b, sq, hkv, dh)
-    q = constrain(q, "batch", None, "heads", None)
-    k = constrain(k, "batch", None, "kv_heads", None)
-    v = constrain(v, "batch", None, "kv_heads", None)
+    q = split_heads(nn.dense(p["wq"], x), h, dh)
+    k = split_heads(nn.dense(p["wk"], x), hkv, dh)
+    v = split_heads(nn.dense(p["wv"], x), hkv, dh)
+    if cache is None and not _attn_tp_divisible(h):
+        # train/prefill with q-heads % model != 0: replicate the attention
+        # compute (the projections and the FFN stay sharded)
+        q = constrain(q, "batch", None, None, None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+    else:
+        # q sharded on heads; k/v on kv_heads where they divide, else
+        # replicated (never on the head dim)
+        q = constrain(q, "batch", None, "heads", None)
+        k = constrain(k, "batch", None, "kv_heads", None)
+        v = constrain(v, "batch", None, "kv_heads", None)
 
     if cfg.rope != "none":
         rope_kwargs = dict(theta=cfg.rope_theta, rotary_frac=cfg.rotary_frac,
@@ -246,10 +335,11 @@ def attention_apply(
 
     window = cfg.local_window if layer_kind == "local" else None
     scale = cfg.attn_scale if cfg.attn_scale is not None else dh ** -0.5
+    heads = _attn_tp_divisible(h) and _attn_tp_divisible(hkv)
 
     if cache is None:
-        out = blocked_attention(
-            q, k, v, causal=True, window=window,
+        out = _attend(
+            q, k, v, heads, causal=True, window=window,
             softcap_val=cfg.attn_softcap, scale=scale,
             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
         new_cache = None
@@ -277,12 +367,11 @@ def attention_apply(
             new_cache["v_scale"] = update_slice(cache["v_scale"], vs, slot, 1)
             scales = {"k_scale": new_cache["k_scale"],
                       "v_scale": new_cache["v_scale"]}
-        out = blocked_attention(
-            q, ck, cv, causal=True, window=window,
+        out = _attend(
+            q, ck, cv, heads, causal=True, window=window,
             softcap_val=cfg.attn_softcap, scale=scale,
             q_offset=cache_pos, kv_len=cache_pos + sq,
             kv_positions=kv_positions, block_q=sq,
             block_k=cfg.attn_block_k, **scales)
 
-    out = out.reshape(b, sq, h * dh)
-    return nn.dense(p["wo"], out), new_cache
+    return nn.dense(p["wo"], merge_heads(out, h, dh)), new_cache

@@ -9,17 +9,25 @@ experts, capacity, d)`` buffer, the grouped SwiGLU as three einsums over
 every expert, and a float32 combine.  The order of the sort decides which
 assignments fall past the capacity and are dropped, so it is stable, as
 ``jnp.argsort`` is, and the top-k breaks ties toward the lower expert, as
-``lax.top_k`` does.  The reference's ``shard_map`` dispatch (a mesh with a
-``moe_group`` axis) waits for sharding within a model (ROADMAP.md A16,
-item 4) and raises here.
+``lax.top_k`` does.
+
+On an `LmMesh` whose ``moe_group`` axis divides the groups, the scatter
+into the expert buffer and the combine run shard-local, as the
+reference's ``shard_map`` regions do: `dist.context.local_region` hands
+each rank its groups, and the grouped einsums run on the
+``experts``/``mlp``-sharded weights between them.  Elsewhere (no mesh, a
+single-controller mesh, groups that do not divide) the same two
+functions run on the whole tensors: each group's dispatch is local to it
+anyway.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..dist.context import constrain, current
+from ..dist.context import constrain, current, is_lm_mesh, local_region
 from . import nn
 
 
@@ -35,6 +43,14 @@ def ffn_init(generator: Optional[torch.Generator], d_model: int, d_ff: int,
         p["wg"] = nn.dense_init(generator, d_model, d_ff, dtype,
                                 device=device)
     return p
+
+
+def ffn_specs(activation: str = "swiglu") -> nn.Specs:
+    s = {"wu": nn.dense_specs(("embed", "mlp")),
+         "wd": nn.dense_specs(("mlp", "embed"))}
+    if activation in ("swiglu", "geglu"):
+        s["wg"] = nn.dense_specs(("embed", "mlp"))
+    return s
 
 
 def ffn_apply(p: nn.Params, x: torch.Tensor,
@@ -68,6 +84,17 @@ def moe_init(generator: Optional[torch.Generator], cfg, dtype: torch.dtype,
         p["shared_gate"] = nn.dense_init(generator, d, 1, dtype,
                                          device=device)
     return p
+
+
+def moe_specs(cfg) -> nn.Specs:
+    s = {"router": nn.dense_specs(("embed", None)),
+         "wg": ("experts", "embed", "mlp"),
+         "wu": ("experts", "embed", "mlp"),
+         "wd": ("experts", "mlp", "embed")}
+    if cfg.n_shared_experts > 0:
+        s["shared"] = ffn_specs("swiglu")
+        s["shared_gate"] = nn.dense_specs(("embed", None))
+    return s
 
 
 def _dispatch_groups(t: int) -> int:
@@ -117,14 +144,42 @@ def moe_route(p: nn.Params, cfg, xf: torch.Tensor,
     flat_e = top_e.reshape(g, tg * k)
     sort_idx = torch.argsort(flat_e, dim=1, stable=True)
     sorted_e = torch.gather(flat_e, 1, sort_idx)
-    counts = torch.zeros((g, e), dtype=torch.int64, device=xf.device)
-    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    counts = flat_e.new_zeros((g, e)).scatter_add(1, flat_e,
+                                                  torch.ones_like(flat_e))
     offsets = torch.cumsum(counts, dim=1) - counts
     pos_in_e = (torch.arange(tg * k, device=xf.device)[None, :]
                 - torch.gather(offsets, 1, sorted_e))
     pos = torch.where(pos_in_e < cap, pos_in_e,
                       torch.full_like(pos_in_e, cap))
     return Dispatch(probs, top_p, top_e, sort_idx, sorted_e, pos, counts, cap)
+
+
+def _scatter_local(xg: torch.Tensor, sorted_e: torch.Tensor,
+                   pos: torch.Tensor, src_tok: torch.Tensor, e: int,
+                   cap: int) -> torch.Tensor:
+    """The kept assignments of each group into its (E, cap, D) expert
+    buffer.  A dropped one lands in the extra row ``cap``, which is sliced
+    off (the reference's out-of-bounds drop)."""
+    gl, _, d = xg.shape
+    gi = torch.arange(gl, device=xg.device)[:, None]
+    hb = xg.new_zeros((gl, e, cap + 1, d))
+    hb = hb.index_put((gi, sorted_e, pos), xg[gi, src_tok])
+    return hb[:, :, :cap]
+
+
+def _combine_local(out_e: torch.Tensor, sorted_e: torch.Tensor,
+                   pos: torch.Tensor, src_tok: torch.Tensor,
+                   w_sorted: torch.Tensor, tg: int) -> torch.Tensor:
+    """Each group's tokens from the expert outputs: a gather with zero
+    fill, weighted, summed per token in float32; (G, Tg, D)."""
+    gl, e, _, d = out_e.shape
+    gi = torch.arange(gl, device=out_e.device)[:, None]
+    out_pad = torch.cat([out_e, out_e.new_zeros((gl, e, 1, d))], dim=2)
+    gat = out_pad[gi, sorted_e, pos]                         # (G, Tg*k, D)
+    contrib = (gat * w_sorted[..., None]).float()
+    rows = (gi * tg + src_tok).reshape(-1)
+    y = torch.zeros((gl * tg, d), dtype=torch.float32, device=out_e.device)
+    return y.index_add(0, rows, contrib.reshape(-1, d)).reshape(gl, tg, d)
 
 
 def moe_apply(p: nn.Params, cfg, x: torch.Tensor,
@@ -139,40 +194,44 @@ def moe_apply(p: nn.Params, cfg, x: torch.Tensor,
     r = moe_route(p, cfg, xf, capacity_factor)
     g = r.sort_idx.shape[0]
     tg, cap = t // g, r.cap
+    xg = constrain(xf.reshape(g, tg, d), "moe_group", None, None)
+    src_tok = r.sort_idx // k                                # (G, Tg*k)
+    w_sorted = torch.gather(r.top_p.reshape(g, tg * k), 1,
+                            r.sort_idx).to(x.dtype)
+
+    # the reference's condition for its shard_map over the group axis
     mesh, rules = current()
     dp_axis = (rules or {}).get("moe_group")
-    if (mesh is not None and dp_axis in getattr(mesh, "shape", {})
-            and g % mesh.shape[dp_axis] == 0):
-        raise NotImplementedError(
-            f"moe_apply over the mesh axis {dp_axis!r}: the shard-local "
-            "dispatch waits for sharding within a model (ROADMAP.md A16, "
-            "item 4)")
-    xg = constrain(xf.reshape(g, tg, d), "moe_group", None, None)
-    gi = torch.arange(g, device=x.device)[:, None]
-    src_tok = r.sort_idx // k                                # (G, Tg*k)
+    local = (is_lm_mesh(mesh) and dp_axis in mesh.shape
+             and g % mesh.shape[dp_axis] == 0)
 
-    # scatter: a dropped assignment lands in the extra row ``cap``, which
-    # is sliced off (the reference's out-of-bounds drop)
-    hb = x.new_zeros((g, e, cap + 1, d))
-    hb = hb.index_put((gi, r.sorted_e, r.pos), xg[gi, src_tok])
-    hbuf = constrain(hb[:, :, :cap], "moe_group", "experts", None, None)
+    scatter = functools.partial(_scatter_local, e=e, cap=cap)
+    combine = functools.partial(_combine_local, tg=tg)
+    route = (r.sorted_e, r.pos, src_tok)
+    if local:
+        hbuf = local_region(scatter, [("moe_group",)] * 4, ("moe_group",),
+                            xg, *route)
+    else:
+        hbuf = scatter(xg, *route)
+    hbuf = constrain(hbuf, "moe_group", "experts", None, None)
 
     # grouped expert FFN (SwiGLU) over every expert
     hg = torch.einsum("gecd,edf->gecf", hbuf, p["wg"])
     hu = torch.einsum("gecd,edf->gecf", hbuf, p["wu"])
     hh = nn.silu(hg) * hu
+    hh = constrain(hh, "moe_group", "experts", None, "mlp")
     out_e = torch.einsum("gecf,efd->gecd", hh, p["wd"])
+    out_e = constrain(out_e, "moe_group", "experts", None, None)
 
-    # combine: gather with zero fill, weight, sum per token in float32
-    w_sorted = torch.gather(r.top_p.reshape(g, tg * k), 1,
-                            r.sort_idx).to(x.dtype)
-    out_pad = torch.cat([out_e, out_e.new_zeros((g, e, 1, d))], dim=2)
-    gat = out_pad[gi, r.sorted_e, r.pos]                      # (G, Tg*k, D)
-    contrib = (gat * w_sorted[..., None]).float()
-    rows = (gi * tg + src_tok).reshape(-1)
-    y = torch.zeros((g * tg, d), dtype=torch.float32, device=x.device)
-    y = y.index_add(0, rows, contrib.reshape(-1, d))
-    y = y.to(x.dtype)
+    if local:
+        y = local_region(combine, [("moe_group",)] * 5, ("moe_group",),
+                         out_e, *route, w_sorted)
+    else:
+        y = combine(out_e, *route, w_sorted)
+    # the tokens pinned to the batch axes: the backward then brings the
+    # grad back onto them before it unflattens into groups (DTensor's
+    # view of a grad also sharded on d into the groups fails)
+    y = constrain(y.reshape(t, d), "batch", None).to(x.dtype)
 
     # shared experts (always on) behind a sigmoid gate
     if cfg.n_shared_experts > 0:

@@ -1,8 +1,9 @@
 """The JAX package's functional NN substrate (``repro.models.nn``) in
 torch: inits, a dense layer, the norms, the (tied) embedding, the
-activations and the tree helpers.  Params are dicts of tensors; the
-reference's logical-axis specs wait for sharding within a model
-(ROADMAP.md A16).
+activations and the tree helpers.  Params are dicts of tensors.  Each
+init has a ``*_specs`` twin that gives the reference's logical-axis spec
+tree for it (a tuple of logical axis names, or None, per dim of each
+leaf), which `dist.sharding` maps onto a mesh.
 
 Every init draws from a ``torch.Generator`` on that generator's own
 device: the DCNN towers draw on the CPU (a seed gives the same weights
@@ -14,7 +15,7 @@ not match the reference's ``jax.random``; parity tests load its params.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +23,14 @@ import torch.nn.functional as F
 from ..core.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
+Specs = Dict[str, Any]  # mirrors Params; leaves are tuples of logical axes
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is placed on an LM mesh.  By the type's name: the
+    DTensor package takes seconds to import, and a process that places
+    nothing never imports it."""
+    return type(x).__name__ == "DTensor"
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +84,14 @@ def dense_init(generator: Optional[torch.Generator], d_in: int, d_out: int,
     return p
 
 
+def dense_specs(axes: Tuple[Optional[str], Optional[str]] = ("embed", "mlp"),
+                bias: bool = False) -> Specs:
+    s: Specs = {"w": tuple(axes)}
+    if bias:
+        s["b"] = (axes[1],)
+    return s
+
+
 def dense(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"]
     if "b" in p:
@@ -89,6 +106,10 @@ def rmsnorm_init(d: int, dtype: torch.dtype, device) -> Params:
     return {"scale": ones_init((d,), dtype, device)}
 
 
+def rmsnorm_specs() -> Specs:
+    return {"scale": ("embed",)}
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -100,6 +121,10 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def layernorm_init(d: int, dtype: torch.dtype, device) -> Params:
     return {"scale": ones_init((d,), dtype, device),
             "bias": zeros_init((d,), dtype, device)}
+
+
+def layernorm_specs() -> Specs:
+    return {"scale": ("embed",), "bias": ("embed",)}
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -120,8 +145,30 @@ def embedding_init(generator: Optional[torch.Generator], vocab: int, d: int,
                                  device=device)}
 
 
+def embedding_specs() -> Specs:
+    return {"table": ("vocab", "embed")}
+
+
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    """Rows of the table.  On a DTensor table, the vocab-parallel lookup:
+    the table keeps its vocab shards (gathered along any other axis, the
+    embed dim under FSDP), each shard looks up the replicated tokens whose
+    rows it holds, and the masked partial sums are all-reduced at once
+    (DTensor's masked partial does not survive a batch split in a later
+    redistribution).  Indexing would gather the whole table."""
+    table, tokens = p["table"], tokens.long()
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = table.device_mesh
+        table = table.redistribute(mesh, [
+            pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in table.placements])
+        if is_dtensor(tokens):
+            tokens = tokens.redistribute(mesh, [Replicate()] * mesh.ndim)
+        return F.embedding(tokens, table).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
+    return F.embedding(tokens, table)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -160,3 +207,11 @@ def stack_trees(trees: Sequence[Params]) -> Params:
     """Stack a list of identical trees along a new leading axis (the
     model's unit axis)."""
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+
+
+def stack_specs(spec: Specs) -> Specs:
+    """Prefix every leaf spec with the (never-sharded) ``"layers"`` axis
+    of a unit-stacked tree."""
+    if isinstance(spec, tuple):
+        return ("layers",) + spec
+    return {k: stack_specs(v) for k, v in spec.items()}

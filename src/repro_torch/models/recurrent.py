@@ -11,6 +11,12 @@ State dtypes are the reference's: Griffin's ``h`` float32 and its conv
 history in the model's dtype; mLSTM's ``C``, ``n`` and ``m`` float32 (``m``
 starts at -1e30) with its conv history in the model's dtype; sLSTM's all
 float32.  RG-LRU's ``lam`` is drawn and kept in float32 in any model.
+
+On an `LmMesh` the time loops and the mLSTM cell run shard-local
+(`dist.context.local_region`): the step-order loop has no sharding of its
+own to propagate, so each rank walks its batch shard with plain tensors,
+replicated over the model axis as the reference's constraints before each
+cell replicate it.
 """
 from __future__ import annotations
 
@@ -19,8 +25,10 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.utils.checkpoint
 
-from ..core.tree import tree_leaves, tree_map
-from ..dist.context import constrain
+from ..core.tree import tree_leaves, tree_map, tree_unflatten
+from ..dist.context import (constrain, current, is_lm_mesh, local_region,
+                            replicated_local)
+from ..dist.sharding import data_axis_size
 from . import nn
 
 CONV_W = 4        # temporal conv width of the Griffin and xLSTM blocks
@@ -41,17 +49,7 @@ def _loop(step: Callable, carry, xs, lo: int, hi: int):
     return carry, torch.stack(ys)
 
 
-def time_scan(step: Callable, carry, xs, chunk: int = TIME_CHUNK):
-    """``step(carry, x_t) -> (carry, y_t)`` over the leading (time) axis
-    of ``xs`` (a tensor or a tuple of tensors); returns (carry, the y_t
-    stacked).
-
-    When autograd records and the sequence is longer than ``chunk``, each
-    full chunk runs under ``torch.utils.checkpoint``: the backward pass
-    keeps the carry at chunk boundaries only and recomputes inside a chunk
-    (the reference's ``jax.checkpoint`` of its chunk body), which for the
-    mLSTM's (B, H, dh, dh) state is the difference between O(T) and
-    O(T / chunk) saved states."""
+def _scan(step: Callable, carry, xs, chunk: int):
     t = tree_leaves(xs)[0].shape[0]
     records = torch.is_grad_enabled() and any(
         isinstance(l, torch.Tensor) and l.requires_grad
@@ -69,6 +67,46 @@ def time_scan(step: Callable, carry, xs, chunk: int = TIME_CHUNK):
         carry, y = _loop(step, carry, xs, n_full * chunk, t)
         ys.append(y)
     return carry, torch.cat(ys, dim=0)
+
+
+def _batch_axis(batch: int):
+    """The logical axis of a batch dim inside a shard-local region on the
+    current `LmMesh`: ``"batch"`` when the batch splits evenly over the
+    data shards, else ``None`` (every rank walks the whole batch)."""
+    mesh, rules = current()
+    return "batch" if batch % data_axis_size(mesh, rules) == 0 else None
+
+
+def time_scan(step: Callable, carry, xs, chunk: int = TIME_CHUNK):
+    """``step(carry, x_t) -> (carry, y_t)`` over the leading (time) axis
+    of ``xs`` (a tensor or a tuple of tensors); returns (carry, the y_t
+    stacked).
+
+    When autograd records and the sequence is longer than ``chunk``, each
+    full chunk runs under ``torch.utils.checkpoint``: the backward pass
+    keeps the carry at chunk boundaries only and recomputes inside a chunk
+    (the reference's ``jax.checkpoint`` of its chunk body), which for the
+    mLSTM's (B, H, dh, dh) state is the difference between O(T) and
+    O(T / chunk) saved states.
+
+    Under an `LmMesh` context the loop runs on each rank's batch shard
+    (carries batch-leading, ``xs`` and the ``y_t`` time-major); ``step``
+    must then close over plain tensors only (`replicated_local`)."""
+    if not is_lm_mesh(current()[0]):
+        return _scan(step, carry, xs, chunk)
+    c_leaves, x_leaves = tree_leaves(carry), tree_leaves(xs)
+    n_c = len(c_leaves)
+    bat = (_batch_axis(c_leaves[0].shape[0]),)
+    tm = (None,) + bat
+
+    def body(*leaves):
+        c, ys = _scan(step, tree_unflatten(carry, leaves[:n_c]),
+                      tree_unflatten(xs, leaves[n_c:]), chunk)
+        return (*tree_leaves(c), ys)
+
+    out = local_region(body, [bat] * n_c + [tm] * len(x_leaves),
+                       [bat] * n_c + [tm], *c_leaves, *x_leaves)
+    return tree_unflatten(carry, out[:n_c]), out[n_c]
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +189,15 @@ def griffin_block_init(generator: Optional[torch.Generator], cfg,
             "conv": conv1d_init(generator, dr, dtype, device),
             "rglru": rglru_init(generator, dr, dtype, device),
             "out": nn.dense_init(generator, dr, d, dtype, device=device)}
+
+
+def griffin_block_specs(cfg) -> nn.Specs:
+    return {"in_x": nn.dense_specs(("embed", "rnn")),
+            "in_g": nn.dense_specs(("embed", "rnn")),
+            "conv": {"w": (None, "rnn"), "b": ("rnn",)},
+            "rglru": {"wa": ("rnn", "rnn2"), "wx": ("rnn", "rnn2"),
+                      "lam": ("rnn2",)},
+            "out": nn.dense_specs(("rnn", "embed"))}
 
 
 def griffin_block_apply(p: nn.Params, cfg, x: torch.Tensor,
@@ -253,6 +300,17 @@ def mlstm_block_init(generator: Optional[torch.Generator], cfg,
     return p
 
 
+def mlstm_block_specs(cfg) -> nn.Specs:
+    s = {"up": nn.dense_specs(("embed", "rnn")),
+         "conv": {"w": (None, "rnn"), "b": ("rnn",)},
+         "wi": nn.dense_specs(("rnn", None)),
+         "wf": nn.dense_specs(("rnn", None)),
+         "down": nn.dense_specs(("rnn", "embed"))}
+    for nm in ("wq", "wk", "wv"):
+        s[nm] = {"w": ("heads", None, None)}
+    return s
+
+
 def mlstm_state_init(cfg, batch: int, dtype: torch.dtype, device):
     di = 2 * cfg.d_model
     h = cfg.n_heads
@@ -293,9 +351,6 @@ def mlstm_block_apply(p: nn.Params, cfg, x: torch.Tensor,
     xc = nn.silu(xc)
     xc = constrain(xc, "batch", None, None)
     xh = xc.reshape(b, sl, hh, dh)
-    q = torch.einsum("bshd,hde->bshe", xh, p["wq"]["w"])
-    k = torch.einsum("bshd,hde->bshe", xh, p["wk"]["w"]) * (dh ** -0.5)
-    v = torch.einsum("bshd,hde->bshe", xh, p["wv"]["w"])
     log_i = nn.dense(p["wi"], xc).float()                  # (B, S, H)
     log_f = -softplus(-nn.dense(p["wf"], xc).float())
 
@@ -305,16 +360,34 @@ def mlstm_block_apply(p: nn.Params, cfg, x: torch.Tensor,
         st = mlstm_state_init(cfg, b, x.dtype, x.device)
         c0, n0, m0 = st["C"], st["n"], st["m"]
 
-    if sl % MLSTM_CHUNK == 0 and sl >= 2 * MLSTM_CHUNK:
-        # the chunkwise-parallel order (train, prefill)
-        h_cw, (c_f, n_f, m_f) = mlstm_chunkwise(q, k, v, log_i, log_f,
-                                                c0, n0, m0)
-        h_seq = h_cw.reshape(b, sl, di).to(x.dtype)
-    else:
+    def cell(xh, wq, wk, wv, log_i, log_f, c0, n0, m0):
+        q = torch.einsum("bshd,hde->bshe", xh, wq)
+        k = torch.einsum("bshd,hde->bshe", xh, wk) * (dh ** -0.5)
+        v = torch.einsum("bshd,hde->bshe", xh, wv)
+        if sl % MLSTM_CHUNK == 0 and sl >= 2 * MLSTM_CHUNK:
+            # the chunkwise-parallel order (train, prefill)
+            h, (c, n, m) = mlstm_chunkwise(q, k, v, log_i, log_f, c0, n0, m0)
+            return h, c, n, m
         seq = (q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1),
                log_i.transpose(0, 1), log_f.transpose(0, 1))
-        (c_f, n_f, m_f), ys = time_scan(_mlstm_step, (c0, n0, m0), seq)
-        h_seq = ys.transpose(0, 1).reshape(b, sl, di).to(x.dtype)
+        (c, n, m), ys = _scan(_mlstm_step, (c0, n0, m0), seq, TIME_CHUNK)
+        return ys.transpose(0, 1), c, n, m
+
+    # the cell runs on each rank's batch shard with every head, as the
+    # reference's constraint on xc replicates it: its per-head weights are
+    # tiny, and DTensor has no strategy for cummax nor, on some torch
+    # releases, for the head-batched einsums on sharded heads
+    bat = _batch_axis(b) if is_lm_mesh(current()[0]) else None
+    w = (None, None, None)
+    h4, c_f, n_f, m_f = local_region(
+        cell, [(bat, None, None, None), w, w, w, (bat, None, None),
+               (bat, None, None), (bat, None, None, None), (bat, None, None),
+               (bat, None)],
+        [(bat, None, None, None), (bat, None, None, None), (bat, None, None),
+         (bat, None)],
+        xh, p["wq"]["w"], p["wk"]["w"], p["wv"]["w"], log_i, log_f,
+        c0, n0, m0)
+    h_seq = h4.reshape(b, sl, di).to(x.dtype)
     out = nn.dense(p["down"], h_seq * nn.silu(z))
     return out, {"C": c_f, "n": n_f, "m": m_f, "conv": new_conv}
 
@@ -343,6 +416,13 @@ def slstm_state_init(cfg, batch: int, dtype: torch.dtype, device):
                             device=device)}
 
 
+def slstm_block_specs(cfg) -> nn.Specs:
+    return {"wx": nn.dense_specs(("embed", "rnn")),
+            "r": (None, "heads", None, None),
+            "out": nn.dense_specs(("rnn", "embed")),
+            "ffn": nn.dense_specs(("embed", "mlp"))}
+
+
 def slstm_block_apply(p: nn.Params, cfg, x: torch.Tensor,
                       state: Optional[Dict] = None):
     b, sl, d = x.shape
@@ -353,7 +433,7 @@ def slstm_block_apply(p: nn.Params, cfg, x: torch.Tensor,
     if state is None:
         state = slstm_state_init(cfg, b, x.dtype, x.device)
     c0, n0, h0, m0 = state["c"], state["n"], state["h"], state["m"]
-    r = p["r"].float()
+    r = replicated_local(p["r"].float())
 
     def step(carry, g_t):
         c, n, h, m = carry

@@ -21,6 +21,13 @@ and "prefill" (its state after the prompt becomes the cache) and from the
 cache in "decode", as the reference's does.  The aux loss is summed over
 every block.
 
+`lm_specs` gives the reference's logical-axis spec of every param leaf
+(``init_lm``'s second result there), which `dist.sharding` maps onto a
+mesh.  Under a sharding context with an `launch.mesh.LmMesh` the params
+are DTensors and every step runs on them: the embedding looks tokens up
+on a vocab-sharded table, the residual stream is constrained on the
+batch at each unit and the logits on the vocab, as in the reference.
+
 ``init_lm`` draws every tensor from a ``torch.Generator`` on that
 generator's device (at full width, a ~6.5 G-parameter model is drawn on
 the card, not on the host); the draws do not match the reference's, so
@@ -42,13 +49,16 @@ from ..core.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 from ..dist.context import constrain
 from . import nn
 from .attention import (apply_rope, attention_apply, attention_init,
-                        init_kv_cache, quantize_kv, update_slice)
-from .ffn import ffn_apply, ffn_init, moe_apply, moe_init
+                        attention_specs, init_kv_cache, quantize_kv,
+                        split_heads, update_slice)
+from .ffn import (ffn_apply, ffn_init, ffn_specs, moe_apply, moe_init,
+                  moe_specs)
 from .recurrent import (griffin_block_apply, griffin_block_init,
-                        griffin_state_init, mlstm_block_apply,
-                        mlstm_block_init, mlstm_state_init,
+                        griffin_block_specs, griffin_state_init,
+                        mlstm_block_apply, mlstm_block_init,
+                        mlstm_block_specs, mlstm_state_init,
                         slstm_block_apply, slstm_block_init,
-                        slstm_state_init)
+                        slstm_block_specs, slstm_state_init)
 
 ATTN_KINDS = ("global", "local")
 
@@ -174,6 +184,12 @@ def _norm_init(cfg: ModelConfig, device) -> nn.Params:
     return nn.rmsnorm_init(cfg.d_model, cfg.tdtype, device)
 
 
+def _norm_specs(cfg: ModelConfig) -> nn.Specs:
+    if cfg.norm == "layernorm":
+        return nn.layernorm_specs()
+    return nn.rmsnorm_specs()
+
+
 def _norm(cfg: ModelConfig, p, x):
     if cfg.norm == "layernorm":
         return nn.layernorm(p, x, cfg.norm_eps)
@@ -204,6 +220,29 @@ def init_block(generator: Optional[torch.Generator], cfg: ModelConfig,
     else:
         raise ValueError(f"unknown block kind {kind}")
     return p
+
+
+def block_specs(cfg: ModelConfig, kind: str) -> nn.Specs:
+    """The logical specs of `init_block`'s tree."""
+    s: Dict[str, Any] = {"norm1": _norm_specs(cfg)}
+    if kind in ATTN_KINDS:
+        s["attn"] = attention_specs(cfg)
+        s["norm2"] = _norm_specs(cfg)
+        if cfg.n_experts:
+            s["moe"] = moe_specs(cfg)
+        else:
+            s["ffn"] = ffn_specs(cfg.activation)
+    elif kind == "griffin":
+        s["mixer"] = griffin_block_specs(cfg)
+        s["norm2"] = _norm_specs(cfg)
+        s["ffn"] = ffn_specs(cfg.activation)
+    elif kind == "mlstm":
+        s["mixer"] = mlstm_block_specs(cfg)
+    elif kind == "slstm":
+        s["mixer"] = slstm_block_specs(cfg)
+    else:
+        raise ValueError(f"unknown block kind {kind}")
+    return s
 
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, mode: str,
@@ -251,11 +290,11 @@ def _fill_cache(cfg: ModelConfig, cache, h, p, positions):
     projections; avoids threading k/v out of attention_apply)."""
     b, sl, _ = h.shape
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    k = (h @ p["attn"]["wk"]["w"]).reshape(b, sl, hkv, dh)
-    v = (h @ p["attn"]["wv"]["w"]).reshape(b, sl, hkv, dh)
+    k = split_heads(h @ p["attn"]["wk"]["w"], hkv, dh)
+    v = split_heads(h @ p["attn"]["wv"]["w"], hkv, dh)
     if "b" in p["attn"]["wk"]:
-        k = k + p["attn"]["wk"]["b"].reshape(1, 1, hkv, dh)
-        v = v + p["attn"]["wv"]["b"].reshape(1, 1, hkv, dh)
+        k = k + split_heads(p["attn"]["wk"]["b"], hkv, dh)
+        v = v + split_heads(p["attn"]["wv"]["b"], hkv, dh)
     if cfg.rope != "none":
         k = apply_rope(k, positions, theta=cfg.rope_theta,
                        rotary_frac=cfg.rotary_frac,
@@ -341,6 +380,23 @@ def init_lm(generator: Optional[torch.Generator], cfg: ModelConfig,
         params["frontend_proj"] = nn.dense_init(
             generator, cfg.frontend_dim, cfg.d_model, cfg.tdtype, device=dev)
     return params
+
+
+def lm_specs(cfg: ModelConfig) -> nn.Specs:
+    """The logical-axis spec of every leaf of `init_lm`'s tree (the
+    reference's ``init_lm(key, cfg)[1]``): the unit-stacked blocks lead
+    with ``"layers"``."""
+    pattern = cfg.block_pattern
+    specs: Dict[str, Any] = {"units": nn.stack_specs(
+        {f"b{i}": block_specs(cfg, kind) for i, kind in enumerate(pattern)})}
+    if cfg.n_rem:
+        specs["rem"] = {f"b{i}": block_specs(cfg, pattern[i])
+                        for i in range(cfg.n_rem)}
+    specs["embed"] = nn.embedding_specs()
+    specs["final_norm"] = _norm_specs(cfg)
+    if cfg.frontend is not None:
+        specs["frontend_proj"] = nn.dense_specs((None, "embed"))
+    return specs
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
@@ -435,18 +491,17 @@ def apply_lm(
         else:
             unit_c = tree_map(lambda t: t[u], cache["units"])
             x, new_c, a = run(x, unit_p, unit_c)
-            # written into the stack now: no list of per-unit caches
+            # written into the stack now: no list of per-unit caches (the
+            # stack takes the old one's dtypes and, on a mesh, placements)
             if new_units is None:
-                new_units = tree_map(
-                    lambda t: t.new_empty((cfg.n_units, *t.shape)), new_c)
+                new_units = tree_map(torch.empty_like, cache["units"])
             tree_map(lambda dst, src: dst[u].copy_(src), new_units, new_c)
             del new_c, unit_c
         aux = aux + a
     new_cache = None
     if mode != "train":
         new_cache = {"units": new_units,
-                     "pos": torch.tensor(cache_pos + s_total,
-                                         dtype=torch.int32, device=dev)}
+                     "pos": cache["pos"].new_full((), cache_pos + s_total)}
 
     if cfg.n_rem:
         rem_c = cache["rem"] if cache is not None and mode != "train" else None
@@ -457,6 +512,7 @@ def apply_lm(
 
     x = _norm(cfg, params["final_norm"], x)
     logits = nn.unembed(params["embed"], x)
+    # the logits stay sharded on the vocab
     logits = constrain(logits, "batch", None, "vocab")
     logits = nn.softcap(logits.float(), cfg.final_softcap)
     return logits, new_cache, aux

@@ -7,7 +7,11 @@ tensors and a new state and changes none of its arguments, so a tensor
 that some other code still holds (a serving engine's weight, a prepared
 kernel operand) keeps its value.  ``torch.optim`` updates in place and
 has no global-norm clip.  Params and states are the port's trees (nested
-dicts of tensors; `AdamState` a NamedTuple, as in the reference)."""
+dicts of tensors; `AdamState` a NamedTuple, as in the reference).  On
+DTensor params (the sharded LM) every state takes its param's placements
+and the clip's global norm sums over every shard of every leaf on the
+device: DTensor reduces each leaf's partial sum across the mesh, and
+nothing reads a value back to the host."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,7 +34,8 @@ def _device(params) -> torch.device:
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """float32 zeros like ``p``: on a DTensor, with its placements."""
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,5 +108,6 @@ class SGD:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, summed in leaf order."""
+    """sqrt of the sum of every leaf's squares, summed in leaf order (of
+    every shard of a DTensor leaf: its sum is reduced over the mesh)."""
     return torch.sqrt(sum(torch.sum(l.float() ** 2) for l in tree_leaves(tree)))

@@ -69,8 +69,8 @@ def make_train_step(cfg: ModelConfig, optimizer, grad_accum: int = 1,
         else:
             micro = {k: v.reshape(v.shape[0] // grad_accum, grad_accum,
                                   *v.shape[1:]) for k, v in batch.items()}
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
+            acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params)
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(grad_accum):
                 mb = {k: v[:, i] for k, v in micro.items()}

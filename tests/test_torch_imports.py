@@ -13,7 +13,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
      ROOT / "examples" / "serve_sr_torch.py",
      ROOT / "examples" / "quickstart_torch.py",
      ROOT / "examples" / "train_lm_torch.py",
-     ROOT / "tools" / "probe_mesh.py", ROOT / "tools" / "probe_ab.py"]
+     ROOT / "tools" / "probe_mesh.py", ROOT / "tools" / "probe_ab.py",
+     ROOT / "tools" / "probe_tp.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -54,8 +55,9 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_every_port_module_is_covered():
-    """The static checks, the mesh, the sharding helpers, the LM side and
-    its training are among the files the two tests above read and import."""
+    """The static checks, the meshes, the sharding rules, the pipeline,
+    the sharded step builders, the LM side and its training are among
+    the files the two tests above read and import."""
     mods = {str(p.relative_to(ROOT / "src" / "repro_torch"))
             for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"analysis/__init__.py", "analysis/check/__init__.py",
@@ -67,5 +69,6 @@ def test_every_port_module_is_covered():
             "models/transformer.py", "configs/__init__.py",
             "configs/shapes.py", "configs/deepseek_7b.py",
             "serve/sampling.py", "models/recurrent.py",
-            "optim/compression.py", "train/lm.py", "launch/train.py"} <= mods
+            "optim/compression.py", "train/lm.py", "launch/train.py",
+            "dist/pipeline.py", "launch/steps.py"} <= mods
 

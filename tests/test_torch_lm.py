@@ -371,7 +371,8 @@ def test_constrain_is_the_identity_without_a_model_axis():
         assert current() == (mesh, {"batch": "data"})
         assert constrain(x, "batch", None) is x
     assert current() == (None, None)
-    with sharding_context(make_test_mesh(2, model=2, device="cpu"), {}):
-        with pytest.raises(NotImplementedError, match="A16"):
+    # a model axis needs the LM's process-group mesh
+    with pytest.raises(TypeError, match="LmMesh"):
+        with sharding_context(make_test_mesh(2, model=2, device="cpu"), {}):
             constrain(x, "batch", "embed")
     assert current() == (None, None)

@@ -493,3 +493,39 @@ def test_train_example_runs_on_a_cpu_mesh(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "mesh: {'data': 2, 'model': 1}" in res.stdout
     assert "final MMD" in res.stdout
+
+
+# ---------------------------------------------------------------------------
+# the LM rules on the DCNN mesh: every rule set gives its data axis
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("policy,multi_pod", [("tp", False),
+                                              ("fsdp_tp", False),
+                                              ("tp", True)])
+def test_every_rule_set_gives_the_dcnn_mesh_its_data_axis(policy, multi_pod):
+    """The engine and the trainer split over ``mesh.data`` shards, which
+    is ``data_axis_size`` under every rule set ``make_rules`` builds, here
+    and in the reference, so the DCNN paths take no rules; the DCNN
+    params' replicated specs place as ``Replicate`` under each."""
+    from repro.dist.sharding import data_axis_size as jdata_axis_size
+    from repro.dist.sharding import make_rules as jmake_rules
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist.sharding import (data_axis_size, make_rules,
+                                           replicated_specs, tree_shardings)
+
+    params = generator_init(torch.Generator().manual_seed(3), TINY, "cpu")
+    mesh = make_test_mesh(4, device="cpu")
+    eng = _engine(params, "reverse_loop")
+    trainer = WganTrainer(TINY, _opt(), _opt(), autotune=False, mesh=mesh)
+    rules = make_rules(policy, multi_pod)
+    assert eng.n_devices == trainer.shards == mesh.data == data_axis_size(
+        mesh, rules) == jdata_axis_size(mesh, jmake_rules(policy,
+                                                          multi_pod)) == 4
+
+    class Standin:   # the placements of the replicated specs on (4, 1)
+        shape = mesh.shape
+        axis_names = ("data", "model")
+
+    pl = tree_leaves(tree_shardings(Standin(), rules, params,
+                                    replicated_specs(params)))
+    assert pl and all(isinstance(p, Replicate) for p in pl)

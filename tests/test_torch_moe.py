@@ -120,13 +120,19 @@ def test_moe_apply_matches_reference(arch, shape, cf):
     np.testing.assert_allclose(float(aux), jaux, rtol=1e-6)
 
 
-def test_a_moe_group_mesh_axis_raises():
+def test_a_moe_group_mesh_axis_raises(rng):
+    """A ``moe_group`` axis on the single-controller mesh: nothing raises,
+    and moe_apply computes what it computes without a mesh (each group's
+    dispatch is local anyway; 2 groups over a data axis of 2).  The
+    shard-local dispatch on DTensors is held in test_torch_sharded_lm.py."""
     _, _, cfg, p = params("qwen2-moe-a2.7b")
-    x = torch.zeros((2, 64, cfg.d_model))
+    x = torch.from_numpy(rng.randn(2, 64, cfg.d_model).astype(np.float32))
+    want_y, want_aux = ffn.moe_apply(p, cfg, x)
+    assert ffn._dispatch_groups(2 * 64) == 2
     with sharding_context(make_test_mesh(2, device="cpu"),
                           {"moe_group": "data"}):
-        with pytest.raises(NotImplementedError, match="A16, item 4"):
-            ffn.moe_apply(p, cfg, x)
+        y, aux = ffn.moe_apply(p, cfg, x)
+    assert torch.equal(y, want_y) and torch.equal(aux, want_aux)
 
 
 # ---------------------------------------------------------------------------
