@@ -186,9 +186,28 @@ scratch, and a second loss fails):
     tokens/s and peak memory beside the meshless path's from the same
     weights; hard check at 2 layers in float32: logits within 1e-4 x
     max|logits| of the meshless path on the card, greedy tokens equal;
-16. the kernels line (launches summed over the serving paths, the
-    frontend run, the training runs, the mesh phase and the examples);
-    17. the result line.
+16. the cost analyses (`analysis.cost`, `analysis.roofline`): the
+    dry run (``python -m repro_torch.launch.dryrun``, processes of their
+    own) of deepseek-7b x {train_4k, prefill_32k, decode_32k},
+    qwen2-moe-a2.7b x prefill_32k and xlstm-1.3b x prefill_32k at full
+    width on the fake 256-rank pod mesh, every cell ok (or the
+    reference's skip) with positive FLOPs, bytes and op count, and each
+    one's roofline row (counts on fake tensors with H100 spec constants,
+    not measurements); deepseek-7b at full width in bf16, a meshless
+    prefill of 4 x 128 on the card, counted once on its real CUDA tensors
+    and once on fake ones: FLOPs, bytes, ops and collectives equal, the
+    measured ms (CUDA events, median of 5) at least the roofline's step
+    time bound, and the measured peak (max_memory_allocated above the
+    baseline) within 20 % of the counted peak; H0's per-device program,
+    256 rows of the CelebA generator through B1 (five launches by the
+    wrapper's count, every count at 0 just before, and by the counter)
+    and through cuDNN, timed: the counted FLOPs exactly the layers' ops
+    x 256, the images within 1e-4 of cuDNN's, both times beside the
+    3xTF32 bound;
+17. the kernels line (launches summed over the serving paths, the
+    frontend run, the training runs, the mesh phase, the examples and
+    phase 16);
+    18. the result line.
 
 Phase 10's rerun after a trace loss runs in a process of its own
 (``chip_smoke.py --mesh-phase``, on CelebA engines built as phase 4
@@ -430,6 +449,20 @@ TRAIN_LM_CHECK = (2, 128)      # batch, seq; grad_accum 2
 TRAIN_LM_TOL = 1e-4            # losses rtol; Adam's moments as a norm ratio
 # phase 15: the LM sharded within a model, one rank per card
 TP_PROBE = os.path.join(ROOT, "tools", "probe_tp.py")
+# phase 16: the cost analyses.  Full-width cells of the dry run on the
+# fake 256-rank pod mesh, each (arch, shapes) group in a process of its own
+# (one fake world a process); the counter held against a real step on the
+# card (deepseek-7b, bf16, meshless, a prefill of batch x tokens); and
+# H0's per-device program, the CelebA generator on 256 rows (4096 over a
+# data axis of 16)
+DRYRUN_CELLS = (("deepseek-7b", ("train_4k", "prefill_32k", "decode_32k")),
+                ("qwen2-moe-a2.7b", ("prefill_32k",)),
+                ("xlstm-1.3b", ("prefill_32k",)))
+DRYRUN_TIMEOUT_S = 300
+COST_STEP = (4, 128)
+COST_PEAK_TOL = 0.2            # predicted vs measured peak, relative
+H0_ROWS = 256
+H0_TOL = 1e-4                  # B1's images against cuDNN's, fp32
 
 
 @functools.lru_cache(maxsize=None)
@@ -3005,6 +3038,199 @@ def phase_lm_sharded(smi):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the cost analyses
+# ---------------------------------------------------------------------------
+def start_dryruns(out_dir):
+    """The dry run's processes, one per group of `DRYRUN_CELLS`, started
+    together: ``(Popen, arch)`` each."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]]
+                                       if os.environ.get("PYTHONPATH")
+                                       else [])))
+    procs = []
+    for arch, shapes in DRYRUN_CELLS:
+        args = ["--arch", arch, "--mesh", "pod", "--out", out_dir]
+        if len(shapes) == 1:
+            args += ["--shape", shapes[0]]
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), arch))
+    return procs
+
+
+def check_dryruns(procs, out_dir, smi):
+    """Every cell of `DRYRUN_CELLS` ok, with positive FLOPs, bytes and op
+    count, or skipped for the reference's reason (``shape_applicable``);
+    each one's roofline row printed."""
+    from repro_torch.configs import LM_CONFIGS, SHAPES, shape_applicable
+    from repro_torch.launch.dryrun import roofline_of
+
+    for p, arch in procs:
+        out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun --arch {arch}: rc {p.returncode}"
+                                 f"\n{out[-2000:]}{err[-2000:]}")
+    for arch, shapes in DRYRUN_CELLS:
+        for shape in (SHAPES if len(shapes) > 1 else shapes):
+            with open(os.path.join(out_dir,
+                                   f"{arch}__{shape}__pod.json")) as f:
+                rec = json.load(f)
+            skip = shape_applicable(LM_CONFIGS[arch], SHAPES[shape])
+            if skip is not None:
+                if rec["status"] != "skipped" or rec["reason"] != skip:
+                    raise AssertionError(f"{arch} x {shape}: {rec}")
+                print(f"  dry run {arch} x {shape}: skipped ({skip})",
+                      flush=True)
+                continue
+            if rec["status"] != "ok" or not (
+                    rec["flops_per_device"] > 0
+                    and rec["bytes_per_device"] > 0 and rec["n_ops"] > 0):
+                raise AssertionError(f"dry run {arch} x {shape}: "
+                                     f"{rec.get('error', rec)}")
+            row = roofline_of(rec).row()
+            print(f"  dry run {arch} x {shape} on the fake (16, 16) mesh "
+                  f"(counted on fake tensors, H100 spec constants, not "
+                  f"measured): lower {rec['lower_s']} s, count "
+                  f"{rec['count_s']} s, grad_accum {rec['grad_accum']}; "
+                  f"per device {rec['flops_per_device']:.4e} FLOPs, "
+                  f"{rec['bytes_per_device']:.4e} bytes, "
+                  f"{rec['collective_bytes_per_device']:.4e} collective "
+                  f"bytes, {rec['n_ops']} ops, peak "
+                  f"{rec['peak_bytes'] / 2**30:.2f} GiB; roofline "
+                  + json.dumps(row) + f"; {smi}", flush=True)
+
+
+def cost_step(smi, peaks):
+    """deepseek-7b at full width in bf16 (weights drawn on the card), a
+    meshless prefill of `COST_STEP`: counted on its real CUDA tensors and
+    on fake ones of the same shapes (the counts equal), timed (at least
+    the roofline's bound) and its peak measured (within `COST_PEAK_TOL`
+    of the counted one)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.cost import analyze
+    from repro_torch.analysis.roofline import Roofline
+    from repro_torch.launch.steps import build_prefill_step
+
+    cfg = get_config(LM_ARCH)
+    b, s = COST_STEP
+    params = init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+    tokens = torch.randint(1, cfg.vocab_size, (b, s), dtype=torch.int32,
+                           generator=torch.Generator("cuda").manual_seed(1),
+                           device="cuda")
+    step = build_prefill_step(cfg, None, None, b, s)
+    with torch.no_grad():
+        real = analyze(step, params, {"tokens": tokens})
+        fm = FakeTensorMode()
+        fparams = tree_map(fm.from_tensor, params)
+        fake = analyze(step, fparams, {"tokens": fm.from_tensor(tokens)},
+                       fake_mode=fm)
+        got = {k: (getattr(real, k), getattr(fake, k)) for k in
+               ("flops", "bytes_accessed", "n_ops", "collectives")}
+        if any(a != f for a, f in got.values()):
+            raise AssertionError(f"real and fake counts differ: {got}")
+        ms, _ = time_ms(lambda: step(params, {"tokens": tokens}), runs=5,
+                        warmup=2, backlog=False)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+    r = Roofline(arch=cfg.name, shape=f"prefill {b} x {s}", mesh="1 card",
+                 chips=1, flops_per_device=real.flops,
+                 bytes_per_device=real.bytes_accessed,
+                 collective_bytes_per_device=0.0, collectives={},
+                 peak_bytes_per_device=real.peak_bytes,
+                 model_flops_global=2.0 * cfg.active_param_count() * b * s)
+    ratio = peak / real.peak_bytes
+    print(f"  {cfg.name} bf16 prefill {b} x {s}, meshless on the card: "
+          f"counted {real.flops:.6e} FLOPs, {real.bytes_accessed:.6e} "
+          f"bytes, {real.n_ops} ops on real CUDA tensors, equal on fake "
+          f"ones; {ms:.3f} ms (CUDA events, median of 5) against the "
+          f"roofline bound {r.step_time_bound * 1e3:.3f} ms ({r.bottleneck}"
+          f"; compute {r.t_compute * 1e3:.3f}, memory "
+          f"{r.t_memory * 1e3:.3f} ms); peak {peak / 2**30:.3f} GiB "
+          f"measured above the weights against {real.peak_bytes / 2**30:.3f}"
+          f" GiB counted (ratio {ratio:.4f}; fake "
+          f"{fake.peak_bytes / 2**30:.3f}); {smi}", flush=True)
+    if ms * 1e-3 < r.step_time_bound:
+        raise AssertionError(f"{ms} ms is below the roofline bound "
+                             f"{r.step_time_bound * 1e3} ms: a miscount")
+    if abs(ratio - 1.0) > COST_PEAK_TOL:
+        raise AssertionError(f"peak {peak} B measured, {real.peak_bytes} "
+                             f"counted: ratio {ratio}")
+    del params, fparams
+    torch.cuda.empty_cache()
+
+
+def h0_program(smi, peaks):
+    """H0's per-device program on the card: `H0_ROWS` rows of the CelebA
+    generator through "cuda" (B1, counted by its wrapper with every count
+    at 0 just before, and by `analysis.cost`) and "cudnn", timed; returns
+    B1's launches.  No profiler trace: run last in this long process, the
+    profiler has lost every device record of it (PERF.md §7)."""
+    from repro_torch.analysis.cost import analyze
+    from repro_torch.launch.hillclimb import dcnn_model_flops, dcnn_program
+
+    torch.backends.cudnn.allow_tf32 = False
+    fn, args = dcnn_program("cuda", H0_ROWS, device="cuda")
+    ref_fn, ref_args = dcnn_program("cudnn", H0_ROWS, device="cuda")
+    n_layers = len(CELEBA_DCNN.layers)
+    zero_launch_counts()
+    counted = analyze(fn, *args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != {"deconv2d_kernel": n_layers, "deconv2d_int8_kernel": 0,
+                  "deconv2d_sparse_kernel": 0}:
+        raise AssertionError(f"H0's launches: {counts}")
+    if counted.kernels != {"B1": n_layers}:
+        raise AssertionError(f"H0's counted launches: {counted.kernels}")
+    if counted.flops != dcnn_model_flops(H0_ROWS):
+        raise AssertionError(f"H0 counted {counted.flops} FLOPs, the "
+                             f"layers' ops x {H0_ROWS} are "
+                             f"{dcnn_model_flops(H0_ROWS)}")
+    err = (fn(*args) - ref_fn(*ref_args)).abs().max().item()
+    if err > H0_TOL:
+        raise AssertionError(f"H0's B1 images differ from cuDNN's by {err}")
+    ms, _ = time_ms(lambda: fn(*args), runs=5, warmup=2, backlog=False)
+    ref_ms, _ = time_ms(lambda: ref_fn(*ref_args), runs=5, warmup=2,
+                        backlog=False)
+    bound = sum(max(2 * g.output_macs * H0_ROWS / (peaks["tf32"] / 3),
+                    4 * H0_ROWS * (g.in_h * g.in_w * g.c_in
+                                   + g.out_h * g.out_w * g.c_out)
+                    / peaks["bw"] + 4 * g.kernel ** 2 * g.c_in * g.c_out
+                    / peaks["bw"])
+                for g in CELEBA_DCNN.geometries())
+    print(f"  H0 per device: CelebA generator on {H0_ROWS} rows; cuda (B1, "
+          f"{n_layers} launches) {ms:.3f} ms, cudnn {ref_ms:.3f} ms "
+          f"(CUDA events, median of 5, the host's launches included) "
+          f"against the 3xTF32 bound {bound * 1e3:.4f} ms; counted "
+          f"{counted.flops:.6e} FLOPs = the layers' ops x {H0_ROWS}, "
+          f"{counted.bytes_accessed:.6e} bytes, {counted.n_ops} ops; images "
+          f"{err:.2e} from cuDNN's; {smi}", flush=True)
+    return {("deconv2d_kernel", "fp32"): counts["deconv2d_kernel"]}
+
+
+def phase_analysis(smi, peaks):
+    """Phase 16: the counter against a real step and H0 on the card, then
+    the dry run's full-width cells (processes of their own, on the CPU).
+    Returns B1's launches."""
+    t0 = time.perf_counter()
+    cost_step(smi, peaks)
+    launched = h0_program(smi, peaks)
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    try:
+        check_dryruns(start_dryruns(out_dir), out_dir, smi)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"  phase 16 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     smi, name, peaks = device_info()
     # no run reads another's tile timings
@@ -3089,7 +3315,10 @@ def run(smi, name, peaks) -> int:
     print(f"[15] LM sharded within a model (at "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     phase_lm_sharded(smi)
-    print(f"[16] kernels line (at {time.perf_counter() - t0:.1f} s)",
+    print(f"[16] cost analyses (at {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    launches["analysis"] = phase_analysis(smi, peaks)
+    print(f"[17] kernels line (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
 
     print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,

@@ -75,7 +75,32 @@ def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
 
     pl = placements(mesh, spec_to_pspec(rules, tuple(logical_axes),
                                         mesh=mesh, shape=tuple(x.shape)))
-    return as_dtensor(x, mesh).redistribute(mesh.device_mesh, pl)
+    x = as_dtensor(x, mesh)
+    if any(p.is_partial() for p in x.placements):
+        return _Reduce.apply(x, mesh.device_mesh, pl)
+    return x.redistribute(mesh.device_mesh, pl)
+
+
+class _Reduce(torch.autograd.Function):
+    """A redistribution out of partial sums whose gradient goes back
+    replicated along the axes where the input was partial.  Each partial
+    sum's gradient is the whole sum's, so that is exact.  DTensor's own
+    backward returns a partial gradient (torch 2.13 always, 2.11 in some
+    plans), with which the backward of a row-parallel projection gathers
+    its weight and runs whole on every rank of the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, device_mesh, pl):
+        from torch.distributed.tensor import Replicate
+
+        ctx.device_mesh = device_mesh
+        ctx.back = [Replicate() if p.is_partial() else p
+                    for p in x.placements]
+        return x.redistribute(device_mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.device_mesh, ctx.back), None, None
 
 
 def as_dtensor(x, mesh):

@@ -3,9 +3,11 @@ and elastic meshes (the JAX package's ``dist/fault.py``).
 
 `StragglerMonitor` flags a dispatch slower than a factor of its bucket's
 healthy EMA, and `Heartbeat` fires a callback when an armed caller stays
-silent past a timeout (both copied).  `elastic_mesh` shrinks a
-`launch.mesh.DeviceMesh` onto the surviving prefix of its devices, and
-`reshard_tree` moves a tree of tensors onto the devices of the new mesh.
+silent past a timeout (both copied).  `elastic_mesh` shrinks a mesh onto
+the surviving prefix of its devices and `reshard_tree` moves a tree onto
+the new mesh: for the DCNN paths a `launch.mesh.DeviceMesh` of torch
+devices (the tree replicated on each), for the LM a `launch.mesh.LmMesh`
+over surviving ranks (a tree of DTensors, placed as asked).
 
 The serving engine arms its heartbeat around each dispatch attempt; the
 watcher thread only reads the clock and runs the callback, which counts
@@ -143,13 +145,18 @@ class Heartbeat:
 
 
 def elastic_mesh(devices: Sequence, model_parallel: int = 1):
-    """(data, model) `launch.mesh.DeviceMesh` over the largest usable
-    prefix of ``devices``.
+    """(data, model) mesh over the largest usable prefix of ``devices``.
 
     The model axis is fixed by the sharded weights; losing devices shrinks
     the data axis: data = len(devices) // model_parallel.  Surviving
     devices beyond data*model are left idle (they rejoin at the next
     remesh): the paper-style graceful degradation for edge fleets.
+
+    ``devices`` are torch devices (a single-controller
+    `launch.mesh.DeviceMesh`, the DCNN paths'), or the global ranks of the
+    surviving processes (an `launch.mesh.LmMesh`, the LM's: every rank of
+    the world calls this, as building a process group is collective; a
+    rank left out holds no coordinate, ``mesh.holds_shards`` false).
     """
     from ..launch.mesh import DeviceMesh
 
@@ -160,16 +167,62 @@ def elastic_mesh(devices: Sequence, model_parallel: int = 1):
         raise ValueError(
             f"{len(devices)} device(s) cannot host model_parallel="
             f"{model_parallel}")
-    return DeviceMesh(tuple(devices[: data * model_parallel]),
-                      model=model_parallel)
+    used = tuple(devices[: data * model_parallel])
+    if all(isinstance(d, int) for d in used):
+        return _lm_mesh(used, data, model_parallel)
+    return DeviceMesh(used, model=model_parallel)
 
 
-def reshard_tree(tree, devices):
-    """Migrate a tree of tensors (e.g. after an elastic remesh): with one
-    device, a copy of ``tree`` on it; with a sequence of devices, one copy
-    per device (a replicated tree, `sharding.replicate`)."""
+def _lm_mesh(ranks: Sequence[int], data: int, model: int):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh as TorchMesh
+
+    from ..launch.mesh import LmMesh
+
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return LmMesh(TorchMesh(kind, torch.tensor(ranks).reshape(data, model),
+                            mesh_dim_names=("data", "model")))
+
+
+def reshard_tree(tree, devices, placements=None):
+    """Migrate a tree of tensors (e.g. after an elastic remesh).
+
+    ``devices`` one device: a copy of ``tree`` on it; a sequence of
+    devices: one copy per device (a replicated tree, `sharding.replicate`).
+    An `launch.mesh.LmMesh`: each leaf (a DTensor, or a tensor equal on
+    every rank) made whole on its old mesh, a collective that every rank
+    of the old mesh joins, as the reference's ``device_put`` reads every
+    old device, and placed on the new mesh by ``placements``, one tuple
+    for every leaf or a tree of them; a rank outside the new mesh gets
+    None for each leaf."""
+    from ..core.tree import tree_map
+    from .context import is_lm_mesh
     from .sharding import replicate
 
+    if is_lm_mesh(devices):
+        if _is_placements(placements):
+            placements = tree_map(lambda _: placements, tree)
+        return tree_map(lambda t, pl: _moved(t, devices, pl), tree,
+                        placements)
     if isinstance(devices, (list, tuple)):
         return replicate(tree, devices)
     return replicate(tree, [devices])[0]
+
+
+def _is_placements(pl) -> bool:
+    from torch.distributed.tensor.placement_types import Placement
+
+    return isinstance(pl, tuple) and all(isinstance(p, Placement)
+                                         for p in pl)
+
+
+def _moved(t, mesh, pl):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    whole = t.full_tensor() if isinstance(t, DTensor) else t
+    if not mesh.holds_shards:
+        return None
+    dm = mesh.device_mesh
+    return DTensor.from_local(whole, dm, [Replicate()] * dm.ndim,
+                              run_check=False).redistribute(dm, pl)

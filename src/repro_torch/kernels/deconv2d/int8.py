@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...core.counting import is_fake
 from ...core.deconv import phase_products
 from ...core.offsets import PhasePlan
 from ...core.tiling import int8_acc_bound
@@ -43,7 +44,7 @@ from ..autotune import INT8_T_CI, TC_T_CO
 from .kernel import (_check_shapes, aligned, apply_activation, check_rc,
                      launch_params, launch_split, tc_library)
 from .ops import (StaticOperands, call_args, pad_channels, refuse_graph,
-                  resolve_call)
+                  report_launch, resolve_call)
 
 LAUNCHES = 0
 
@@ -211,6 +212,10 @@ def deconv2d_int8_launch(
                         "(pack_int8_weights), not a raw weight tensor")
     kw = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
               t_ci=t_ci, t_co=t_co, t_n=t_n, activation=activation)
+    out_dtype = torch.float32 if out_scale is None else torch.int8
+    if is_fake(xp):     # a cost count: the output's shape and dtype alone
+        return xp.new_empty((xp.shape[0], ohp, owp, wpk.cop),
+                            dtype=out_dtype)
     if xp.device.type == "cpu":
         return deconv2d_int8_launch_plain(xp, unpack_int8_weights(wpk), sp,
                                           bp, out_scale=out_scale, **kw)
@@ -221,7 +226,6 @@ def deconv2d_int8_launch(
     params = launch_params(xp, wq, [("scale", sp, torch.float32),
                                     ("b", bp, torch.float32)],
                            w_shape=wpk.shape[:2] + (wpk.cip, wpk.cop), **kw)
-    out_dtype = torch.float32 if out_scale is None else torch.int8
     y = torch.empty((xp.shape[0], ohp, owp, wpk.cop), dtype=out_dtype,
                     device=xp.device)
     with torch.cuda.device(xp.device):
@@ -337,5 +341,8 @@ def deconv2d_int8(
         out_scale = plan.out_scale
     xp, st, kwargs, crop = _int8_call(x, w, scale, b, static, stride, padding,
                                       *tiles, activation, out_scale)
-    return deconv2d_int8_launch(xp, st.w, st.scale, st.b, **kwargs)[crop]
+    y = deconv2d_int8_launch(xp, st.w, st.scale, st.b, **kwargs)
+    report_launch("B2", x, w.shape, stride, padding,
+                  (xp, st.w.data, st.scale, st.b), y)
+    return y[crop]
 

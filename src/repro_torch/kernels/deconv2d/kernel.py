@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core.counting import is_fake
 from ...core.deconv import fp32_exact, phase_products
 from ...core.offsets import PhasePlan, make_phase_plan
 from ...core.tiling import (CI_STEP, KERNEL_MAX_SMEM, KERNEL_MAX_STRIDE,
@@ -164,9 +165,12 @@ def deconv2d_launch(
     plan: PhasePlan, ih: int, iw: int, ohp: int, owp: int, t_oh: int,
     t_ow: int, t_ci: int, t_co: int, t_n: int, activation: Optional[str],
 ) -> torch.Tensor:
-    """One kernel launch on a CUDA tensor; the plain version on a CPU one."""
+    """One kernel launch on a CUDA tensor; the plain version on a CPU one;
+    on a FakeTensor (a cost count) the output's shape and dtype alone."""
     kw = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
               t_ci=t_ci, t_co=t_co, t_n=t_n, activation=activation)
+    if is_fake(xp):
+        return xp.new_empty((xp.shape[0], ohp, owp, wp.shape[3]))
     if xp.device.type == "cpu":
         return deconv2d_launch_plain(xp, wp, bp, **kw)
     return _launch_cuda(xp, wp, bp, **kw)
@@ -197,8 +201,8 @@ def _launch_cuda(xp, wp, bp, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co,
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data is not 16-byte aligned (the
-    kernels stage whole 16-byte pieces)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    kernels stage whole 16-byte pieces).  A FakeTensor has no data."""
+    return t if is_fake(t) or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,

@@ -194,6 +194,24 @@ def resolve_call(plan, x, w, backend, fn_name, stride, padding, activation,
     return stride, padding, tiles, activation
 
 
+def report_launch(name: str, x, w_shape, stride: int, padding: int,
+                  operands, y) -> None:
+    """One kernel launch reported to an active cost counter
+    (`core.counting.record_kernel`: no dispatch mode sees a ctypes
+    launch), where a kernel launched: on the card, or on FakeTensors.  A
+    CPU tensor ran the plain version, whose ops were counted as they ran.
+    FLOPs are the layer geometry's ``ops`` (the reverse loop's useful
+    work) for each image; bytes the operands' and the result's."""
+    from ...core.counting import active, is_fake, nbytes, record_kernel
+
+    if active() is None or (x.device.type == "cpu" and not is_fake(x)):
+        return
+    n, ih, iw, ci = x.shape
+    g = DeconvGeometry(ih, iw, ci, w_shape[3], w_shape[0], stride, padding)
+    record_kernel(name, g.ops * n,
+                  sum(nbytes(t) for t in operands) + nbytes(y))
+
+
 def deconv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -233,4 +251,6 @@ def deconv2d(
     xp, kwargs, crop, (cip, cop) = call_args(
         x, w.shape[0], w.shape[3], stride, padding, *tiles, activation)
     st = static_for(static, w, b, cip, cop, x.dtype)
-    return deconv2d_launch(xp, st.w, st.b, **kwargs)[crop]
+    y = deconv2d_launch(xp, st.w, st.b, **kwargs)
+    report_launch("B1", x, w.shape, stride, padding, (xp, st.w, st.b), y)
+    return y[crop]

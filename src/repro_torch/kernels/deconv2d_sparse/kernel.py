@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ...core.counting import is_fake
 from ...core.offsets import PhasePlan
 from ..deconv2d.kernel import (_check_shapes, aligned, check_rc,
                                deconv2d_launch_plain, launch_params,
@@ -191,6 +192,8 @@ def deconv2d_sparse_launch(
     global LAUNCHES
     kw = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
               t_ci=t_ci, t_co=t_co, t_n=t_n, activation=activation)
+    if is_fake(xp):     # a cost count: the output's shape and dtype alone
+        return xp.new_empty((xp.shape[0], ohp, owp, wp.shape[3]))
     if xp.device.type == "cpu":
         return deconv2d_sparse_launch_plain(xp, wp, bp, count, ci, bits, **kw)
     if xp.dtype not in (torch.float32, torch.bfloat16):

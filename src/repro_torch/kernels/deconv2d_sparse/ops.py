@@ -13,7 +13,7 @@ import torch
 
 from ...core.sparsity import block_mask
 from ..deconv2d.ops import (_round_up, call_args, refuse_graph,
-                            resolve_call, static_for)
+                            report_launch, resolve_call, static_for)
 from .kernel import build_schedule, deconv2d_sparse_launch, schedule_tensors
 
 
@@ -82,6 +82,8 @@ def deconv2d_sparse(
     xp, kwargs, crop, (cip, cop) = call_args(
         x, w.shape[0], w.shape[3], stride, padding, *tiles, activation)
     st = static_for(static, w, b, cip, cop, x.dtype)
-    return deconv2d_sparse_launch(xp, st.w, st.b,
-                                  *schedule_tensors(schedule, x.device),
-                                  **kwargs)[crop]
+    sched = schedule_tensors(schedule, x.device)
+    y = deconv2d_sparse_launch(xp, st.w, st.b, *sched, **kwargs)
+    report_launch("B3", x, w.shape, stride, padding, (xp, st.w, st.b, *sched),
+                  y)
+    return y[crop]

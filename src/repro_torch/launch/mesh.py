@@ -17,8 +17,13 @@ The LM shards within a model (`dist.sharding`'s rule policies) over an
 the axes ``("data", "model")``, ``"pod"`` first where there is one, and
 DTensor placements on it.  On the card its process group runs NCCL and
 nothing else; the CPU and gloo serve the tests, and only when asked for.
-(``make_production_mesh`` and the compile-only cells wait for the XLA
-analyses' port.)
+
+`make_production_mesh` builds the reference's production meshes, (16,
+16) and (2, 16, 16), over a world of 256 or 512 ranks in ONE process: a
+fake process group (``torch.testing``'s ``FakeStore`` and the "fake"
+backend), whose collectives move nothing.  The dry run and the hill-climb
+place fake tensors on it and count one rank's step (`analysis.cost`);
+nothing runs on a device.
 
 Defined as functions, so importing this module touches no device.
 """
@@ -115,6 +120,12 @@ class LmMesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.device_mesh.shape))
 
+    @property
+    def holds_shards(self) -> bool:
+        """Whether this rank is in the mesh (an elastic remesh leaves the
+        surviving ranks past its prefix idle)."""
+        return self.device_mesh.get_coordinate() is not None
+
     def coordinate(self, axis: str) -> int:
         """This rank's index along ``axis``."""
         return self.device_mesh.get_local_rank(axis)
@@ -174,3 +185,67 @@ def make_lm_mesh(data: int = 1, model: int = 1, pod: int = 0,
                            f"{dist.get_backend()}")
     return LmMesh(init_device_mesh(device_type, shape,
                                    mesh_dim_names=names))
+
+
+# ---------------------------------------------------------------------------
+# the production meshes over a fake world (the dry run's)
+# ---------------------------------------------------------------------------
+def _fake_store():
+    """``FakeStore``, whose import also registers the "fake" backend."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "this torch has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg): the dry run "
+            "needs it to build a 256/512-rank mesh in one process") from e
+    return FakeStore
+
+
+_PRODUCTION: Dict[Tuple[int, ...], LmMesh] = {}
+
+
+def init_fake_world(world_size: int) -> None:
+    """Make the default process group a fake one of ``world_size`` ranks,
+    this process rank 0.  A fake group of another size is replaced; a real
+    one is refused."""
+    import torch.distributed as dist
+
+    store_cls = _fake_store()
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is "
+                               "running: the fake world needs a process "
+                               "of its own")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+        _PRODUCTION.clear()
+    dist.init_process_group("fake", store=store_cls(), rank=0,
+                            world_size=world_size)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LmMesh:
+    """Single pod: (data=16, model=16) = 256 ranks; multi-pod: (pod=2,
+    data=16, model=16) = 512, the pod axis pure data parallelism.  Over a
+    fake world of that size (`init_fake_world`), on device type "cpu":
+    the placements and collectives are the production mesh's, the tensors
+    fake."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    init_fake_world(math.prod(shape))
+    if shape not in _PRODUCTION:
+        _PRODUCTION[shape] = LmMesh(init_device_mesh(
+            "cpu", shape, mesh_dim_names=names))
+    return _PRODUCTION[shape]
+
+
+def destroy_fake_world() -> None:
+    """Drop the fake default group (and the meshes built on it)."""
+    import torch.distributed as dist
+
+    _PRODUCTION.clear()
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()

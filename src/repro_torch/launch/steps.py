@@ -9,11 +9,15 @@ hands shardings to ``jax.jit``, the port places DTensors: params by
 `place_params` (from whole tensors) or `init_placed_params` (each rank
 draws only its own shards, for models that no single card holds), batch
 inputs inside the steps, and a train step's outputs back onto the params'
-placements (the reference's ``out_shardings``).  ``lower_cell`` belongs to
-the XLA analyses' port.
+placements (the reference's ``out_shardings``).
+
+`lower_cell` is the dry run's cell: the step of one (arch, shape, mesh)
+with fake inputs placed as the reference's shardings place them, for
+`analysis.cost.analyze` to count; it allocates nothing.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional
 
@@ -190,6 +194,35 @@ def build_train_step(cfg: ModelConfig, mesh, rules, grad_accum: int = 1):
     return train_step
 
 
+class _Fill:
+    """A cache leaf not yet allocated: its shape, fill and dtype."""
+
+    def __init__(self, shape, value, dtype):
+        self.shape, self.value, self.dtype = tuple(shape), value, dtype
+
+
+def placed_cache(cfg: ModelConfig, mesh, rules, batch: int, max_len: int,
+                 device):
+    """`init_cache`'s tree placed by `cache_specs`, each leaf filled as
+    `init_cache` fills it and each rank allocating only its own shards
+    (the whole cache of a long prompt is no card's to hold: deepseek-7b's
+    at 32 x 32768 is 240 GiB)."""
+    import torch.distributed.tensor as dtensor
+
+    fills = init_cache(cfg, batch, max_len, device, full=_Fill)
+    shapes = tree_map(lambda f: f if isinstance(f, torch.Tensor) else
+                      torch.empty(f.shape, dtype=f.dtype, device="meta"),
+                      fills)
+
+    def leaf(f, pl):
+        if isinstance(f, torch.Tensor):     # ``pos``, a literal
+            return distribute_tree(mesh, f, pl)
+        return dtensor.full(f.shape, f.value, dtype=f.dtype,
+                            device_mesh=mesh.device_mesh, placements=pl)
+
+    return tree_map(leaf, fills, cache_shardings(mesh, rules, cfg, shapes))
+
+
 def build_prefill_step(cfg: ModelConfig, mesh, rules, batch: int,
                        max_len: int):
     """``prefill_step(params, {"tokens", "frontend_embeds"?}) -> (last
@@ -198,10 +231,9 @@ def build_prefill_step(cfg: ModelConfig, mesh, rules, batch: int,
     def prefill_step(params, batch_inputs):
         dev = tree_leaves(params)[0].device
         with sharding_context(mesh, rules):
-            cache = init_cache(cfg, batch, max_len, device=dev)
-            if mesh is not None:
-                cache = distribute_tree(mesh, cache, cache_shardings(
-                    mesh, rules, cfg, cache))
+            cache = (init_cache(cfg, batch, max_len, device=dev)
+                     if mesh is None else
+                     placed_cache(cfg, mesh, rules, batch, max_len, dev))
             tokens = constrain(batch_inputs["tokens"], "batch", None)
             fe = batch_inputs.get("frontend_embeds")
             if fe is not None:
@@ -225,3 +257,92 @@ def build_decode_step(cfg: ModelConfig, mesh, rules):
         return logits[:, -1, :], cache
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# cell lowering (arch x shape x mesh) -> the step and its fake inputs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class LoweredCell:
+    """A cell's step ``fn``, its placed fake inputs ``args`` and the
+    FakeTensorMode that made them (`analysis.cost.analyze(fn, *args,
+    fake_mode=fake_mode)` counts it); ``grad_accum`` and ``policy`` as
+    resolved."""
+
+    fn: Any
+    args: tuple
+    fake_mode: Any
+    policy: str
+    grad_accum: int = 1
+
+
+def _fake_placed(mesh, t: torch.Tensor, pl, fake_mode, value=None):
+    """A fake DTensor of ``t``'s global shape and dtype with placements
+    ``pl`` on ``mesh``: its local shard is rank 0's (every split is even).
+    ``value`` makes a scalar a constant (a cache's position)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    shape = list(t.shape)
+    for size, p in zip(mesh.device_mesh.shape, pl):
+        if isinstance(p, Shard):
+            shape[p.dim] //= size
+    with fake_mode:
+        local = (torch.tensor(value, dtype=t.dtype) if value is not None
+                 else torch.empty(shape, dtype=t.dtype))
+        return DTensor.from_local(local, mesh.device_mesh, pl,
+                                  run_check=False, shape=t.shape,
+                                  stride=torch.empty(t.shape,
+                                                     device="meta").stride())
+
+
+def lower_cell(cfg: ModelConfig, suite, mesh, policy: str = "auto",
+               grad_accum: Optional[int] = None) -> LoweredCell:
+    """The step of one cell and its fake inputs, placed by the same
+    `make_rules`, `tree_shardings`, `opt_shardings`, `batch_shardings`,
+    `cache_shardings` and `default_grad_accum` as the reference's."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..configs.shapes import input_specs
+    from ..dist.sharding import make_rules
+
+    multi_pod = "pod" in mesh.shape
+    if policy == "auto":
+        policy = default_policy(cfg)
+    rules = make_rules(policy, multi_pod=multi_pod)
+    p_shapes, specs = abstract_params(cfg)
+    p_sh = tree_shardings(mesh, rules, p_shapes, specs)
+    in_specs = input_specs(cfg, suite)
+    fake_mode = FakeTensorMode()
+    place = lambda t, pl: _fake_placed(mesh, t, pl, fake_mode)
+    params = tree_map(place, p_shapes, p_sh)
+
+    if suite.kind == "train":
+        if grad_accum is None:
+            grad_accum = default_grad_accum(cfg, suite, mesh)
+        o_shapes = opt_state_shapes(p_shapes)
+        o_sh = opt_shardings(mesh, rules, p_shapes, specs)
+        opt = AdamState(step=place(o_shapes.step, o_sh.step),
+                        mu=tree_map(place, o_shapes.mu, o_sh.mu),
+                        nu=tree_map(place, o_shapes.nu, o_sh.nu))
+        b_sh = batch_shardings(mesh, rules, in_specs)
+        batch = {k: place(v, b_sh[k]) for k, v in in_specs.items()}
+        step = build_train_step(cfg, mesh, rules, grad_accum=grad_accum)
+        return LoweredCell(step, (params, opt, batch), fake_mode, policy,
+                           grad_accum)
+    if suite.kind == "prefill":
+        b_sh = batch_shardings(mesh, rules, in_specs)
+        batch = {k: place(v, b_sh[k]) for k, v in in_specs.items()}
+        step = build_prefill_step(cfg, mesh, rules, suite.global_batch,
+                                  suite.seq_len)
+        return LoweredCell(step, (params, batch), fake_mode, policy)
+    # decode: one token against a full cache (the new token's slot last)
+    cache_shapes = in_specs["cache"]
+    c_sh = cache_shardings(mesh, rules, cfg, cache_shapes)
+    cache = {k: tree_map(place, v, c_sh[k]) for k, v in cache_shapes.items()
+             if k != "pos"}
+    cache["pos"] = _fake_placed(mesh, cache_shapes["pos"], c_sh["pos"],
+                                fake_mode, value=suite.seq_len - 1)
+    tok_pl = placements(mesh, batch_pspec(mesh, rules, suite.global_batch, 2))
+    tokens = place(in_specs["tokens"], tok_pl)
+    step = build_decode_step(cfg, mesh, rules)
+    return LoweredCell(step, (params, cache, tokens), fake_mode, policy)

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..core.counting import repeat, trips
 from ..dist.context import constrain, current, is_lm_mesh, local_region
 from ..dist.sharding import data_axis_size
 from . import nn
@@ -158,7 +159,7 @@ def blocked_attention(
             (skv_p - skv,), INT32_MAX)])
 
     blocks = []
-    for qi in range(nq):
+    for qi in trips(nq):
         qb = qp[:, qi * block_q:(qi + 1) * block_q]
         qb = qb.reshape(b, block_q, hkv, g, dh).permute(0, 2, 3, 1, 4).float()
         qpos = q_positions[qi * block_q:(qi + 1) * block_q]
@@ -167,7 +168,7 @@ def blocked_attention(
         l = torch.zeros((b, hkv, g, block_q), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, hkv, g, block_q, dh), dtype=torch.float32,
                           device=dev)
-        for ki in range(nk):
+        for ki in trips(nk):
             kb = kp[:, ki * block_k:(ki + 1) * block_k]
             vb = vp[:, ki * block_k:(ki + 1) * block_k]
             if quant:  # dequantize on read: only the block leaves int8
@@ -193,7 +194,7 @@ def blocked_attention(
             m = m_new
         blocks.append(acc / torch.clamp(l, min=1e-30)[..., None])
     # per block (B, Hkv, G, bq, Dh) -> (B, Sq, H, Dh)
-    out = torch.stack(blocks, dim=0).permute(1, 0, 4, 2, 3, 5)
+    out = torch.stack(repeat(blocks, nq), dim=0).permute(1, 0, 4, 2, 3, 5)
     return out.reshape(b, sq_p, h, dh)[:, :sq].to(q.dtype)
 
 
@@ -258,24 +259,23 @@ def attention_specs(cfg) -> nn.Specs:
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, layer_kind: str,
-                  dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+                  dtype: torch.dtype, device, full=None
+                  ) -> Dict[str, torch.Tensor]:
     """Cache for ONE attention layer.  Local layers use a ring buffer
     bounded by the attention window.  With ``cfg.kv_quant``, k/v are int8
-    with per-(token, head) scales."""
+    with per-(token, head) scales.  ``full``: the allocator
+    (`nn.full_on(device)` by default)."""
+    full = full or nn.full_on(device)
     size = max_len if layer_kind == "global" else min(cfg.local_window,
                                                       max_len)
     kv_dtype = torch.int8 if cfg.kv_quant else dtype
     shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
-    cache = {
-        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
-        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
-        "slot_pos": torch.full((size,), -1, dtype=torch.int32,
-                               device=device),
-    }
+    cache = {"k": full(shape, 0, kv_dtype), "v": full(shape, 0, kv_dtype),
+             "slot_pos": full((size,), -1, torch.int32)}
     if cfg.kv_quant:
         sshape = (batch, size, cfg.n_kv_heads, 1)
-        cache["k_scale"] = torch.zeros(sshape, dtype=dtype, device=device)
-        cache["v_scale"] = torch.zeros(sshape, dtype=dtype, device=device)
+        cache["k_scale"] = full(sshape, 0, dtype)
+        cache["v_scale"] = full(sshape, 0, dtype)
     return cache
 
 

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..dist.context import constrain, current, is_lm_mesh, local_region
+from ..dist.sharding import data_axis_size
 from . import nn
 
 
@@ -182,6 +183,55 @@ def _combine_local(out_e: torch.Tensor, sorted_e: torch.Tensor,
     return y.index_add(0, rows, contrib.reshape(-1, d)).reshape(gl, tg, d)
 
 
+def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("geca,eab->gecb", x, w)``: x (groups, experts, capacity,
+    a), w (experts, a, b).
+
+    On DTensors it runs shard-local with placements of its own, per mesh
+    axis: x's groups or partial sums kept (w gathered whole), the experts
+    where both shard them, the output features where w shards them, or
+    partial sums where w shards the contracted dim (x sliced to match);
+    any other pairing is gathered first.  Each pairing names its inputs'
+    gradient placements: a whole w against x's shards gets partial sums
+    of its gradient.  DTensor's einsum viewed the permuted shards by the
+    global strides, which the local layout does not allow on some
+    placements (qwen2-moe's 60 experts on a model axis of 16 come back
+    from an uneven shard as a slice of a padded buffer)."""
+    if not (nn.is_dtensor(x) or nn.is_dtensor(w)):
+        return torch.einsum("geca,eab->gecb", x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = (x if nn.is_dtensor(x) else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    xp = list(x.placements) if nn.is_dtensor(x) else rep
+    wp = list(w.placements) if nn.is_dtensor(w) else rep
+    R, P = Replicate(), Partial()
+    # per mesh axis: (x, w, out, x's gradient, w's gradient)
+    axes = []
+    for px, pw in zip(xp, wp):
+        dx = px.dim % 4 if isinstance(px, Shard) else None
+        dw = pw.dim % 3 if isinstance(pw, Shard) else None
+        if dx == 0:
+            axes.append((px, R, px, px, P))
+        elif isinstance(px, Partial):
+            axes.append((px, R, px, R, P))
+        elif (dx, dw) == (1, 0):
+            axes.append((px, pw, Shard(1), px, pw))
+        elif dx is None and dw == 2:
+            axes.append((px, pw, Shard(3), P, pw))
+        elif dw == 1 and dx in (None, 3):
+            axes.append((Shard(3), pw, P, Shard(3), pw))
+        else:
+            axes.append((R, R, R, R, R))
+    in_x, in_w, out, g_x, g_w = (list(a) for a in zip(*axes))
+    run = local_map(lambda a, b: torch.einsum("geca,eab->gecb", a, b),
+                    out_placements=out, in_placements=(in_x, in_w),
+                    in_grad_placements=(g_x, g_w), device_mesh=mesh,
+                    redistribute_inputs=True)
+    return run(x, w)
+
+
 def moe_apply(p: nn.Params, cfg, x: torch.Tensor,
               capacity_factor: float = 1.25
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -190,7 +240,16 @@ def moe_apply(p: nn.Params, cfg, x: torch.Tensor,
     b, sl, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * sl
-    xf = x.reshape(t, d)
+    # pinned to the batch axes: the backward brings the grad back onto
+    # them before it unflattens (a grad sharded on d came back through
+    # DTensor's view with the global d)
+    xf = constrain(x.reshape(t, d), "batch", None)
+    mesh, rules = current()
+    if (is_lm_mesh(mesh) and _dispatch_groups(t)
+            % data_axis_size(mesh, rules) != 0):
+        # fewer groups than batch shards (a decode step's few tokens):
+        # every rank routes every token, as the groups cannot split
+        xf = constrain(xf, None, None)
     r = moe_route(p, cfg, xf, capacity_factor)
     g = r.sort_idx.shape[0]
     tg, cap = t // g, r.cap
@@ -199,11 +258,13 @@ def moe_apply(p: nn.Params, cfg, x: torch.Tensor,
     w_sorted = torch.gather(r.top_p.reshape(g, tg * k), 1,
                             r.sort_idx).to(x.dtype)
 
-    # the reference's condition for its shard_map over the group axis
-    mesh, rules = current()
-    dp_axis = (rules or {}).get("moe_group")
-    local = (is_lm_mesh(mesh) and dp_axis in mesh.shape
-             and g % mesh.shape[dp_axis] == 0)
+    # the reference's condition for its shard_map over the group axis,
+    # which on a multi-pod mesh spans ("pod", "data") (there the reference
+    # leaves the dispatch to XLA's partitioner, and DTensor has no
+    # sharding for its index on the nested batch shards)
+    groups = {"batch": (rules or {}).get("moe_group")}
+    local = (is_lm_mesh(mesh) and groups["batch"] is not None
+             and g % data_axis_size(mesh, groups) == 0)
 
     scatter = functools.partial(_scatter_local, e=e, cap=cap)
     combine = functools.partial(_combine_local, tg=tg)
@@ -216,11 +277,11 @@ def moe_apply(p: nn.Params, cfg, x: torch.Tensor,
     hbuf = constrain(hbuf, "moe_group", "experts", None, None)
 
     # grouped expert FFN (SwiGLU) over every expert
-    hg = torch.einsum("gecd,edf->gecf", hbuf, p["wg"])
-    hu = torch.einsum("gecd,edf->gecf", hbuf, p["wu"])
+    hg = _expert_mm(hbuf, p["wg"])
+    hu = _expert_mm(hbuf, p["wu"])
     hh = nn.silu(hg) * hu
     hh = constrain(hh, "moe_group", "experts", None, "mlp")
-    out_e = torch.einsum("gecf,efd->gecd", hh, p["wd"])
+    out_e = _expert_mm(hh, p["wd"])
     out_e = constrain(out_e, "moe_group", "experts", None, None)
 
     if local:

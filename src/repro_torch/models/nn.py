@@ -15,12 +15,12 @@ not match the reference's ``jax.random``; parity tests load its params.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..core.tree import tree_leaves, tree_map
+from ..core.tree import tree_leaves
 
 Params = Dict[str, Any]
 Specs = Dict[str, Any]  # mirrors Params; leaves are tuples of logical axes
@@ -58,6 +58,14 @@ def lecun_init(generator: Optional[torch.Generator], shape,
     fan = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan, 1))
     return (scale * _draw(generator, shape, device)).to(dtype)
+
+
+def full_on(device):
+    """``full(shape, value, dtype)``: `torch.full` on ``device``, the
+    cache initialisers' allocator unless their caller gives its own (a
+    placed cache allocates each rank's shards)."""
+    return lambda shape, value, dtype: torch.full(shape, value, dtype=dtype,
+                                                  device=device)
 
 
 def zeros_init(shape, dtype: torch.dtype, device) -> torch.Tensor:
@@ -201,12 +209,6 @@ def tree_size(params) -> int:
 
 def tree_bytes(params) -> int:
     return sum(p.numel() * p.element_size() for p in tree_leaves(params))
-
-
-def stack_trees(trees: Sequence[Params]) -> Params:
-    """Stack a list of identical trees along a new leading axis (the
-    model's unit axis)."""
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
 
 
 def stack_specs(spec: Specs) -> Specs:

@@ -25,6 +25,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.utils.checkpoint
 
+from ..core.counting import repeat, trips
 from ..core.tree import tree_leaves, tree_map, tree_unflatten
 from ..dist.context import (constrain, current, is_lm_mesh, local_region,
                             replicated_local)
@@ -43,10 +44,10 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _loop(step: Callable, carry, xs, lo: int, hi: int):
     ys = []
-    for i in range(lo, hi):
-        carry, y = step(carry, tree_map(lambda x: x[i], xs))
+    for i in trips(hi - lo):
+        carry, y = step(carry, tree_map(lambda x: x[lo + i], xs))
         ys.append(y)
-    return carry, torch.stack(ys)
+    return carry, torch.stack(repeat(ys, hi - lo))
 
 
 def _scan(step: Callable, carry, xs, chunk: int):
@@ -58,11 +59,12 @@ def _scan(step: Callable, carry, xs, chunk: int):
         return _loop(step, carry, xs, 0, t)
     ys = []
     n_full = t // chunk
-    for c in range(n_full):
+    for c in trips(n_full):
         carry, y = torch.utils.checkpoint.checkpoint(
             _loop, step, carry, xs, c * chunk, (c + 1) * chunk,
             use_reentrant=False)
         ys.append(y)
+    ys = repeat(ys, n_full)
     if t % chunk:
         carry, y = _loop(step, carry, xs, n_full * chunk, t)
         ys.append(y)
@@ -212,12 +214,12 @@ def griffin_block_apply(p: nn.Params, cfg, x: torch.Tensor,
     return out, {"conv": new_conv, "h": h_fin}
 
 
-def griffin_state_init(cfg, batch: int, dtype: torch.dtype, device):
+def griffin_state_init(cfg, batch: int, dtype: torch.dtype, device,
+                       full=None):
+    full = full or nn.full_on(device)
     dr = cfg.rnn_width or cfg.d_model
-    return {"conv": torch.zeros((batch, CONV_W - 1, dr), dtype=dtype,
-                                device=device),
-            "h": torch.zeros((batch, dr), dtype=torch.float32,
-                             device=device)}
+    return {"conv": full((batch, CONV_W - 1, dr), 0, dtype),
+            "h": full((batch, dr), 0, torch.float32)}
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +251,7 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, c0, n0, m0,
                                  device=q.device))
     c0h, n0h, m0_ = c0, n0, m0
     hs = []
-    for j in range(nc):
+    for j in trips(nc):
         qb, kb, vb, li, lf = qc[j], kc[j], vc[j], gi[j], gf[j]
         g = torch.cumsum(lf, dim=-1)                       # (B, H, L)
         a = li - g
@@ -278,7 +280,8 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, c0, n0, m0,
                + torch.einsum("bhsv,bhsk->bhvk", vb * w_s[..., None], kb))
         n0h = sc_old[..., None] * n0h + torch.einsum("bhs,bhsk->bhk", w_s, kb)
         m0_ = m1
-    h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(b, s, hh, dh)
+    h = torch.stack(repeat(hs, nc)).permute(1, 0, 3, 2, 4)
+    h = h.reshape(b, s, hh, dh)
     return h, (c0h, n0h, m0_)
 
 
@@ -311,16 +314,17 @@ def mlstm_block_specs(cfg) -> nn.Specs:
     return s
 
 
-def mlstm_state_init(cfg, batch: int, dtype: torch.dtype, device):
+def mlstm_state_init(cfg, batch: int, dtype: torch.dtype, device,
+                     full=None):
+    full = full or nn.full_on(device)
     di = 2 * cfg.d_model
     h = cfg.n_heads
     dh = di // h
     f32 = torch.float32
-    return {"C": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
-            "n": torch.zeros((batch, h, dh), dtype=f32, device=device),
-            "m": torch.full((batch, h), -1e30, dtype=f32, device=device),
-            "conv": torch.zeros((batch, CONV_W - 1, di), dtype=dtype,
-                                device=device)}
+    return {"C": full((batch, h, dh, dh), 0, f32),
+            "n": full((batch, h, dh), 0, f32),
+            "m": full((batch, h), -1e30, f32),
+            "conv": full((batch, CONV_W - 1, di), 0, dtype)}
 
 
 def _mlstm_step(carry, inp):
@@ -408,12 +412,13 @@ def slstm_block_init(generator: Optional[torch.Generator], cfg,
             "ffn": nn.dense_init(generator, d, d, dtype, device=device)}
 
 
-def slstm_state_init(cfg, batch: int, dtype: torch.dtype, device):
-    h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
-    z = torch.zeros((batch, h, dh), dtype=torch.float32, device=device)
-    return {"c": z, "n": z.clone(), "h": z.clone(),
-            "m": torch.full((batch, h, dh), -1e30, dtype=torch.float32,
-                            device=device)}
+def slstm_state_init(cfg, batch: int, dtype: torch.dtype, device,
+                     full=None):
+    full = full or nn.full_on(device)
+    shape = (batch, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    f32 = torch.float32
+    return {"c": full(shape, 0, f32), "n": full(shape, 0, f32),
+            "h": full(shape, 0, f32), "m": full(shape, -1e30, f32)}
 
 
 def slstm_block_specs(cfg) -> nn.Specs:

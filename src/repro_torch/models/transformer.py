@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from ..core.counting import trips
 from ..core.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 from ..dist.context import constrain
 from . import nn
@@ -245,6 +246,16 @@ def block_specs(cfg: ModelConfig, kind: str) -> nn.Specs:
     return s
 
 
+def _reduced(y: torch.Tensor) -> torch.Tensor:
+    """A residual branch's output placed on the batch axes and whole
+    along the model axis before it joins the residual stream: a
+    row-parallel projection leaves partial sums, and a stream of partial
+    sums fed on into the next norm and projections made DTensor gather
+    weights and, on a (16, 16) mesh, fail to shard the FFN's down
+    projection."""
+    return constrain(y, "batch", *([None] * (y.ndim - 1)))
+
+
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, mode: str,
                 cache, cache_pos: int):
     """Returns (x, new_cache, aux_loss)."""
@@ -260,26 +271,26 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, mode: str,
         else:  # decode
             out, new_cache = attention_apply(p["attn"], cfg, h, positions,
                                              kind, cache, cache_pos)
-        x = x + out
+        x = x + _reduced(out)
         h2 = _norm(cfg, p["norm2"], x)
         if cfg.n_experts:
             y, aux = moe_apply(p["moe"], cfg, h2,
                                capacity_factor=cfg.moe_capacity_factor)
         else:
             y = ffn_apply(p["ffn"], h2, cfg.activation)
-        return x + y, new_cache, aux
+        return x + _reduced(y), new_cache, aux
     # a recurrent block: from no state in train and prefill (its state
     # after the prompt is the new cache), from the cache in decode
     state = cache if mode == "decode" else None
     if kind == "griffin":
         out, new_cache = griffin_block_apply(p["mixer"], cfg, h, state)
-        x = x + out
+        x = x + _reduced(out)
         h2 = _norm(cfg, p["norm2"], x)
-        x = x + ffn_apply(p["ffn"], h2, cfg.activation)
+        x = x + _reduced(ffn_apply(p["ffn"], h2, cfg.activation))
     elif kind in ("mlstm", "slstm"):
         fn = mlstm_block_apply if kind == "mlstm" else slstm_block_apply
         out, new_cache = fn(p["mixer"], cfg, h, state)
-        x = x + out
+        x = x + _reduced(out)
     else:
         raise ValueError(f"unknown block kind {kind}")
     return x, (None if mode == "train" else new_cache), aux
@@ -321,15 +332,18 @@ def _fill_cache(cfg: ModelConfig, cache, h, p, positions):
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device="cuda"):
+                     device="cuda", full=None):
+    """One block's cache, each leaf from ``full(shape, value, dtype)``
+    (`nn.full_on(device)` by default)."""
     if kind in ATTN_KINDS:
-        return init_kv_cache(cfg, batch, max_len, kind, cfg.tdtype, device)
+        return init_kv_cache(cfg, batch, max_len, kind, cfg.tdtype, device,
+                             full)
     if kind == "griffin":
-        return griffin_state_init(cfg, batch, cfg.tdtype, device)
+        return griffin_state_init(cfg, batch, cfg.tdtype, device, full)
     if kind == "mlstm":
-        return mlstm_state_init(cfg, batch, cfg.tdtype, device)
+        return mlstm_state_init(cfg, batch, cfg.tdtype, device, full)
     if kind == "slstm":
-        return slstm_state_init(cfg, batch, cfg.tdtype, device)
+        return slstm_state_init(cfg, batch, cfg.tdtype, device, full)
     raise ValueError(f"unknown block kind {kind}")
 
 
@@ -399,20 +413,26 @@ def lm_specs(cfg: ModelConfig) -> nn.Specs:
     return specs
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Serving cache: unit-stacked block caches, remainder, and ``pos``."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               full=None):
+    """Serving cache: unit-stacked block caches, remainder, and ``pos``.
+    Each block leaf comes from ``full(shape, value, dtype)``
+    (`nn.full_on(device)` by default; a unit-stacked leaf's ``shape``
+    leads with the units)."""
     pattern = cfg.block_pattern
+    full = full or nn.full_on(device)
 
-    def one_unit():
-        return {f"b{i}": init_block_cache(cfg, kind, batch, max_len, device)
-                for i, kind in enumerate(pattern)}
+    def stacked(shape, value, dtype):
+        return full((cfg.n_units, *shape), value, dtype)
 
-    cache = {"units": nn.stack_trees([one_unit()
-                                      for _ in range(cfg.n_units)]),
-             "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    cache = {"units": {f"b{i}": init_block_cache(cfg, kind, batch, max_len,
+                                                 device, stacked)
+                       for i, kind in enumerate(pattern)},
+             # a literal: a fake tensor of it keeps its value (the dry run)
+             "pos": torch.tensor(0, dtype=torch.int32, device=device)}
     if cfg.n_rem:
         cache["rem"] = {f"b{i}": init_block_cache(cfg, pattern[i], batch,
-                                                  max_len, device)
+                                                  max_len, device, full)
                         for i in range(cfg.n_rem)}
     return cache
 
@@ -480,7 +500,9 @@ def apply_lm(
     remat = (mode == "train" and cfg.remat and torch.is_grad_enabled())
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     new_units = None
-    for u, unit_p in enumerate(_unstack(params["units"], cfg.n_units)):
+    units = _unstack(params["units"], cfg.n_units)
+    for u in trips(cfg.n_units):
+        unit_p = units[u]
         x = constrain(x, "batch", None, None)
         if mode == "train":
             if remat:

@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..core.counting import trips
 from ..core.tree import tree_leaves, tree_map, tree_unflatten
 from ..models.transformer import ModelConfig, apply_lm
 from ..optim.compression import EFState, compress_grads, decompress_grads
@@ -72,7 +73,7 @@ def make_train_step(cfg: ModelConfig, optimizer, grad_accum: int = 1,
             acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                            params)
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(grad_accum):
+            for i in trips(grad_accum):
                 mb = {k: v[:, i] for k, v in micro.items()}
                 (l, _), g = _grads_of(params, cfg, mb)
                 acc = tree_map(lambda a, b: a + b.float(), acc, g)

@@ -169,10 +169,57 @@ def run_mesh_checks():
     out["refused"] = refused
     cfg = configs.reduced_config("deepseek-7b")
     mesh = make_lm_mesh(2, 2, device_type="cpu")
-    params = steps.init_placed_params(cfg, mesh, make_rules("fsdp_tp"), 5)
+    rules = make_rules("fsdp_tp")
+    params = steps.init_placed_params(cfg, mesh, rules, 5)
+    whole = steps.full_params(params)
     out["global_norm"] = float(full(global_norm(params)))
-    out["global_norm_whole"] = float(global_norm(steps.full_params(params)))
+    out["global_norm_whole"] = float(global_norm(whole))
+    out["remesh"] = run_remesh(cfg, rules, params, whole)
     return out
+
+
+def run_remesh(cfg, rules, params, whole):
+    """The (2, 2)-placed tree after rank 3 is lost: `elastic_mesh` over
+    the survivors 0, 1 and 2 at model_parallel 2, and the tree moved onto
+    it by `reshard_tree` with the specs' placements there."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.fault import elastic_mesh, reshard_tree
+    from repro_torch.dist.sharding import tree_shardings
+    from repro_torch.launch import steps
+
+    small = elastic_mesh([0, 1, 2], model_parallel=2)
+    pls = tree_shardings(small, rules, *steps.abstract_params(cfg))
+    moved = reshard_tree(params, small, pls)
+    out = {"shape": small.shape, "holds_shards": small.holds_shards}
+    if small.holds_shards:
+        got = steps.full_params(moved)
+        out["equal"] = all(torch.equal(a, b) for a, b in
+                           zip(tree_leaves(got), tree_leaves(whole)))
+        out["placed"] = all(
+            tuple(t.placements) == pl and t.device_mesh is small.device_mesh
+            for t, pl in zip(tree_leaves(moved), _pl_leaves(pls)))
+        out["leaves"] = len(tree_leaves(got))
+    else:
+        out["none"] = all(t is None for t in _none_leaves(moved))
+    return out
+
+
+def _pl_leaves(pls):
+    """The placement tuples of a placements tree, in leaf order (a tuple
+    of placements is one leaf)."""
+    from torch.distributed.tensor.placement_types import Placement
+
+    if isinstance(pls, tuple) and all(isinstance(p, Placement) for p in pls):
+        return [pls]
+    if isinstance(pls, dict):
+        return [l for k in sorted(pls) for l in _pl_leaves(pls[k])]
+    return [l for c in pls for l in _pl_leaves(c)]
+
+
+def _none_leaves(tree):
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in _none_leaves(tree[k])]
+    return [tree]
 
 
 def main():

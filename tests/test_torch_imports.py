@@ -56,8 +56,9 @@ def test_importing_the_port_loads_no_jax():
 
 def test_every_port_module_is_covered():
     """The static checks, the meshes, the sharding rules, the pipeline,
-    the sharded step builders, the LM side and its training are among
-    the files the two tests above read and import."""
+    the sharded step builders, the LM side and its training, the cost
+    analyses, the roofline, the dry run and the hill-climb are among the
+    files the two tests above read and import."""
     mods = {str(p.relative_to(ROOT / "src" / "repro_torch"))
             for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"analysis/__init__.py", "analysis/check/__init__.py",
@@ -70,5 +71,7 @@ def test_every_port_module_is_covered():
             "configs/shapes.py", "configs/deepseek_7b.py",
             "serve/sampling.py", "models/recurrent.py",
             "optim/compression.py", "train/lm.py", "launch/train.py",
-            "dist/pipeline.py", "launch/steps.py"} <= mods
+            "dist/pipeline.py", "launch/steps.py", "analysis/cost.py",
+            "analysis/roofline.py", "launch/dryrun.py",
+            "launch/hillclimb.py", "core/counting.py"} <= mods
 

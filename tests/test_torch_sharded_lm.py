@@ -72,6 +72,10 @@ CASES = {
     "xlstm_tp_1x4": ("xlstm-1.3b", {"n_layers": 2,
                                     "block_pattern": ("mlstm", "slstm")},
                      "tp", (1, 4), (2, 128)),
+    # 6 experts on a model axis of 4: the experts replicate and the expert
+    # FFN shards its hidden dim (partial sums through the down projection)
+    "qwen2_moe_6_experts_tp_1x4": ("qwen2-moe-a2.7b", {"n_experts": 6},
+                                   "tp", (1, 4), (4, 32)),
     # 6 q-heads on a model axis of 4: the replicated attention branch
     "minitron_6_heads_tp_1x4": ("minitron-4b",
                                 {"n_heads": 6, "n_kv_heads": 2}, "tp",
@@ -187,6 +191,25 @@ def reference(c):
     return out
 
 
+def references(cases):
+    """The reference's results for every case of `make_cases`' ``cases``
+    (one run a model), and the pipeline's sequential and meshless ones."""
+    by_model = {}
+    for name, c in cases["lm"].items():
+        if model_key(name) not in by_model:
+            by_model[model_key(name)] = reference(c)
+    ref = {name: by_model[model_key(name)] for name in cases["lm"]}
+    ws, x = cases["pipeline"]["ws"], cases["pipeline"]["x"]
+    seq = x
+    for i in range(ws.shape[0]):
+        seq = np.tanh(seq @ ws[i])
+    ref["pipeline_sequential"] = seq
+    xm = jpipeline.microbatch(jnp.asarray(x), 4)
+    ref["pipeline_meshless"] = np.asarray(jpipeline.pipeline_apply(
+        None, None, lambda w, v: jnp.tanh(v @ w), jnp.asarray(ws), xm))
+    return ref
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     d = tmp_path_factory.mktemp("sharded_lm")
@@ -203,20 +226,7 @@ def run(tmp_path_factory):
              str(WORLD), str(d / "store"), str(d)],
             env=env, stdout=log, stderr=subprocess.STDOUT))
     try:
-        # the reference runs while the ranks do
-        by_model = {}
-        for name, c in cases["lm"].items():
-            if model_key(name) not in by_model:
-                by_model[model_key(name)] = reference(c)
-        ref = {name: by_model[model_key(name)] for name in cases["lm"]}
-        ws, x = cases["pipeline"]["ws"], cases["pipeline"]["x"]
-        seq = x
-        for i in range(ws.shape[0]):
-            seq = np.tanh(seq @ ws[i])
-        ref["pipeline_sequential"] = seq
-        xm = jpipeline.microbatch(jnp.asarray(x), 4)
-        ref["pipeline_meshless"] = np.asarray(jpipeline.pipeline_apply(
-            None, None, lambda w, v: jnp.tanh(v @ w), jnp.asarray(ws), xm))
+        ref = references(cases)     # the reference runs while the ranks do
         deadline = time.time() + 300
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.time()))
@@ -383,6 +393,22 @@ def test_global_norm_sums_every_shard(run):
     for r in ranks:
         np.testing.assert_allclose(r["mesh"]["global_norm"],
                                    r["mesh"]["global_norm_whole"], rtol=1e-6)
+
+
+def test_elastic_remesh_of_a_model_sharded_tree(run):
+    """A tree placed ``fsdp_tp`` on (2, 2) loses rank 3: `elastic_mesh`
+    over the survivors gives (1, 2), the reference's shape rule (data =
+    3 // 2), with rank 2 idle; `reshard_tree` moves the tree onto it with
+    its specs' placements there, and its values are the original's."""
+    _, _, ranks = run
+    for r in ranks:
+        rm = r["mesh"]["remesh"]
+        assert rm["shape"] == {"data": 1, "model": 2}
+        assert rm["holds_shards"] == (r["rank"] < 2)
+        if r["rank"] < 2:
+            assert rm["equal"] and rm["placed"] and rm["leaves"] > 0
+        else:
+            assert rm["none"]
 
 
 def test_make_lm_mesh_needs_a_process_group():
