@@ -332,6 +332,16 @@ ALG1_GEOMS = [
     (4, 5, 2, 3, 5, 3, 1, 6),
 ]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
+# (net, layer, bucket, tiles) taking each instance (WM, WN) of the bf16
+# kernels' wgmma path: (1, 8), (1, 4), (2, 4), (2, 8)
+WGMMA_CASES = (
+    (CELEBA_DCNN, 0, 64, dict(t_oh=1, t_ow=1, t_n=64, t_co=64, t_ci=64)),
+    (CELEBA_DCNN, 0, 64, dict(t_oh=1, t_ow=1, t_n=64, t_co=32, t_ci=64)),
+    (CELEBA_DCNN, 1, 64, dict(t_oh=8, t_ow=8, t_n=4, t_co=32, t_ci=64)),
+    (CELEBA_DCNN, 3, 64, dict(t_oh=16, t_ow=16, t_n=1, t_co=64, t_ci=32)),
+    (CELEBA_DCNN, 2, 64, dict(t_oh=16, t_ow=16, t_n=1, t_co=64, t_ci=32)),
+    (MNIST_DCNN, 1, 64, dict(t_oh=8, t_ow=8, t_n=4, t_co=32, t_ci=64)),
+)
 NETS = (MNIST_DCNN, CELEBA_DCNN)
 # the workload zoo's image-rooted towers (super-resolution, denoising)
 ZOO = (SR_X2, DAE_DENOISE)
@@ -527,6 +537,14 @@ def check_cases(dtype):
     g = DeconvGeometry(6, 6, 3 * t_ci, 40, 4, 2, 1)
     out.append((f"ci-chunks t_ci={t_ci} t_co=16", g, 3,
                 fill_tiles(g, 3, dtype, t_ci=t_ci, t_co=16), None))
+    if dtype == torch.bfloat16:
+        # every instance of the bf16 kernels' wgmma path (WM, WN), at
+        # tiles of the generators' layers that take it
+        for cfg, i, batch, tiles in WGMMA_CASES:
+            g, l = cfg.geometries()[i], cfg.layers[i]
+            t = fill_tiles(g, batch, dtype, **tiles)
+            out.append((f"wgmma {cfg.name} l{i} bucket {batch} "
+                        f"{t.as_kwargs()}", g, batch, t, l.activation))
     for cfg in TOWERS:
         for i, (g, l) in enumerate(zip(cfg.geometries(), cfg.layers)):
             for batch in (1, 64):
@@ -560,8 +578,19 @@ def check_dense(label, x, w, b, s, p, tiles, activation, results):
     torch.cuda.synchronize()
     err = disagree(label, y, y_ref, TOL[x.dtype])
     print(f"  B1 {label} {str(x.dtype)[6:]} split {split} max_abs_err="
-          f"{err:.3e} tol={TOL[x.dtype]}", flush=True)
+          f"{err:.3e} tol={TOL[x.dtype]}{path_of(args)}", flush=True)
     results.setdefault(x.dtype, []).append(err)
+
+
+def path_of(args):
+    """`` path <wgmma|mma.sync> (WM, WN)`` of a bf16 launch (``launch_args``
+    output), "" for another dtype."""
+    xp, wp, bp, kw, _ = args
+    if xp.dtype != torch.bfloat16:
+        return ""
+    info = deconv_kernel.launch_info(deconv_kernel.launch_params(
+        xp, wp, [("b", bp, xp.dtype)], **kw))
+    return f" path {info['path']} ({info['wm']}, {info['wn']})"
 
 
 def check_int8(label, x, w, sc, b, s, p, tiles, activation, out_scale,
@@ -622,7 +651,7 @@ def check_sparse(label, x, w, b, s, p, tiles, activation, results):
                                                w.shape[0])
     print(f"  B3 {label} {str(x.dtype)[6:]} split {split} max_abs_err="
           f"{err:.3e} slabs skipped {skipped}/{slabs} tap bits off "
-          f"{off}/{taps}", flush=True)
+          f"{off}/{taps}{path_of(args)}", flush=True)
     results.setdefault(x.dtype, []).append(err)
     return skipped
 
@@ -1084,6 +1113,35 @@ def phase_bit_identity(int8_nets):
                   f"{split_of(dense_bf)}; B2 {t8.as_kwargs()} split "
                   f"{int8_kernel.launch_split_int8(qa[0], qa[1], qa[4])}: "
                   "repeated launches bit-identical", flush=True)
+    # the bf16 kernels' wgmma path, dense and zero-skip, at each instance
+    bf = torch.bfloat16
+    for cfg, i, batch, tiles in WGMMA_CASES:
+        g, l = cfg.geometries()[i], cfg.layers[i]
+        t = fill_tiles(g, batch, bf, **tiles)
+        x, w, b = layer_inputs(rng, batch, g.in_h, g.in_w, g.c_in, g.c_out,
+                               g.kernel, torch.float32)
+        wq = prune(w, SERVE_SPARSITY)
+        dense = launch_args(x.to(bf), w.to(bf), b.to(bf), g.stride,
+                            g.padding, *t.as_kwargs().values(), l.activation)
+        sparse = launch_args(x.to(bf), wq.to(bf), b.to(bf), g.stride,
+                             g.padding, *t.as_kwargs().values(), l.activation)
+        sched = schedule_tensors(make_sparse_plan(
+            wq.to(bf), g.stride, g.padding, t.t_ci, t.t_co), "cuda")
+        for name, fn in {
+                "B1 bf16": lambda: deconv_kernel.deconv2d_launch(
+                    *dense[:3], **dense[3]),
+                "B3 bf16": lambda: sparse_kernel.deconv2d_sparse_launch(
+                    *sparse[:3], *sched, **sparse[3])}.items():
+            y0 = fn()
+            y1 = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(y0, y1):
+                raise AssertionError(f"{name} {cfg.name} l{i} bucket {batch} "
+                                     f"{t.as_kwargs()}: two launches on the "
+                                     "same inputs differ")
+        print(f"  B1, B3 bf16 {cfg.name} l{i} bucket {batch} {t.as_kwargs()}"
+              f"{path_of(dense)} split {split_of(dense)}: repeated launches "
+              "bit-identical", flush=True)
 
 
 def split_of(args):
@@ -1094,14 +1152,19 @@ def split_of(args):
         kw["t_oh"], kw["t_ow"], kw["t_ci"], kw["t_co"], kw["t_n"])
 
 
-def kernel_instance(report, template, tiles, stride, flag):
+def kernel_instance(report, template, tiles, stride, flag, info=None):
     """(name, registers, spill bytes) from ``ptxas`` of the instance of
     ``template`` (its first argument ``flag``: kRequant or kSparse) that a
-    launch at ``tiles`` runs; registers and spills None where the report
-    lacks it."""
+    launch at ``tiles`` runs (the bf16 template's: the path and (WM, WN)
+    of ``info``, `deconv_kernel.launch_info`); registers and spills None
+    where the report lacks it."""
     pix = tiles.t_n * (tiles.t_oh // stride) * (tiles.t_ow // stride)
     wm, wn = tc_warp_tile(pix, tiles.t_co)
-    want = f"{template}<{'true' if flag else 'false'}, {wm}, {wn}>"
+    fl = "true" if flag else "false"
+    want = f"{template}<{fl}, {wm}, {wn}>"
+    if info is not None:
+        wg = "true" if info["path"] == "wgmma" else "false"
+        want = f"{template}<{fl}, {wg}, {info['wm']}, {info['wn']}>"
     for r in report.get("deconv2d_tc", []):
         if want in demangle(r["kernel"]):
             return want, r["registers"], r["spill_stores"] + r["spill_loads"]
@@ -1219,8 +1282,10 @@ def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks, report):
     split = split_of(dense)
     ops = 2 * g.output_macs * batch
     nbytes = 2 * (n_in + g.kernel ** 2 * g.c_in * g.c_out + g.c_out + n_out)
+    info = deconv_kernel.launch_info(deconv_kernel.launch_params(
+        xp, wp, [("b", bp, xp.dtype)], **kw))
     inst, regs, spill = kernel_instance(report, "deconv2d_tc_bf16_kernel", t,
-                                        g.stride, False)
+                                        g.stride, False, info)
     rows = [time_row(
         "deconv2d_kernel", cfg, i, batch, t,
         lambda: deconv_kernel.deconv2d_launch(xp, wp, bp, **kw),
@@ -1231,7 +1296,8 @@ def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks, report):
                                    padding=g.padding),
         ops, peaks["bf16"], nbytes, peaks["bw"], smi, dtype="bfloat16",
         kernel_file="csrc/deconv2d_tc.cu", split=split, instance=inst,
-        registers=regs, spill_bytes=spill)]
+        registers=regs, spill_bytes=spill, path=info["path"],
+        stages=info["stages"])]
     wq = prune(w, SERVE_SPARSITY).to(bf)
     tables = make_sparse_plan(wq, g.stride, g.padding, t.t_ci, t.t_co)
     sched = schedule_tensors(tables, "cuda")
@@ -1242,7 +1308,7 @@ def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks, report):
     skipped, slabs, _, _ = schedule_stats(tables, sp[1].shape[2] // t.t_ci,
                                           g.kernel)
     inst, regs, spill = kernel_instance(report, "deconv2d_tc_bf16_kernel", t,
-                                        g.stride, True)
+                                        g.stride, True, info)
     rows.append(time_row(
         "deconv2d_sparse_kernel", cfg, i, batch, t,
         lambda: sparse_kernel.deconv2d_sparse_launch(*sp[:3], *sched,
@@ -1254,8 +1320,9 @@ def bf16_rows(cfg, i, g, l, batch, x, w, b, smi, peaks, report):
         2 * macs * batch, peaks["bf16"],
         2 * (n_in + kept_w + g.c_out + n_out), peaks["bw"], smi,
         dtype="bfloat16", kernel_file="csrc/deconv2d_tc.cu", split=split,
-        instance=inst, registers=regs, spill_bytes=spill,
-        sparsity=SERVE_SPARSITY, slabs_skipped=f"{skipped}/{slabs}",
+        instance=inst, registers=regs, spill_bytes=spill, path=info["path"],
+        stages=info["stages"], sparsity=SERVE_SPARSITY,
+        slabs_skipped=f"{skipped}/{slabs}",
         kept_mac_share=macs / g.output_macs))
     return rows
 
@@ -1383,6 +1450,11 @@ def phase_refine(smi):
                        "timed_fills": fills(g, b, timed),
                        "candidates": e["timed"], "card": smi}
                 print(json.dumps({"refine": row}), flush=True)
+                if b == 1:
+                    print(f"  {cfg.name} l{i} bucket 1: model pick "
+                          f"{e['model']} {e['model_ms']:.4f} ms, timed pick "
+                          f"{timed} {e['ms']:.4f} ms, model / timed "
+                          f"{e['model_ms'] / e['ms']:.3f} [{smi}]", flush=True)
             z = rng.standard_normal((b, cfg.z_dim)).astype(np.float32)
             got = eng.generate(z)
             with torch.no_grad():

@@ -115,7 +115,9 @@ def launch_resources(layer) -> Dict[str, int]:
     return {"smem_bytes": kernel_smem_bytes(
                 g, t.t_oh, t.t_ow, t.t_ci, t.t_co, t_n=t_n, split=split,
                 dtype=layer.dtype),
-            "threads": launch_threads(g.stride, t.t_oh, t.t_ow, t.t_co, t_n),
+            "threads": launch_threads(g.stride, t.t_oh, t.t_ow, t.t_co, t_n,
+                                      dtype=layer.dtype, k_size=g.kernel,
+                                      t_ci=t.t_ci),
             "split": split}
 
 

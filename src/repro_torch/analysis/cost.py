@@ -28,7 +28,8 @@ on this device's tensors and counts:
   * ``peak_bytes``: the most bytes held at once by storages that ops of
     ``fn`` created (its inputs are not counted), from a live-storage
     tracker of this module's own: each new storage is added when an op
-    returns it and taken off by a finalizer when it is freed.
+    returns it and taken off by a finalizer when it is freed;
+    ``largest_bytes`` the largest such storage.
 
 Loop multipliers (the counterpart of ``hlo.py``'s trip counts).  The
 port's step loops are Python loops.  A loop whose iterations do the same
@@ -122,6 +123,7 @@ class Cost:
     kernels: Dict[str, int] = dataclasses.field(default_factory=dict)
     argument_bytes: float = 0.0
     output_bytes: float = 0.0
+    largest_bytes: float = 0.0
 
 
 def tree_bytes(tree) -> int:
@@ -212,6 +214,7 @@ class CostMode(TorchDispatchMode):
         self.kernels: Dict[str, int] = {}
         self.live = 0.0
         self.peak = 0.0
+        self.largest = 0.0
         self._tracked: Dict[int, Any] = {}
         self._shadow: Dict[int, Any] = {}
         self._stack: List[_Frame] = []
@@ -288,6 +291,7 @@ class CostMode(TorchDispatchMode):
             return
         n = st.nbytes()
         self._tracked[key] = weakref.ref(st)
+        self.largest = max(self.largest, n)
         self._add(n)
         weakref.finalize(st, self._sub, n)
 
@@ -406,7 +410,8 @@ class CostMode(TorchDispatchMode):
                     collectives=coll, n_ops=int(self.n_ops),
                     peak_bytes=self.peak, link_bytes=dict(self.links),
                     kernels=dict(self.kernels),
-                    argument_bytes=argument_bytes, output_bytes=output_bytes)
+                    argument_bytes=argument_bytes, output_bytes=output_bytes,
+                    largest_bytes=self.largest)
 
 
 def analyze(fn, *args, fake_mode=None, loops: str = "multiply",

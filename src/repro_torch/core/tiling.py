@@ -491,11 +491,56 @@ def int8_row_stride(t_ci: int) -> int:
     return t_ci + 16
 
 
+WG_TAPS = 64                   # the wgmma path's tap lists: K * K at most
+
+
+def bf16_wgmma_tile(stride: int, pix: int, t_co: int, k_size: int,
+                    t_ci: int) -> Optional[Tuple[int, int, int]]:
+    """``(consumers, WM, N)`` of the bf16 kernels' wgmma path at a phase
+    tile of ``pix`` pixels by ``t_co`` channels, or None where the tile
+    takes the mma.sync path (`csrc/deconv2d_tc.cu`'s setup decides the
+    same way).  The block's m64 tiles are each phase's whole 64-pixel
+    tiles by ``t_co`` in groups of N = min(t_co, 64) channels (t_co 32, 64
+    or 128: a TMA box's rows are whole 16-byte pieces in a 64- or
+    128-byte swizzle); one or two consumer warpgroups share them, WM = 1
+    or 2 tiles each (an m64 tile's sums and its fresh partial take N
+    floats a thread: at WM * N = 128 the A fragments have room for one
+    tap's ``t_ci`` <= 32 channels, and four tiles would spill); a block
+    lists its ``k_size``^2 taps in WG_TAPS entries of shared memory."""
+    if pix % 64 or t_co not in (32, 64, 128) or k_size ** 2 > WG_TAPS:
+        return None
+    n = min(t_co, 64)
+    tiles = stride * stride * (pix // 64) * (t_co // n)
+    consumers = 2 if tiles % 2 == 0 else 1
+    wm = tiles // consumers
+    if wm not in (1, 2) or (wm * n > 64 and t_ci > 32):
+        return None
+    return consumers, wm, n
+
+
+def _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, dtype, k_size, t_ci):
+    if dtype_name(dtype) != "bfloat16":
+        return None
+    if k_size is None or t_ci is None:
+        raise ValueError("the bf16 kernels' launch depends on the kernel "
+                         "size and the CI chunk: pass k_size and t_ci")
+    return bf16_wgmma_tile(stride, t_n * (t_oh // stride) * (t_ow // stride),
+                           t_co, k_size, t_ci)
+
+
 def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
-                  kernel: str = "tc") -> int:
+                  kernel: str = "tc", dtype="float32",
+                  k_size: Optional[int] = None,
+                  t_ci: Optional[int] = None) -> int:
     """Threads of one block that compute: one warp per (phase, WM*16
-    rows, WN*8 columns) of the tile, over all S*S output phases."""
+    rows, WN*8 columns) of the tile, over all S*S output phases; on the
+    bf16 wgmma path (`bf16_wgmma_tile`) the producer warpgroup and the
+    consumer warpgroups (bf16 takes the layer's ``k_size`` and the
+    tile's ``t_ci``)."""
     _check_kernel(kernel)
+    wg = _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, dtype, k_size, t_ci)
+    if wg is not None:
+        return 128 * (wg[0] + 1)
     pix = t_n * (t_oh // stride) * (t_ow // stride)
     wm, wn = tc_warp_tile(pix, t_co)
     return 32 * stride * stride * (-(-(-(-pix // 16)) // wm)
@@ -503,12 +548,14 @@ def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
 
 
 def launch_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
-                   kernel: str = "tc") -> int:
+                   kernel: str = "tc", dtype="float32",
+                   k_size: Optional[int] = None,
+                   t_ci: Optional[int] = None) -> int:
     """Threads a block is launched with: `block_threads`, but at least 128
     and a whole number of warps; the threads past the last phase only
     stage (a small tile's CI chunks are not staged by one warp)."""
-    return -(-max(block_threads(stride, t_oh, t_ow, t_co, t_n, kernel),
-                  128) // 32) * 32
+    return -(-max(block_threads(stride, t_oh, t_ow, t_co, t_n, kernel,
+                                dtype, k_size, t_ci), 128) // 32) * 32
 
 
 def staged_window(in_size: int, out_padded: int, t_out: int, kernel: int,
@@ -538,6 +585,8 @@ def staged_window(in_size: int, out_padded: int, t_out: int, kernel: int,
 
 
 TC_STAGE_BUDGET = 100 * 1024   # the ring holds as many stages (2..4) as fit
+WG_STAGE_BUDGET = 200 * 1024   # the bf16 wgmma path's ring (2..4 stages)
+WG_ALIGN = 1024                # its ring starts at a 128-byte-swizzle atom
 
 
 def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
@@ -556,10 +605,24 @@ def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
     rows_h, rows_w)`` rows of `int8_row_stride` bytes, then per valid tap
     `tc_columns` weight rows (CI-minor) of the same stride.  Under a
     cluster split the same memory then holds the block's partial tile,
-    S*S*pixels*t_co 4-byte sums."""
+    S*S*pixels*t_co 4-byte sums.  The bf16 wgmma path (`bf16_wgmma_tile`):
+    the bf16 windows padded to WG_ALIGN bytes, then per valid tap its
+    t_co / N TMA boxes of ``t_ci`` k-rows by N channels, unpadded (the
+    boxes are swizzled, not strided); its ring has a budget of its own,
+    and the block WG_ALIGN bytes more, to align the ring."""
     rows_h, taps_h = staged_window(in_h, ohp, t_oh, kernel, stride, padding)
     rows_w, taps_w = staged_window(in_w, owp, t_ow, kernel, stride, padding)
     name = dtype_name(dtype)
+    pix = t_n * (t_oh // stride) * (t_ow // stride)
+    partial = 4 * stride * stride * pix * t_co if split > 1 else 0
+    if _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, name, kernel,
+                   t_ci) is not None:
+        atom = WG_ALIGN // 2
+        x = -(-t_n * rows_h * rows_w * bf16_row_stride(t_ci) // atom) * atom
+        stage = 2 * (x + taps_h * taps_w * t_ci * t_co)
+        stages = max([n for n in (2, 3, 4) if n * stage <= WG_STAGE_BUDGET],
+                     default=2)
+        return stages, max(stages * stage, partial) + WG_ALIGN
     if name == "int8":
         row = int8_row_stride(t_ci)
         stage = row * (t_n * rows_h * rows_w
@@ -573,8 +636,6 @@ def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
                      + taps_h * taps_w * t_ci * tc_weight_stride(t_co))
     stages = max([n for n in (2, 3, 4) if n * stage <= TC_STAGE_BUDGET],
                  default=2)
-    pix = t_n * (t_oh // stride) * (t_ow // stride)
-    partial = 4 * stride * stride * pix * t_co if split > 1 else 0
     return stages, max(stages * stage, partial)
 
 

@@ -33,7 +33,7 @@
 //    (a separate multiply, add and true division) and the two agree bit for
 //    bit on every int8 output.
 //
-// What bounds the kernel on an H100: tensor-core throughput on the wide
+// What bounds the kernels on an H100: tensor-core throughput on the wide
 // CelebA layers (1024->512, 512->256, 256->128 channels: ~134M MACs per
 // image each, a 4x4 kernel reused over every output pixel), device-memory
 // bytes on the 1x1 roots (each weight read once and used by one pixel per
@@ -58,9 +58,9 @@
 //     to the accumulators, which start at the bias: the tensor cores round
 //     each mma's sum toward zero, and one chain of 1536 mma into one
 //     accumulator drifted by 3.6e-5 on CelebA's widest layer.
-//     wgmma is later work: TF32 wgmma reads K-major core matrices from
+//     fp32 stays on mma.sync: TF32 wgmma reads K-major core matrices from
 //     shared memory, and the per-tap gather of A breaks that layout except
-//     for phase tiles exactly 8 pixels wide.
+//     for phase tiles exactly 8 pixels wide (bf16 takes wgmma, step 8).
 //  2. Asynchronous staging.  A ring of 2..4 stages of (input window, weight
 //     rows), filled by the copy engine: one cp.async.bulk per staged row (a
 //     pixel's t_ci channels, a tap's and channel's t_co weights), counted
@@ -132,15 +132,47 @@
 //     four in flight per thread, into the zero-padded columns.  The
 //     epilogue adds the bias in f32, applies the activation in f32, rounds
 //     once to bf16 and stores neighbouring channels as one bf16x2 word.
+//  8. bf16 on wgmma (the kWg path of the same template, `Geometry::wg`):
+//     where every phase tile is whole 64-pixel m64 tiles and t_co is 32,
+//     64 or 128.  On mma.sync each warp issued its own fragment loads and
+//     products in series and the same threads issued the copies; at
+//     CelebA's wide layers the block was issue-bound (more stages did not
+//     help).  Here a producer warpgroup only copies and one or two consumer
+//     warpgroups only multiply, with setmaxnreg moving registers from the
+//     first to the others.  A consumer warpgroup owns one or two m64 tiles
+//     (a phase's 64 pixels by N = min(t_co, 64) channels) and issues, per
+//     valid tap, one group of wgmma.mma_async m64nNk16 (f32 sums, bf16
+//     in): A from registers, each warp's 16 rows gathered by the same
+//     per-tap ldmatrix x4 as step 7 (mma.sync's A fragment is wgmma's
+//     register-A layout), B from shared memory through a matrix
+//     descriptor, MN-major (the transpose bit), so the weights stay in the
+//     reference layout.  The next tap's fragments load while one group is
+//     in flight (two buffers; one where the sums take 128 floats a
+//     thread).  The first wgmma of a chunk does not accumulate: the fresh
+//     partial of step 1, added to the bias-initialised sums after the
+//     chunk.  The producer stages the window's real rows by cp.async.bulk
+//     at the t_ci + 8 stride ldmatrix needs (rows outside the real input
+//     are zeroed once for every stage) and each live weight slot's boxes
+//     (t_ci k-rows by N channels of the (K*K*CIp, COp) weights, 64- or
+//     128-byte swizzle, the descriptor's) by TMA tensor copies, counted on
+//     the stage's full barrier; consumers release a stage on its empty
+//     barrier.  The tensor map is encoded on the host (through the
+//     runtime's driver entry point) once per weight and passed as a
+//     __grid_constant__ parameter.  The cluster split and its rank-ordered
+//     sum are step 3's.  Phase tiles under 64 pixels (bucket 1 on the
+//     first layers) and thin layers keep the mma.sync path.
 //
 // Plain C interface (loaded with ctypes): each `*_forward` launches on the
 // given stream, does not synchronise and allocates nothing.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <cstring>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -157,6 +189,16 @@ constexpr int kMaxSplit = 8;       // blocks of one cluster (the portable limit)
 constexpr int kMaxStages = 4;
 constexpr int kStageBudget = 100 * 1024;  // bytes the ring may take (2 stages at least)
 constexpr int kMaxBitWords = kMaxK * kMaxK / 32;
+// the bf16 wgmma path: a producer warpgroup and at most two consumer
+// warpgroups; registers per thread at the launch bound, and the split
+// setmaxnreg makes of them (128 x 56 + 256 x 224 = 384 x 168)
+constexpr int kWgThreads = 384;
+constexpr int kWgRegs = (65536 / kWgThreads) & ~7;
+constexpr int kWgProducerRegs = 56;
+constexpr int kWgConsumerRegs = 224;
+constexpr int kWgStageBudget = 200 * 1024;  // the wgmma path's ring (2 stages at least)
+constexpr int kWgAlign = 1024;             // a 128-byte-swizzle atom: 8 rows of 128 bytes
+constexpr int kWgTaps = 64;                // valid taps over a block's phases (its tap lists)
 
 // Layout of the int32 parameter array the host passes (kept in step with
 // repro_torch/kernels/deconv2d/kernel.py::_TC_PARAM_FIELDS).
@@ -171,7 +213,9 @@ enum Param {
 enum Dtype { D_F32 = 0, D_BF16 = 1, D_INT8 = 2 };
 
 // Argument errors are reported as negative codes, CUDA errors as positive.
-enum ArgError { E_ARGS = -1, E_THREADS = -2, E_SMEM = -3, E_REGTILE = -4, E_ALIGN = -5 };
+enum ArgError {
+  E_ARGS = -1, E_THREADS = -2, E_SMEM = -3, E_REGTILE = -4, E_ALIGN = -5, E_REGS = -6, E_TMAP = -7
+};
 
 struct Geometry {
   int n, ihp, iwp, cip, k, cop, ohp, owp, s;
@@ -193,6 +237,10 @@ struct Geometry {
   // the int8 kernel's layout (else fp32); last, so that the fp32 kernels'
   // fields keep their offsets and compiled code
   bool int8;
+  // the bf16 wgmma path (design step 8): consumer warpgroups, m64 tiles a
+  // warpgroup, the wgmma's N and the tile's 64-or-fewer-channel groups
+  bool wg;
+  int wg_consumers, wg_wm, wg_n, wg_ngroups, wg_mgroups;
 };
 
 struct TapTable {
@@ -348,6 +396,123 @@ __device__ __forceinline__ void mbar_wait(void* bar, unsigned parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 wgmma path's primitives (design step 8)
+
+// Wait for `bar`'s phase `parity`, trapping after 2^32 clocks (about two
+// seconds): a count or parity gone wrong fails the launch, it does not
+// hang the card.
+__device__ __forceinline__ void mbar_wait_bounded(void* bar, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(void* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One 2-D TMA tensor copy: the box of `map` at (col, row), into shared
+// memory at `dst` in the map's swizzle, counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int col, int row,
+                                            void* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The shared-memory matrix descriptor of a B operand (16 k-rows of one
+// staged box): MN-major, the output channels contiguous, `rowbytes` (64 or
+// 128) bytes a k-row in that many bytes' swizzle, so that 8 k-rows make
+// one swizzle atom and the stride byte offset between the two 8-row
+// groups is 8 * rowbytes.  The leading byte offset (between 64-channel
+// atoms along N) is unused: a box is one atom wide.
+__device__ __forceinline__ uint64_t wg_desc(unsigned addr, int rowbytes) {
+  const uint64_t layout = rowbytes == 128 ? 1 : 2;  // 128-byte or 64-byte swizzle
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * rowbytes) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Ties the registers of `d` to this point of the program: reads of a wgmma
+// accumulator after its wait_group are not moved above it.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = a * B + (scale_d ? d : 0) over one k16 step, bf16 operands, f32 sums:
+// a is the warp's 16 rows of the warpgroup's 64 in registers (the layout of
+// mma.sync m16n8k16's A, which ldmatrix x4 gives), B (16 x N) from shared
+// memory through `desc`, MN-major (the transpose bit).  d holds, per n8
+// column tile j, rows lane/4 and lane/4 + 8 of the warp's 16 at columns
+// 8j + 2*(lane%4) (+1), as d[4j..4j+3].
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
 // n / d and n % d for a divisor fixed per block, with a multiply-high
@@ -1110,14 +1275,416 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_int8_kernel(
   cluster.sync();
 }
 
-// The bf16 dense and zero-skip kernels (design step 7): the fp32 kernel's
-// block, warp grid, tap table, ring, zero-skip walk and cluster split, on
-// bf16 rows, ldmatrix fragments and bf16 mma.
+// One tap's wgmma group of a consumer warpgroup: its t_ci / 16 k-steps'
+// A fragments by ldmatrix into `fr` (one k16 step's x4 each; KS of them,
+// which bounds t_ci at 16 * KS), then one wgmma a step on the tap's box at
+// `wt`, committed as one group.  The caller alternates two fragment
+// buffers, so the next tap's loads run while this group is in flight
+// (wait_group 1 retires the one before).  A dead zero-skip tap issues
+// nothing, and waits for the groups in flight, so that the buffer it
+// would have filled is free.
+template <int N, int KS>
+__device__ __forceinline__ void wg_tap(float (&part)[N / 2], uint32_t (&fr)[KS][4], bool& fresh,
+                                       unsigned xt, unsigned wt, int ksteps, bool live) {
+  if (!live) {
+    wg_wait<0>();
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    if (k < ksteps) ldsm_x4(fr[k], xt + 32u * (unsigned)k);
+  }
+  wg_fence();
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    if (k < ksteps) {
+      wgmma_bf16<N>(part, fr[k], wg_desc(wt + (unsigned)(32 * N * k), 2 * N), fresh ? 0 : 1);
+      fresh = false;
+    }
+  }
+  wg_commit();
+  wg_wait<1>();
+}
+
+// The bf16 kernels' wgmma path (design step 8): warpgroup 0 produces, the
+// consumer warpgroups multiply.  Per CI chunk the producer waits for the
+// stage to be released, then issues the window's real input rows as bulk
+// copies (the rows outside the real input were zeroed once for every
+// stage) and each live weight slot's boxes as TMA tensor copies, all
+// counted on the stage's full barrier.  A consumer warpgroup owns WM m64
+// tiles of the block, each one phase's 64 pixels by N output channels;
+// per tap and k16 step its four warps gather their 16 rows by ldmatrix at
+// the tap's window offset and issue one wgmma on the staged box, one group
+// left in flight while the next fragments load.  The chunk's products go
+// to a fresh partial (the first wgmma of the chunk does not accumulate)
+// that is then added to the bias-initialised sums, as in design step 1.
 template <bool kSparse, int WM, int WN>
-__global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_bf16_kernel(
+__device__ __forceinline__ void bf16_wgmma_block(const uint16_t* __restrict__ x,
+                                                 const uint16_t* __restrict__ b,
+                                                 uint16_t* __restrict__ y, const Geometry& g,
+                                                 const TapTable& taps, const Schedule& sched,
+                                                 const CUtensorMap* tmap) {
+  constexpr int N = WN * 8;
+  // k16 steps a fragment buffer holds: a warpgroup whose sums take 128
+  // floats a thread has room for one buffer of two (t_ci <= 32)
+  constexpr int KS = WM * N > 64 ? 2 : 4;
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  __shared__ int s_taps[kTapWords];
+  __shared__ unsigned char s_tap_ok[2][kMaxStride * kMaxTaps];
+  __shared__ unsigned s_kok[2];
+  __shared__ int s_span[4];
+  __shared__ int s_real[4];
+  __shared__ short s_wtap[kMaxK * kMaxK];
+  // zero-skip: per stage, the entry's CI tile (-1: none) and its tap bits
+  __shared__ int s_ent[kMaxStages][1 + kMaxBitWords];
+  // per stage: full when its copies have landed, empty when every
+  // consumer warp is done with it
+  __shared__ __align__(8) unsigned long long s_full[kMaxStages];
+  __shared__ __align__(8) unsigned long long s_empty[kMaxStages];
+  // per phase p, its valid taps s_pl_n[p] .. s_pl_n[p + 1] - 1: the tap's
+  // input-window offset in elements and (weight slot | flat tap << 8)
+  __shared__ int s_pl_n[kMaxStride * kMaxStride + 1];
+  __shared__ int s_pl_x[kWgTaps];
+  __shared__ int s_pl_st[kWgTaps];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kTapWords; i += blockDim.x) s_taps[i] = taps.words[i];
+
+  const int s = g.s;
+  const int th = g.t_oh / s, tw = g.t_ow / s;
+  const int pix = g.pix;
+  const int split = g.split;
+  const int rank = blockIdx.x % split;
+  int tile = blockIdx.x / split;
+  const int co_t = tile % g.tiles_co;
+  tile /= g.tiles_co;
+  const int ow_t = tile % g.tiles_w;
+  const int oh_t = tile / g.tiles_w;
+  const int n0 = blockIdx.y * g.t_n;
+  const int co0 = co_t * g.t_co;
+  const int h0 = oh_t * th + g.base_h;
+  const int w0 = ow_t * tw + g.base_w;
+  // the ring starts at a swizzle atom (the host adds kWgAlign bytes); a
+  // stage is the input window, then each weight slot's boxes
+  const unsigned raw = smem_addr(smem_wg);
+  const unsigned base = (raw + kWgAlign - 1) & ~(unsigned)(kWgAlign - 1);
+  unsigned char* ring = smem_wg + (base - raw);
+  const int stage_bytes = 2 * g.stage_elems;
+  const int x_region = 2 * g.x_elems;
+  const int box_bytes = g.t_ci * N * 2;
+
+  if (tid == 0) {
+    for (int st = 0; st < g.stages; ++st) {
+      mbar_init(&s_full[st], 1);
+      mbar_init(&s_empty[st], 4 * g.wg_consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    block_taps(g, s_taps, h0, w0, s_tap_ok, s_kok, s_span, s_real, s_wtap);
+    const unsigned kh_ok = s_kok[0], kw_ok = s_kok[1];
+    const int nw = __popc(kw_ok);
+    int n = 0;
+    for (int p = 0; p < s * s; ++p) {
+      const int ph = p / s, pw = p % s;
+      s_pl_n[p] = n;
+      for (int a = 0; a < s_taps[ph]; ++a) {
+        if (!s_tap_ok[0][ph * kMaxTaps + a]) continue;
+        const int kh = s_taps[kMaxStride + ph * kMaxTaps + a];
+        const int dh = s_taps[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
+        const int sh = __popc(kh_ok & ((1u << kh) - 1u));
+        for (int bb = 0; bb < s_taps[pw]; ++bb) {
+          if (!s_tap_ok[1][pw * kMaxTaps + bb]) continue;
+          const int kw = s_taps[kMaxStride + pw * kMaxTaps + bb];
+          const int dw = s_taps[kMaxStride + kMaxStride * kMaxTaps + pw * kMaxTaps + bb];
+          s_pl_x[n] = ((dh - s_span[0]) * g.win_w + (dw - s_span[2])) * g.cs;
+          s_pl_st[n] = (sh * nw + __popc(kw_ok & ((1u << kw) - 1u))) | ((kh * g.k + kw) << 8);
+          ++n;
+        }
+      }
+    }
+    s_pl_n[s * s] = n;
+  }
+  __syncthreads();
+
+  const int lo_h = s_span[0], eh = s_span[1] - s_span[0];
+  const int lo_w = s_span[2], ew = s_span[3] - s_span[2];
+  const int cs = g.cs;
+  // window rows outside the real input are zero in every stage: the copies
+  // never write them
+  const int nwin = g.t_n * eh * ew;
+  for (int e = tid; e < g.stages * nwin; e += blockDim.x) {
+    const int st = e / nwin;
+    int r = e - st * nwin;
+    const int lc = r % ew;
+    r /= ew;
+    const int lr = r % eh, nn = r / eh;
+    if (lr >= s_real[0] && lr < s_real[1] && lc >= s_real[2] && lc < s_real[3]) continue;
+    uint16_t* dst = reinterpret_cast<uint16_t*>(ring + st * stage_bytes) +
+                    ((nn * g.win_h + lr) * g.win_w + lc) * cs;
+    for (int j = 0; j < g.t_ci; j += 8) *reinterpret_cast<int4*>(dst + j) = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  const unsigned kok_h = s_kok[0], kok_w = s_kok[1];
+  const int nw_ok = __popc(kok_w);
+  const int n_slots = __popc(kok_h) * nw_ok;
+  // this rank's range of chunks (dense) or of the CO tile's entries
+  const int n_ci = g.cip / g.t_ci;
+  const int total = kSparse ? sched.count[co_t] : n_ci;
+  const int it0 = rank * total / split;
+  const int n_it = (rank + 1) * total / split - it0;
+  const int ns = g.stages;
+
+  if (tid < 128) {
+    // ---- the producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProducerRegs) : "memory");
+    const int real_h = s_real[1] - s_real[0], real_w = s_real[3] - s_real[2];
+    const int nx = g.t_n * real_h * real_w;
+    const int x_bytes = nx * g.t_ci * 2;
+    const int nboxes = n_slots * g.wg_ngroups;
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % ns;
+      mbar_wait_bounded(&s_empty[st], ((it / ns) & 1) ^ 1);  // round 0 passes at once
+      int ci_t = it0 + it;
+      const unsigned* bits = nullptr;
+      if constexpr (kSparse) {
+        const int e = co_t * sched.len + it0 + it;
+        ci_t = sched.ci[e];
+        bits = sched.bits + (size_t)e * sched.nbw;
+        if (ci_t < 0 || ci_t >= n_ci) ci_t = -1;
+      }
+      auto live = [&](int t) {
+        if constexpr (kSparse) return ((__ldg(bits + (t >> 5)) >> (t & 31)) & 1u) != 0;
+        return true;
+      };
+      if (tid == 0) {
+        int bytes = 0;
+        if (ci_t >= 0) {
+          int n_live = n_slots;
+          if constexpr (kSparse) {
+            n_live = 0;
+            for (int sl = 0; sl < n_slots; ++sl) n_live += live(s_wtap[sl]);
+            s_ent[st][0] = ci_t;
+            for (int j = 0; j < sched.nbw; ++j) s_ent[st][1 + j] = (int)bits[j];
+          }
+          bytes = x_bytes + n_live * g.wg_ngroups * box_bytes;
+        } else if constexpr (kSparse) {
+          s_ent[st][0] = -1;
+        }
+        mbar_arrive_expect(&s_full[st], bytes);
+      }
+      if (ci_t < 0) continue;
+      const int c0 = ci_t * g.t_ci;
+      unsigned char* xs = ring + st * stage_bytes;
+      for (int r = tid; r < nx; r += 128) {
+        const int lc = s_real[2] + r % real_w;
+        const int rest = r / real_w;
+        const int lr = s_real[0] + rest % real_h;
+        const int nn = rest / real_h;
+        uint16_t* dst =
+            reinterpret_cast<uint16_t*>(xs) + ((nn * g.win_h + lr) * g.win_w + lc) * cs;
+        const int gh = h0 + lo_h + lr, gw = w0 + lo_w + lc;
+        bulk_copy(dst, x + ((((size_t)(n0 + nn) * g.ihp + gh) * g.iwp + gw) * g.cip) + c0,
+                  g.t_ci * 2, &s_full[st]);
+      }
+      // weight boxes of the block's valid (zero-skip: and live) taps; a
+      // dead tap's box is not issued
+      for (int k = tid; k < nboxes; k += 128) {
+        const int slot = k / g.wg_ngroups, ngr = k - slot * g.wg_ngroups;
+        const int t = s_wtap[slot];
+        if (!live(t)) continue;
+        tma_load_2d(xs + x_region + k * box_bytes, tmap, co0 + ngr * N, t * g.cip + c0,
+                    &s_full[st]);
+      }
+    }
+    if (split > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups ----
+  // (the memory clobbers keep the sums' bias loads after the increase)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs) : "memory");
+  const int ctid = tid - 128;
+  const int cw = ctid >> 7;
+  const int lane = tid & 31, wwg = (ctid >> 5) & 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  // the A rows this lane addresses for ldmatrix (as the mma.sync path's),
+  // per m64 tile: row 16 * wwg + (lane % 8) + 8 * (lane / 8 % 2) of the
+  // tile, channels 8 * (lane / 16) on
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  int t_ph[WM], t_mg[WM], t_ng[WM], aoff[WM];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+    const int ti = cw * WM + i;
+    t_ng[i] = ti % g.wg_ngroups;
+    const int r = ti / g.wg_ngroups;
+    t_mg[i] = r % g.wg_mgroups;
+    t_ph[i] = r / g.wg_mgroups;
+    const int row = t_mg[i] * 64 + wwg * 16 + lrow;
+    const int nn = row / (th * tw);
+    const int rr = (row / tw) % th;
+    const int cc = row % tw;
+    aoff[i] = ((nn * g.win_h + rr) * g.win_w + cc) * cs + 8 * (lane >> 4);
+  }
+  const int ksteps = g.t_ci / 16;
+  float acc[WM][N / 2], part[WM][N / 2];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      const int col = t_ng[i] * N + 8 * j + 2 * tig;
+      const float b0 = split == 1 ? bf16_float(b[co0 + col]) : 0.0f;
+      const float b1 = split == 1 ? bf16_float(b[co0 + col + 1]) : 0.0f;
+      acc[i][4 * j] = b0;
+      acc[i][4 * j + 1] = b1;
+      acc[i][4 * j + 2] = b0;
+      acc[i][4 * j + 3] = b1;
+    }
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ns;
+    mbar_wait_bounded(&s_full[st], (it / ns) & 1);
+    bool skip = false;
+    if constexpr (kSparse) skip = s_ent[st][0] < 0;
+    if (!skip) {
+      const unsigned xs = base + (unsigned)(st * stage_bytes);
+      const unsigned ws = xs + (unsigned)x_region;
+#pragma unroll
+      for (int i = 0; i < WM; ++i) {
+        const int e0 = s_pl_n[t_ph[i]], e1 = s_pl_n[t_ph[i] + 1];
+        const unsigned xa = xs + 2u * (unsigned)aoff[i];
+        const unsigned wb = ws + (unsigned)(t_ng[i] * box_bytes);
+        bool fresh = true;  // the next wgmma starts the chunk's partial
+        uint32_t fa[KS][4];
+        auto live = [&](int e) {
+          if constexpr (kSparse) {
+            const int t = s_pl_st[e] >> 8;
+            return (((unsigned)s_ent[st][1 + (t >> 5)] >> (t & 31)) & 1u) != 0;
+          }
+          return true;
+        };
+        auto box = [&](int e) {
+          return wb + (unsigned)((s_pl_st[e] & 255) * g.wg_ngroups * box_bytes);
+        };
+        if constexpr (WM * N <= 64) {
+          uint32_t fb[KS][4];
+          for (int e = e0; e < e1; e += 2) {
+            wg_tap<N, KS>(part[i], fa, fresh, xa + 2u * (unsigned)s_pl_x[e], box(e), ksteps,
+                          live(e));
+            if (e + 1 < e1)
+              wg_tap<N, KS>(part[i], fb, fresh, xa + 2u * (unsigned)s_pl_x[e + 1], box(e + 1),
+                            ksteps, live(e + 1));
+          }
+        } else {
+          // sums of 128 floats a thread leave room for one fragment buffer:
+          // each tap's group is retired before the next tap's loads
+          for (int e = e0; e < e1; ++e) {
+            wg_tap<N, KS>(part[i], fa, fresh, xa + 2u * (unsigned)s_pl_x[e], box(e), ksteps,
+                          live(e));
+            wg_wait<0>();
+          }
+        }
+        wg_wait<0>();
+        fence_regs(part[i]);
+        if (!fresh) {
+#pragma unroll
+          for (int c = 0; c < N / 2; ++c) acc[i][c] += part[i][c];
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s_empty[st]);
+  }
+
+  // output pixel of row r of a phase -> y row pointer
+  auto out_row = [&](int r, int ph_, int pw_) {
+    const int nn = r / (th * tw);
+    const int rr = (r / tw) % th;
+    const int cc = r % tw;
+    const int oh = oh_t * g.t_oh + rr * s + ph_;
+    const int ow = ow_t * g.t_ow + cc * s + pw_;
+    return y + (((size_t)(n0 + nn) * g.ohp + oh) * g.owp + ow) * g.cop + co0;
+  };
+
+  if (split == 1) {
+    // neighbouring channels leave as one bf16x2 word (t_co and COp even)
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = t_mg[i] * 64 + wwg * 16 + gid + 8 * hf;
+        uint16_t* row = out_row(r, t_ph[i] / s, t_ph[i] % s);
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = t_ng[i] * N + 8 * j + 2 * tig;
+          *reinterpret_cast<uint32_t*>(row + col) =
+              pack_bf16x2(activate(acc[i][4 * j + 2 * hf], g.act),
+                          activate(acc[i][4 * j + 2 * hf + 1], g.act));
+        }
+      }
+    }
+    return;
+  }
+
+  // Cluster split: every consumer is done with the ring (the producer's
+  // copies have all landed), then the f32 partial tile, [phase][row]
+  // [channel], in this block's ring, then the rank-ordered sum of slice
+  // `rank` through distributed shared memory, as the mma.sync path's.
+  asm volatile("bar.sync 1, %0;\n" ::"r"(128 * g.wg_consumers) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  float* partt = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = t_mg[i] * 64 + wwg * 16 + gid + 8 * hf;
+      float* prow = partt + (t_ph[i] * pix + r) * g.t_co;
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const int col = t_ng[i] * N + 8 * j + 2 * tig;
+        prow[col] = acc[i][4 * j + 2 * hf];
+        prow[col + 1] = acc[i][4 * j + 2 * hf + 1];
+      }
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_el = s * s * pix * g.t_co;
+  const int e_end = (rank + 1) * n_el / split;
+  for (int e = rank * n_el / split + ctid; e < e_end; e += 128 * g.wg_consumers) {
+    float v = 0.0f;
+    for (int qr = 0; qr < split; ++qr) v += cluster.map_shared_rank(partt, qr)[e];
+    const int col = e % g.t_co;
+    const int rest = e / g.t_co;
+    const int r = rest % pix;
+    const int phs = rest / pix;
+    out_row(r, phs / s, phs % s)[col] =
+        (uint16_t)(pack_bf16x2(activate(v + bf16_float(b[co0 + col]), g.act), 0.0f) & 0xffffu);
+  }
+  cluster.sync();
+}
+
+// The bf16 dense and zero-skip kernels: two paths of one template.  kWg
+// (design step 8): a producer warpgroup and wgmma consumer warpgroups,
+// where every phase tile is whole m64 tiles and t_co 32, 64 or 128
+// (`Geometry::wg`, tiling.py's `bf16_wgmma_tile`).  Else (design step 7):
+// the fp32 kernel's block, warp grid, tap table, ring, zero-skip walk and
+// cluster split, on bf16 rows, ldmatrix fragments and bf16 mma.sync.
+template <bool kSparse, bool kWg, int WM, int WN>
+__global__ void __launch_bounds__(kWg ? kWgThreads : kMaxThreads, 1) deconv2d_tc_bf16_kernel(
     const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
     const uint16_t* __restrict__ b, uint16_t* __restrict__ y, Geometry g, TapTable taps,
-    Schedule sched) {
+    Schedule sched, const __grid_constant__ CUtensorMap tmap) {
+  if constexpr (kWg) {
+    bf16_wgmma_block<kSparse, WM, WN>(x, b, y, g, taps, sched, &tmap);
+  } else {
   extern __shared__ __align__(16) uint16_t smem_bf[];
   __shared__ int s_taps[kTapWords];
   __shared__ unsigned char s_tap_ok[2][kMaxStride * kMaxTaps];
@@ -1473,6 +2040,7 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_bf16_kernel(
         (uint16_t)(pack_bf16x2(activate(v + bf16_float(b[co0 + col]), g.act), 0.0f) & 0xffffu);
   }
   cluster.sync();
+  }
 }
 
 struct Launch {
@@ -1546,20 +2114,45 @@ struct LaunchBf16 {
   Schedule sched;
 };
 
-template <bool kSparse, int WM, int WN>
+template <bool kSparse, bool kWg, int WM, int WN>
 int launch_bf16(const LaunchBf16& a, const Geometry& g, const TapTable& taps, int threads,
-                size_t smem, cudaStream_t stream) {
+                size_t smem, cudaStream_t stream, const CUtensorMap& tmap) {
   static std::atomic<unsigned> allowed{0};
-  return launch_clusters(deconv2d_tc_bf16_kernel<kSparse, WM, WN>, allowed, g, threads, smem,
-                         stream, a.x, a.w, a.b, a.y, g, taps, a.sched);
+  auto kern = deconv2d_tc_bf16_kernel<kSparse, kWg, WM, WN>;
+  if constexpr (kWg) {
+    // setmaxnreg moves registers between the warpgroups of a block that
+    // holds kWgRegs a thread: an instance compiled at fewer would wait
+    // forever for them, so it is refused
+    static std::atomic<int> regs{-1};
+    if (regs.load() < 0) {
+      cudaFuncAttributes fa;
+      const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+      if (e != cudaSuccess) return (int)e;
+      regs.store(fa.numRegs);
+    }
+    if (regs.load() != kWgRegs) return E_REGS;
+  }
+  return launch_clusters(kern, allowed, g, threads, smem, stream, a.x, a.w, a.b, a.y, g, taps,
+                         a.sched, tmap);
 }
 
 template <bool kSparse>
 int dispatch_bf16(const LaunchBf16& a, const Geometry& g, const TapTable& taps, int threads,
-                  size_t smem, cudaStream_t stream) {
+                  size_t smem, cudaStream_t stream, const CUtensorMap& tmap) {
+  if (g.wg) {
+#define DECONV_TC_WG_CASE(WM_, WN_)              \
+  if (g.wg_wm == WM_ && g.wg_n == 8 * (WN_))     \
+    return launch_bf16<kSparse, true, WM_, WN_>(a, g, taps, threads, smem, stream, tmap);
+    DECONV_TC_WG_CASE(1, 4)
+    DECONV_TC_WG_CASE(1, 8)
+    DECONV_TC_WG_CASE(2, 4)
+    DECONV_TC_WG_CASE(2, 8)
+#undef DECONV_TC_WG_CASE
+    return E_REGTILE;
+  }
 #define DECONV_TC_BF16_CASE(WM_, WN_) \
   if (g.wm == WM_ && g.wn == WN_)     \
-    return launch_bf16<kSparse, WM_, WN_>(a, g, taps, threads, smem, stream);
+    return launch_bf16<kSparse, false, WM_, WN_>(a, g, taps, threads, smem, stream, tmap);
   DECONV_TC_BF16_CASE(2, 4)
   DECONV_TC_BF16_CASE(2, 2)
   DECONV_TC_BF16_CASE(2, 1)
@@ -1568,6 +2161,83 @@ int dispatch_bf16(const LaunchBf16& a, const Geometry& g, const TapTable& taps, 
   DECONV_TC_BF16_CASE(1, 1)
 #undef DECONV_TC_BF16_CASE
   return E_REGTILE;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point so that the library needs no link against the driver library.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+int encode_tiled(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  static int err = 0;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) err = (int)e;
+    else if (q != cudaDriverEntryPointSuccess || p == nullptr) err = E_TMAP;
+    else fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  *out = fn;
+  return err;
+}
+
+// The wgmma path's weight map: the weights (K, K, CIp, COp) as K*K*CIp rows
+// of COp bf16 channels, a box t_ci rows by N channels in N*2 bytes'
+// swizzle (the B descriptor's).  Encoded on the host once per weight
+// (pointer and shape: the map is a function of them alone) and kept, so
+// that a static weight's launches, and a graph that captured one, pass
+// the same map by value.
+int weight_map(const uint16_t* w, const Geometry& g, CUtensorMap* out) {
+  struct Key {
+    const void* w;
+    int rows, cols, box_rows, box_cols;
+  };
+  constexpr int kKept = 64;
+  static std::mutex mu;
+  static Key keys[kKept];
+  static CUtensorMap maps[kKept];
+  static int kept = 0, next = 0;
+  Key k;
+  std::memset(&k, 0, sizeof k);
+  k.w = w;
+  k.rows = g.k * g.k * g.cip;
+  k.cols = g.cop;
+  k.box_rows = g.t_ci;
+  k.box_cols = g.wg_n;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < kept; ++i) {
+    if (std::memcmp(&keys[i], &k, sizeof k) == 0) {
+      *out = maps[i];
+      return 0;
+    }
+  }
+  EncodeTiled encode;
+  if (const int e = encode_tiled(&encode)) return e;
+  const cuuint64_t dims[2] = {(cuuint64_t)k.cols, (cuuint64_t)k.rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k.cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)k.box_cols, (cuuint32_t)k.box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUtensorMap m;
+  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<uint16_t*>(w), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             g.wg_n == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return E_TMAP;
+  const int i = kept < kKept ? kept++ : next++ % kKept;
+  keys[i] = k;
+  maps[i] = m;
+  *out = m;
+  return 0;
 }
 
 struct LaunchInt8 {
@@ -1681,10 +2351,35 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
   g.wn = nt >= 4 ? 4 : nt >= 2 ? 2 : 1;
   g.mgroups = (mt + g.wm - 1) / g.wm;
   g.ngroups = (nt + g.wn - 1) / g.wn;
-  const long long warps = (long long)g.s * g.s * g.mgroups * g.ngroups;
+  // the bf16 wgmma path (tiling.py: bf16_wgmma_tile): whole m64 tiles of
+  // a phase by t_co in groups of N = min(t_co, 64) channels, shared by
+  // one or two consumer warpgroups, one or two m64 tiles each (and t_ci
+  // <= 32 where their sums take 128 floats a thread: the A fragments' room)
+  g.wg = false;
+  g.wg_consumers = g.wg_wm = g.wg_n = g.wg_ngroups = g.wg_mgroups = 0;
+  if (bf16 && g.pix % 64 == 0 && (g.t_co == 32 || g.t_co == 64 || g.t_co == 128)) {
+    const int n = g.t_co < 64 ? g.t_co : 64;
+    const int tiles = g.s * g.s * (g.pix / 64) * (g.t_co / n);
+    const int consumers = tiles % 2 == 0 ? 2 : 1;
+    const int wm = tiles / consumers;
+    // the block's tap lists hold every phase's taps: K * K of them
+    if ((wm == 1 || wm == 2) && (wm * n <= 64 || g.t_ci <= 32) && g.k * g.k <= kWgTaps) {
+      g.wg = true;
+      g.wg_consumers = consumers;
+      g.wg_wm = wm;
+      g.wg_n = n;
+      g.wg_ngroups = g.t_co / n;
+      g.wg_mgroups = g.pix / 64;
+    }
+  }
   *threads = p[P_THREADS];
-  if (warps * 32 > kMaxThreads || *threads > kMaxThreads) return E_THREADS;
-  if (*threads < warps * 32 || *threads % 32) return E_ARGS;
+  if (g.wg) {
+    if (*threads != 128 * (g.wg_consumers + 1)) return E_ARGS;
+  } else {
+    const long long warps = (long long)g.s * g.s * g.mgroups * g.ngroups;
+    if (warps * 32 > kMaxThreads || *threads > kMaxThreads) return E_THREADS;
+    if (*threads < warps * 32 || *threads % 32) return E_ARGS;
+  }
   // int8: every sum of a phase's taps x CIp products must fit the int32
   // accumulator (the reference's accumulator assumes the same)
   if (g.int8 && (long long)most_taps * most_taps * g.cip * 127 * 127 >= (1LL << 31))
@@ -1707,6 +2402,18 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
     g.ws = cols;
     x_elems = (long long)g.t_n * rows_h * rows_w * g.cs;
     stage = x_elems + (long long)g.slots * cols * g.cs;
+  } else if (g.wg) {
+    // 2-byte elements: the input window as the mma.sync path's, padded to
+    // a swizzle atom; then per weight slot its wg_ngroups boxes of t_ci
+    // k-rows by N channels (whole swizzle atoms: t_ci * N * 2 bytes is a
+    // multiple of 1024)
+    elem = 2;
+    g.cs = g.t_ci + 8;
+    g.ws = g.wg_n;
+    g.w_vec4 = true;
+    const long long atom = kWgAlign / 2;
+    x_elems = ((long long)g.t_n * rows_h * rows_w * g.cs + atom - 1) / atom * atom;
+    stage = x_elems + (long long)g.slots * g.wg_ngroups * g.t_ci * g.wg_n;
   } else if (bf16) {
     // 2-byte elements: input rows of t_ci + 8 (whole 16-byte rows for
     // ldmatrix, an odd number of them, so that 8 consecutive pixels' rows
@@ -1726,13 +2433,15 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
     x_elems = ((long long)g.t_n * rows_h * rows_w * g.cs + 3) / 4 * 4;
     stage = x_elems + (long long)g.slots * g.t_ci * g.ws;
   }
+  const int budget = g.wg ? kWgStageBudget : kStageBudget;
   int stages = 2;
   for (int n = 3; n <= kMaxStages; ++n) {
-    if (elem * n * stage <= kStageBudget) stages = n;
+    if (elem * n * stage <= budget) stages = n;
   }
   // under a split the partial tile (4-byte sums) reuses the ring's memory
   const long long partial = g.split > 1 ? 4LL * g.s * g.s * g.pix * g.t_co : 0;
   *smem = elem * stages * stage > partial ? elem * stages * stage : partial;
+  if (g.wg) *smem += kWgAlign;  // the ring is aligned to a swizzle atom in the kernel
   if (*smem > kMaxDynamicSmem) return E_SMEM;
   g.x_elems = (int)x_elems;
   g.stage_elems = (int)stage;
@@ -1756,6 +2465,24 @@ void deconv2d_tc_limits(int* out) {
   out[2] = kMaxThreads;
   out[3] = kMaxDynamicSmem;
   out[4] = kMaxSplit;
+}
+
+// What a launch with parameters p runs: out[0] 1 on the bf16 kernels'
+// wgmma path, else 0 (mma.sync); out[1], out[2] the instance's WM and WN;
+// out[3] the stages of its ring; out[4] the threads of a block.  0 or an
+// ArgError.
+int deconv2d_tc_launch_info(const int* p, int* out) {
+  Geometry g;
+  TapTable taps;
+  int threads;
+  long long smem;
+  if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
+  out[0] = g.wg ? 1 : 0;
+  out[1] = g.wg ? g.wg_wm : g.wm;
+  out[2] = g.wg ? g.wg_n / 8 : g.wn;
+  out[3] = g.stages;
+  out[4] = threads;
+  return 0;
 }
 
 // The dynamic shared memory one block takes, in bytes (the host's
@@ -1785,8 +2512,13 @@ int deconv2d_tc_forward(const void* x, const void* w, const void* b, void* y, co
     const LaunchBf16 a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
                        static_cast<const uint16_t*>(b), static_cast<uint16_t*>(y),
                        Schedule{nullptr, nullptr, nullptr, 0, 0}};
+    CUtensorMap map;
+    std::memset(&map, 0, sizeof map);
+    if (g.wg) {
+      if (const int e = weight_map(a.w, g, &map)) return e;
+    }
     return dispatch_bf16<false>(a, g, taps, threads, (size_t)smem,
-                                static_cast<cudaStream_t>(stream));
+                                static_cast<cudaStream_t>(stream), map);
   }
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
                  static_cast<const float*>(b), static_cast<float*>(y),
@@ -1815,8 +2547,13 @@ int deconv2d_tc_sparse_forward(const void* x, const void* w, const void* b, void
   if (p[P_DTYPE] == D_BF16) {
     const LaunchBf16 a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
                        static_cast<const uint16_t*>(b), static_cast<uint16_t*>(y), sched};
+    CUtensorMap map;
+    std::memset(&map, 0, sizeof map);
+    if (g.wg) {
+      if (const int e = weight_map(a.w, g, &map)) return e;
+    }
     return dispatch_bf16<true>(a, g, taps, threads, (size_t)smem,
-                               static_cast<cudaStream_t>(stream));
+                               static_cast<cudaStream_t>(stream), map);
   }
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
                  static_cast<const float*>(b), static_cast<float*>(y), sched};

@@ -103,6 +103,76 @@ class _Reduce(torch.autograd.Function):
         return g.redistribute(ctx.device_mesh, ctx.back), None, None
 
 
+def shard_of(x, dim: int):
+    """Where the DTensor ``x`` splits its dim ``dim`` over one mesh axis:
+    ``(mesh dim, its process group, this rank's coordinate on it)``; None
+    for a plain tensor, or where no single mesh axis splits that dim."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return None
+    dim %= x.ndim
+    hits = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim]
+    if len(hits) != 1:
+        return None
+    i, = hits
+    mesh = x.device_mesh
+    return i, mesh.get_group(i), mesh.get_local_rank(i)
+
+
+def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """A copy of the plain tensor ``t`` all-reduced ("sum" or "max") over
+    ``group``."""
+    import torch.distributed as dist
+
+    out = t.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class SumOver(torch.autograd.Function):
+    """``all_reduce(x, "sum", group)`` whose gradient passes through: the
+    sum is the same on every member of the group, and the gradient that
+    reaches each member is the whole sum's (Megatron's reduction out of
+    the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def batch_placements(x):
+    """Placements of a tensor split like the DTensor ``x`` on its dim 0
+    (the batch) and whole along every other mesh axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in x.placements]
+
+
+def fsdp_gathered(w):
+    """``w`` whole along the mesh axes that shard the batch, its other
+    placements kept: an FSDP weight gathered once, so that a projection
+    runs on each rank's batch shard (the batch axes cannot split both).
+    Outside an `LmMesh` context, or on a plain tensor, ``w`` itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, rules = current()
+    if not is_lm_mesh(mesh) or not isinstance(w, DTensor):
+        return w
+    batch = (rules or {}).get("batch") or ()
+    batch = batch if isinstance(batch, tuple) else (batch,)
+    pl = [Replicate() if name in batch else p
+          for name, p in zip(w.device_mesh.mesh_dim_names, w.placements)]
+    return w.redistribute(w.device_mesh, pl)
+
+
 def as_dtensor(x, mesh):
     """``x`` as a DTensor on ``mesh`` (an `LmMesh`): a plain tensor, equal
     on every rank, is replicated; a DTensor is returned as it is."""

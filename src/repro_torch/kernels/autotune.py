@@ -13,7 +13,9 @@ Every dtype runs on the tensor-core kernels (``csrc/deconv2d_tc.cu``),
 C_out itself below 8; at most 16 warps and 227 KB) is scored by `tc_cost`,
 a model of one SM's clock, and the cheapest whose grid (cluster split
 included, `ci_split`) fills the 132 SMs wins; where no candidate fills
-them, the cheapest of all.  The model counts per block and CI chunk the
+them, the cheapest of all.  fp32 at bucket 1 takes a rule of its own
+(`_bucket1_tiles`: one wave of the largest spatial tile), and the bf16
+tiles on the wgmma path are costed by `_wgmma_cost`.  The model counts per block and CI chunk the
 instructions issued, the tensor-core products (fp32 3xTF32: three ``mma``
 per m16n8k8 tile; bf16: one m16n8k16 ``mma``; int8: one m16n8k32
 ``mma``), the shared-memory wavefronts of the fragment loads, the bytes
@@ -59,9 +61,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_THREADS,
-                           DeconvGeometry, block_threads, dtype_name,
-                           launch_threads, staged_window, tc_columns,
-                           tc_smem_layout, tc_warp_tile)
+                           DeconvGeometry, bf16_wgmma_tile, block_threads,
+                           dtype_name, launch_threads, staged_window,
+                           tc_columns, tc_smem_layout, tc_warp_tile)
 
 SMS = 132                      # streaming multiprocessors of an H100
 MAX_SPLIT = 8                  # blocks of a cluster (the portable limit)
@@ -147,6 +149,11 @@ INT8_T_CI = (32, 64, 128)  # the int8 kernel's CI chunks (whole k32 steps)
 BF16_MMA_CLK = 1.5      # SM clocks per m16n8k16 bf16 mma.sync, as sustained
 BF16_CHUNK_CLK = 500    # SM clocks per block and chunk not hidden (bf16)
 BF16_T_CI = (16, 32, 64)  # the bf16 kernels' CI chunks (whole k16 steps)
+WG_MMA_CLK = 4.0        # SM clocks per m64n8k16 unit of a bf16 wgmma, at peak
+WG_CHUNK_CLK = 2500     # per block and chunk of the wgmma path: barriers, latency
+WG_L2_BYTES_PER_CLK = 54  # bytes the wgmma path's producer stages per clock
+WG_SPLIT_CLK = 12000    # the wgmma path's cluster barriers under a split
+WG_REDUCE_CLK = 0.11    # per byte of the partial tile the split's ranks read
 LOAD_INSTR = 8          # instructions per plain 2-byte load and store (bf16)
 TC_T_CO = (8, 16, 32, 64, 128)  # channel tiles of C_out >= 8 (n8 columns)
 COPY_INSTR = 12         # instructions per bulk copy (a staged row)
@@ -215,9 +222,11 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     bf16 = dtype_name(dtype) == "bfloat16"
     s = geom.stride
     pix = t_n * (t // s) ** 2
-    if block_threads(s, t, t, t_co, t_n) > KERNEL_MAX_THREADS:
+    if block_threads(s, t, t, t_co, t_n, dtype=dtype, k_size=geom.kernel,
+                     t_ci=t_ci) > KERNEL_MAX_THREADS:
         return None
-    threads = launch_threads(s, t, t, t_co, t_n)
+    threads = launch_threads(s, t, t, t_co, t_n, dtype=dtype,
+                             k_size=geom.kernel, t_ci=t_ci)
     ohp, owp = _round_up(geom.out_h, t), _round_up(geom.out_w, t)
     cip = _round_up(geom.c_in, t_ci)
     n_chunks = cip // t_ci
@@ -242,6 +251,10 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     # A rows conflict where a fragment's 8 rows share a bank
     conflicts = _a_conflicts(t // s, t_n, rows_w, rows_h)
     waves_k = 4 * wm * conflicts + 2 * wn
+    wg = bf16_wgmma_tile(s, pix, t_co, geom.kernel, t_ci) if bf16 else None
+    if wg is not None:
+        return _wgmma_cost(geom, t_n, t_co, t_ci, pix, wg, blocks, split,
+                           n_chunks, rows_h * rows_w, taps_h * taps_w)
     if bf16:
         # one m16n8k16 mma per tile and 16-deep k-step; per k-step one
         # ldmatrix.x4 (4 wavefronts) per m16 tile of A and per pair of n8
@@ -300,6 +313,32 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     return clk
 
 
+def _wgmma_cost(geom, t_n, t_co, t_ci, pix, wg, blocks, split, n_chunks,
+                window, slots):
+    """`tc_cost` of the bf16 kernels' wgmma path, one block per SM (a
+    producer warpgroup and one or two consumer warpgroups at the launch
+    bound's registers).  Per block and CI chunk a fixed cost (the ring's
+    barriers, a copy's latency, the fresh partial's adds) and the larger
+    of the wgmma (m64nNk16, N/8 units of WG_MMA_CLK) and the bytes staged
+    (the window's rows and the weight boxes) against WG_L2_BYTES_PER_CLK;
+    a split adds its cluster barriers and the partial tile's reads.  Fitted
+    to `tools/sweep_tiles.py --dtype bfloat16` on an H100 (median error 17 %
+    of a tile's time); the chunk's fixed cost dominates, so wide CI chunks
+    win."""
+    consumers, wm, n = wg
+    s = geom.stride
+    taps = max(1, slots // (s * s))           # valid taps of a phase
+    units = consumers * wm * taps * (t_ci // 16) * (n // 8)
+    staged = 2 * t_ci * (t_n * window + slots * t_co)
+    chunks = -(-n_chunks // split)
+    waves = -(-blocks * split // SMS)
+    clk = waves * chunks * (WG_CHUNK_CLK + max(units * WG_MMA_CLK,
+                                               staged / WG_L2_BYTES_PER_CLK))
+    if split > 1:
+        clk += waves * (WG_SPLIT_CLK + WG_REDUCE_CLK * 4 * s * s * pix * t_co)
+    return clk
+
+
 @functools.lru_cache(maxsize=1024)
 def _tc_scored(geom: DeconvGeometry, batch: int,
                dtype: str = "float32") -> Tuple[Tuple[bool, float,
@@ -322,12 +361,47 @@ def _tc_scored(geom: DeconvGeometry, batch: int,
     return tuple(out)
 
 
+# bucket 1, fp32: the fewest blocks of a cluster-split grid that the rule
+# below keeps (one image runs on a single wave of them)
+BUCKET1_MIN_CTAS = 64
+
+
 def _tc_tiles(geom: DeconvGeometry, batch: int,
               dtype: str = "float32") -> TileChoice:
     """The cheapest tiles by `tc_cost` among those whose grid, split
-    included, fills the card's SMs; the cheapest of all where none does."""
-    return min(_tc_scored(geom, batch, dtype),
-               key=lambda s: (not s[0], s[1]))[2]
+    included, fills the card's SMs; the cheapest of all where none does.
+    fp32 at bucket 1 (`_bucket1_tiles`) is the exception, but on a 1x1
+    root."""
+    scored = _tc_scored(geom, batch, dtype)
+    if batch == 1 and dtype == "float32" and (geom.in_h, geom.in_w) != (1, 1):
+        return _bucket1_tiles(geom, scored)
+    return min(scored, key=lambda s: (not s[0], s[1]))[2]
+
+
+def _bucket1_tiles(geom: DeconvGeometry, scored) -> TileChoice:
+    """fp32 at bucket 1: the largest spatial tile; among its candidates
+    whose cluster-split grid has at least BUCKET1_MIN_CTAS blocks (else
+    all of them), the widest channel tile; then the cheapest by `tc_cost`,
+    a tie going to the larger CI chunk.  On the H100 (`tools/
+    sweep_tiles.py --dtype float32 --buckets 1`) every candidate of both
+    generators' layers 1-4 ran fastest in one wave of 64-128 blocks at
+    the largest spatial tile, and `tc_cost`, whose waves and fill-the-SMs
+    preference are those of a full card, put them 1.3-2.0x behind its
+    pick; this rule's picks ran within 6 % of the fastest."""
+    t = max(c.t_oh for _, _, c in scored)
+    cands = [(clk, c) for _, clk, c in scored if c.t_oh == t]
+
+    def ctas(c):
+        blocks = grid_blocks(geom, 1, c.t_oh, c.t_co, c.t_n)
+        return blocks * ci_split(blocks, _round_up(geom.c_in, c.t_ci) // c.t_ci)
+
+    wide = [(clk, c) for clk, c in cands if ctas(c) >= BUCKET1_MIN_CTAS]
+    if not wide:
+        most = max(ctas(c) for _, c in cands)
+        wide = [(clk, c) for clk, c in cands if ctas(c) == most]
+    t_co = max(c.t_co for _, c in wide)
+    return min(((clk, c) for clk, c in wide if c.t_co == t_co),
+               key=lambda e: (e[0], -e[1].t_ci))[1]
 
 
 # how many candidates ``refine=True`` times per layer

@@ -57,6 +57,9 @@ _ARG_ERRORS = {
     -3: "more shared memory than a block can have at these tiles",
     -4: "no kernel instance for this register tile",
     -5: "x or w is not 16-byte aligned",
+    -6: "the bf16 wgmma instance was not compiled at the register count its "
+        "setmaxnreg split needs",
+    -7: "the weights' TMA tensor map could not be encoded",
 }
 
 LAUNCHES = 0
@@ -284,7 +287,8 @@ def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
                          f"a multiple of {step} channels")
     split = launch_split(x_shape[0], x_shape[3], w_shape[3], ohp, owp, t_oh,
                          t_ow, t_ci, t_co, t_n)
-    fields.update(threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "tc"),
+    fields.update(threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "tc",
+                                         dtype_name, k, t_ci),
                   split=split, dtype=dtype)
     params = np.array([fields[f] for f in _TC_PARAM_FIELDS]
                       + _tap_words(make_phase_plan(k, s, p)), dtype=np.int32)
@@ -310,6 +314,20 @@ def launch_report(params: np.ndarray) -> dict:
     return {"smem_bytes": int(got),
             "threads": int(params[_TC_PARAM_FIELDS.index("threads")]),
             "split": int(params[_TC_PARAM_FIELDS.index("split")])}
+
+
+def launch_info(params: np.ndarray) -> dict:
+    """What a launch with the parameter array ``params`` runs, as the
+    library's ``deconv2d_tc_launch_info`` says: ``path`` ("wgmma" on the
+    bf16 kernels' wgmma path, else "mma.sync"), the instance's ``wm`` and
+    ``wn`` (wgmma: m64 tiles a warpgroup and n8 tiles of its N), the
+    ring's ``stages`` and the block's ``threads``."""
+    info = (ctypes.c_int * 5)()
+    check_rc("deconv2d", tc_library().deconv2d_tc_launch_info(
+        params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), info))
+    return {"path": "wgmma" if info[0] else "mma.sync", "wm": int(info[1]),
+            "wn": int(info[2]), "stages": int(info[3]),
+            "threads": int(info[4])}
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -348,6 +366,8 @@ def tc_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.deconv2d_tc_smem_bytes.argtypes = [params]
         lib.deconv2d_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.deconv2d_tc_launch_info.argtypes = [params, params]
+        lib.deconv2d_tc_launch_info.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..dist.context import constrain, current, is_lm_mesh, local_region
+from ..dist.context import (constrain, current, fsdp_gathered,
+                            is_lm_mesh, local_region)
 from ..dist.sharding import data_axis_size
 from . import nn
 
@@ -62,7 +63,17 @@ def ffn_apply(p: nn.Params, x: torch.Tensor,
         h = nn.gelu(nn.dense(p["wg"], x)) * nn.dense(p["wu"], x)
     else:  # gelu
         h = nn.gelu(nn.dense(p["wu"], x))
-    return nn.dense(p["wd"], h)
+    wd = p["wd"]
+    mesh, _ = current()
+    if is_lm_mesh(mesh) and mesh.shape.get("model", 1) == 1:
+        # On a data-only mesh DTensor replicates the up projections' output
+        # and ran the down projection whole on every rank: h is pinned to
+        # the batch axes, and the weight's FSDP shards (its output features
+        # over the batch axes) are gathered once, so that it runs on each
+        # rank's batch shard.
+        h = constrain(h, "batch", *([None] * (h.ndim - 2)), "mlp")
+        wd = dict(wd, w=fsdp_gathered(wd["w"]))
+    return nn.dense(wd, h)
 
 
 # ---------------------------------------------------------------------------

@@ -159,24 +159,54 @@ def embedding_specs() -> Specs:
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the table.  On a DTensor table, the vocab-parallel lookup:
-    the table keeps its vocab shards (gathered along any other axis, the
-    embed dim under FSDP), each shard looks up the replicated tokens whose
-    rows it holds, and the masked partial sums are all-reduced at once
-    (DTensor's masked partial does not survive a batch split in a later
-    redistribution).  Indexing would gather the whole table."""
+    each rank looks up its own batch shard's tokens in its vocabulary
+    shard (the table gathered along any other axis, the embed dim under
+    FSDP), the rows of tokens outside its shard zero, and the partial sums
+    are all-reduced over the vocabulary's mesh axis alone.  The rows come
+    out split like the tokens' batch and whole along the vocabulary's
+    axis.  The reduction is explicit, over that axis's process group:
+    DTensor's masked partial does not survive a batch split in a later
+    redistribution, and indexing would gather the whole table."""
     table, tokens = p["table"], tokens.long()
-    if is_dtensor(table):
-        from torch.distributed.tensor import Replicate, Shard
+    if not is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
 
-        mesh = table.device_mesh
-        table = table.redistribute(mesh, [
-            pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
-            for pl in table.placements])
-        if is_dtensor(tokens):
-            tokens = tokens.redistribute(mesh, [Replicate()] * mesh.ndim)
-        return F.embedding(tokens, table).redistribute(
-            mesh, [Replicate()] * mesh.ndim)
-    return F.embedding(tokens, table)
+    from ..dist.context import SumOver, batch_placements, shard_of
+
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    vocab = shard_of(table, 0)
+    axis = vocab[0] if vocab is not None else None
+    tok_pl = [Replicate() if i == axis else pl
+              for i, pl in enumerate(batch_placements(tokens))]
+    tab_pl = [Shard(0) if i == axis else Replicate()
+              for i in range(mesh.ndim)]
+    # a rank's table gradient: its vocabulary shard's, summed over the
+    # ranks that hold the other batch shards
+    tab_grad = [Shard(0) if i == axis else
+                Partial() if isinstance(tok_pl[i], Shard) else Replicate()
+                for i in range(mesh.ndim)]
+
+    def lookup(tok, tab):
+        if vocab is None:
+            return F.embedding(tok, tab)
+        _, group, rank = vocab
+        rows = tab.shape[0]
+        local = tok - rank * rows
+        hit = (local >= 0) & (local < rows)
+        part = F.embedding(local.clamp(0, rows - 1), tab) * \
+            hit[..., None].to(tab.dtype)
+        return SumOver.apply(part, group)
+
+    run = local_map(lookup, out_placements=tok_pl,
+                    in_placements=(tok_pl, tab_pl),
+                    in_grad_placements=(tok_pl, tab_grad), device_mesh=mesh,
+                    redistribute_inputs=True)
+    return run(tokens, table)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,13 @@ each unit follows ``cfg.remat`` (`models.transformer.apply_lm`).
 Gradients come from ``torch.autograd`` on detached copies of the params
 that require grad, so the caller's params never carry a graph; the
 update is the port's functional optimizer (`optim.AdamW`).
+
+On logits split over the vocabulary (an `LmMesh` whose model axis shards
+the vocab), the cross-entropy is vocab-parallel (`token_nll`): each rank
+keeps its vocabulary shard in the forward and in the backward, and only
+per-token maxima and sums cross the model axis, where ``log_softmax``
+would have DTensor gather the whole vocabulary and build its gradient on
+every rank.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 
 from ..core.counting import trips
 from ..core.tree import tree_leaves, tree_map, tree_unflatten
+from ..dist.context import all_reduce, batch_placements, shard_of
 from ..models.transformer import ModelConfig, apply_lm
 from ..optim.compression import EFState, compress_grads, decompress_grads
 
@@ -28,12 +36,72 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     if fe is not None:  # loss over the token region only
         logits = logits[:, fe.shape[1]:, :]
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = token_nll(logits.float(), labels.clamp(min=0))
     mask = (labels >= 0).float()
     ce = torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
     loss = ce + cfg.aux_loss_coef * aux
     return loss, {"ce": ce, "aux": aux}
+
+
+class VocabParallelNll(torch.autograd.Function):
+    """-log softmax(logits)[label] per token, on this rank's vocabulary
+    shard ``logits`` (..., V / n) float32, whose first column is vocabulary
+    entry ``start``; ``reduce(t, op)`` all-reduces a per-token tensor
+    ("max" or "sum") over the ranks that hold the other shards.  The
+    label's logit is taken on the shard that holds it (zero elsewhere)
+    and summed.  The gradient, softmax minus the label's one-hot, stays on
+    the shard and needs no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, reduce):
+        top = reduce(logits.detach().amax(dim=-1), "max")
+        shifted = logits - top[..., None]
+        rows = logits.shape[-1]
+        local = labels - start
+        hit = (local >= 0) & (local < rows)
+        idx = local.clamp(0, rows - 1)
+        picked = reduce(torch.gather(shifted, -1, idx[..., None])[..., 0]
+                        * hit, "sum")
+        e = torch.exp(shifted)
+        total = reduce(e.sum(dim=-1), "sum")
+        ctx.save_for_backward(e, total, idx, hit)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, idx, hit = ctx.saved_tensors
+        grad = e / total[..., None]
+        grad.scatter_add_(-1, idx[..., None], -hit.to(grad.dtype)[..., None])
+        return grad * g[..., None], None, None, None
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[labels] per token (float32 logits, labels in
+    range).  On a DTensor split over the vocabulary by one mesh axis it
+    runs shard-local (`VocabParallelNll`) on each rank's batch and
+    vocabulary shards, and comes back split like the batch."""
+    vocab = shard_of(logits, -1)
+    if vocab is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    axis, group, rank = vocab
+    mesh = logits.device_mesh
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab_pl = batch_placements(logits)
+    reduce = lambda t, op: all_reduce(t, op, group)
+
+    def nll(lg, lab):
+        return VocabParallelNll.apply(lg, lab, rank * lg.shape[-1], reduce)
+
+    run = local_map(nll, out_placements=lab_pl,
+                    in_placements=(list(logits.placements), lab_pl),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(logits, labels)
 
 
 def _grads_of(params, cfg: ModelConfig, batch):

@@ -10,10 +10,6 @@ named term of the test, never a tolerance:
   attention layer's keys and values twice (`attention_apply`, then
   ``_fill_cache`` for the cache), and XLA merges the two; the term is
   those projections' FLOPs;
-* per-device FLOPs x chips on a fake (2, 2) or (4, 1) world against the
-  one-device count: an FSDP decode on a data-only mesh runs the FFN's
-  down projection whole on every rank, and the term is that work on the
-  other ranks;
 * the loop multiplier (`analysis.cost.trips`) is exact for forward steps
   and for FLOPs and collectives of training steps; in a backward the
   engine's adds of gradients into one another follow the runs' arrival
@@ -27,6 +23,7 @@ teardown), so no other test file on the same worker sees it.
 import ast
 import dataclasses
 import pathlib
+import threading
 import time
 
 import jax
@@ -50,8 +47,12 @@ from repro_torch.core import tiling
 from repro_torch.launch import dryrun, hillclimb, steps
 from repro_torch.launch.mesh import (destroy_fake_world, init_fake_world,
                                      make_lm_mesh, make_production_mesh)
+from repro_torch.dist.context import constrain, sharding_context
+from repro_torch.dist.sharding import make_rules
+from repro_torch.models import nn
 from repro_torch.models.attention import blocked_attention
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import apply_lm, init_lm
+from repro_torch.train.lm import VocabParallelNll, token_nll
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -191,17 +192,9 @@ def test_reduced_gemma2_cell_against_reference(gemma_1x1, gemma_reference,
     assert got.collectives == {} and got.n_ops > 0
 
 
-def _fsdp_down_projection_flops(cfg, b, data):
-    """The named term of an FSDP decode on a data-only mesh: the FFN's
-    down projection (``wd``, its input dim whole and its output dim
-    sharded over ``data`` like the batch) runs on the whole batch and
-    the whole weight on every rank of the data axis (ROADMAP C9)."""
-    return (data - 1) * cfg.n_layers * 2 * b * cfg.d_ff * cfg.d_model
-
-
 # (kind, data, model, policy): "auto" is reduced gemma2-27b's tp, and
-# fsdp_tp shards the weights over both axes; the data-only world is held
-# where its term lies
+# fsdp_tp shards the weights over both axes; on the data-only world an
+# FSDP decode runs the FFN's down projection on each rank's batch shard
 SHARDED_CELLS = [("train", 2, 2, "fsdp_tp"), ("prefill", 2, 2, "fsdp_tp"),
                  ("decode", 2, 2, "auto"), ("decode", 2, 2, "fsdp_tp"),
                  ("decode", 4, 1, "fsdp_tp")]
@@ -211,18 +204,115 @@ SHARDED_CELLS = [("train", 2, 2, "fsdp_tp"), ("prefill", 2, 2, "fsdp_tp"),
 def test_sharded_flops_times_chips_equal_the_1x1_count(gemma_1x1, kind,
                                                        data, model, policy):
     """Per-device FLOPs x chips on a fake world equal the one-device
-    count: no rank computes work that another does too, but for the one
-    named term."""
+    count: no rank computes work that another does too."""
     got = _gemma_cell_cost(kind, data, model, policy)
-    cfg = configs.reduced_config("gemma2-27b")
-    named = (_fsdp_down_projection_flops(cfg, GEMMA_CELLS[kind][0], data)
-             if (kind, model, policy) == ("decode", 1, "fsdp_tp") else 0)
-    assert got.flops * data * model == gemma_1x1[kind].flops + named
+    assert got.flops * data * model == gemma_1x1[kind].flops
 
 
 def test_the_named_prefill_term_at_four_by_64():
     cfg = configs.reduced_config("gemma2-27b")
     assert _fill_cache_flops(cfg, 4, 64) == 8388608
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel loss and lookup (ROADMAP C6, C7)
+# ---------------------------------------------------------------------------
+def test_sharded_train_keeps_the_vocabulary_split(fake_world):
+    """C6: on a fake (2, 2) world under fsdp_tp the largest storage a rank
+    makes in a train step is its own logits shard (its batch half by its
+    vocabulary half, float32), never the microbatch's rows x seq x the
+    full vocabulary that a gathered log_softmax builds."""
+    cfg = configs.reduced_config("gemma2-27b")
+    b, s = GEMMA_CELLS["train"]
+    got = _gemma_cell_cost("train", 2, 2, "fsdp_tp")
+    assert got.largest_bytes < b * s * cfg.vocab_size * 4
+    assert got.largest_bytes == (b // 2) * s * (cfg.vocab_size // 2) * 4
+
+
+def test_embedding_all_reduce_is_the_batch_shard(fake_world):
+    """C7: the lookup on a fake (2, 2) prefill all-reduces the rank's
+    batch shard only (rows / 2 x seq x d of the table's dtype; the ring
+    model counts an all-reduce twice)."""
+    init_fake_world(4)
+    mesh = make_lm_mesh(2, 2, device_type="cpu")
+    cfg = configs.reduced_config("gemma2-27b")
+    b, s = GEMMA_CELLS["prefill"]
+    cell = steps.lower_cell(cfg, configs.ShapeSuite("prefill", "prefill", s,
+                                                    b), mesh,
+                            policy="fsdp_tp")
+    params, batch = cell.args
+    rules = make_rules("fsdp_tp")
+
+    def lookup(table, tokens):
+        with sharding_context(mesh, rules):
+            return nn.embed({"table": table}, constrain(tokens, "batch",
+                                                        None))
+
+    table = params["embed"]["table"]
+    got = cost.analyze(lookup, table, batch["tokens"],
+                       fake_mode=cell.fake_mode)
+    calls, nbytes = got.collectives["all-reduce"]
+    assert calls == 1
+    assert nbytes == 2 * (b // 2) * s * cfg.d_model * table.element_size()
+
+
+def test_vocab_parallel_loss_equals_the_1x1_loss():
+    """C6's loss on reduced gemma2-27b's train batch, split as a (2, 2)
+    world splits it (two batch shards, two vocabulary shards; each rank a
+    thread whose all-reduce meets its batch shard's other vocabulary
+    shard), equals the 1x1 loss, and so do the logits' gradients."""
+    cfg = configs.reduced_config("gemma2-27b")
+    b, s = GEMMA_CELLS["train"]
+    v = cfg.vocab_size
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, v, (b, s + 1)))
+    with torch.no_grad():
+        logits = apply_lm(params, cfg, toks[:, :s], mode="train")[0].float()
+    labels = toks[:, 1:]
+    ref_in = logits.clone().requires_grad_(True)
+    ref = token_nll(ref_in, labels).mean()
+    ref.backward()
+
+    slots = {d: [None, None] for d in range(2)}
+    gates = {d: threading.Barrier(2) for d in range(2)}
+    out, errors = {}, []
+
+    def rank(d, m):
+        def reduce(t, op):
+            slots[d][m] = t
+            gates[d].wait()
+            both = torch.stack(slots[d])
+            got = both.amax(0) if op == "max" else both[0] + both[1]
+            gates[d].wait()
+            return got
+
+        try:
+            rows = slice(d * b // 2, (d + 1) * b // 2)
+            lg = logits[rows, :, m * v // 2:(m + 1) * v // 2].clone()
+            lg.requires_grad_(True)
+            nll = VocabParallelNll.apply(lg, labels[rows], m * v // 2,
+                                         reduce)
+            (nll.sum() / (b * s)).backward()
+            out[d, m] = (nll.detach(), lg.grad)
+        except BaseException as e:   # a failed rank fails the test
+            errors.append(e)
+            gates[d].abort()
+
+    threads = [threading.Thread(target=rank, args=(d, m))
+               for d in range(2) for m in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for d in range(2):
+        assert torch.equal(out[d, 0][0], out[d, 1][0])
+    loss = torch.cat([out[d, 0][0] for d in range(2)]).mean()
+    torch.testing.assert_close(loss, ref.detach(), rtol=1e-6, atol=0)
+    grad = torch.cat([torch.cat([out[d, m][1] for m in range(2)], -1)
+                      for d in range(2)])
+    torch.testing.assert_close(grad, ref_in.grad, rtol=1e-5, atol=1e-9)
 
 
 # ---------------------------------------------------------------------------

@@ -103,15 +103,15 @@ def test_timed_entry_round_trips_and_clear_cache_wipes_it(tmp_cache, card,
 @pytest.mark.parametrize("order", ["last", "first"])
 def test_refine_picks_the_fastest_and_times_a_non_filling_tile(
         tmp_cache, card, monkeypatch, order):
-    """CelebA layer 1 at bucket 1: the model prefers a grid that fills the
-    SMs; refine also times tiles ranked by the model's clock alone, among
-    them one that does not fill the card, and keeps whichever runs
-    fastest."""
+    """CelebA layer 1 at bucket 1: the model's pick is one wave that does
+    not fill the card (`autotune._bucket1_tiles`); refine times it and
+    the tiles the model's clock ranks next, which fill it, and keeps
+    whichever runs fastest."""
     cands = refine_candidates(CELEBA_L1, 1, "float32", 3)
     model = hopper_tiles(CELEBA_L1, 1)
     assert cands[0] == model and len(cands) == 3 == len(set(cands))
-    assert fills(CELEBA_L1, 1, model)
-    assert any(not fills(CELEBA_L1, 1, c) for c in cands[1:])
+    assert not fills(CELEBA_L1, 1, model)
+    assert any(fills(CELEBA_L1, 1, c) for c in cands[1:])
     fastest = cands[-1] if order == "last" else cands[0]
     ms = {c: 0.5 if c == fastest else 1.0 + i for i, c in enumerate(cands)}
     asked = fake_times(monkeypatch, ms.get)
@@ -300,6 +300,44 @@ def test_pinned_plan_keeps_its_tiles_whatever_the_cache_holds(tmp_cache,
     # the unpinned bucket took the cache's timed entry for its layer 1
     assert eng.plans[1].layers[1].tiles == TileChoice(8, 8, 16, 8, 1)
     assert eng.plans[1].layers[1].tiles.source == "cache"
+
+
+# the fp32 picks at bucket 1 (`autotune._bucket1_tiles`): on the H100 each
+# ran within 6 % of the fastest tile of its layer (`tools/sweep_tiles.py
+# --dtype float32 --buckets 1`; MNIST layer 1 at 1.059, the others at the
+# fastest), where the picks of the full-card rule ran 1.07-1.97x of it
+BUCKET1_PICKS = {
+    ("mnist", 0): (1, 32, 128),
+    ("mnist", 1): (14, 32, 16),
+    ("mnist", 2): (16, 16, 1),
+    ("celeba", 0): (1, 32, 128),
+    ("celeba", 1): (8, 16, 64),
+    ("celeba", 2): (16, 32, 32),
+    ("celeba", 3): (16, 16, 64),
+    ("celeba", 4): (16, 16, 3),
+}
+
+
+@pytest.mark.parametrize("net,layer", sorted(BUCKET1_PICKS))
+def test_bucket1_fp32_picks_are_pinned(net, layer):
+    """(spatial tile, t_ci, t_co) of every generator layer at bucket 1, one
+    image a tile; the 1x1 roots keep the full-card rule's pick."""
+    cfg = {"mnist": dcnn.MNIST_DCNN, "celeba": dcnn.CELEBA_DCNN}[net]
+    t = hopper_tiles(cfg.geometries()[layer], 1)
+    assert (t.t_oh, t.t_ci, t.t_co) == BUCKET1_PICKS[net, layer]
+    assert t.t_oh == t.t_ow and t.t_n == 1
+
+
+def test_bucket1_rule_is_fp32_only_and_bucket_2_keeps_its_tiles():
+    """bf16 and int8 at bucket 1, and fp32 at bucket 2, keep the cheapest
+    tile by `tc_cost` among those that fill the SMs."""
+    for dtype in ("bfloat16", "int8"):
+        scored = autotune._tc_scored(CELEBA_L1, 1, dtype)
+        assert hopper_tiles(CELEBA_L1, 1, dtype) == min(
+            scored, key=lambda e: (not e[0], e[1]))[2]
+    scored = autotune._tc_scored(CELEBA_L1, 2, "float32")
+    assert hopper_tiles(CELEBA_L1, 2) == min(
+        scored, key=lambda e: (not e[0], e[1]))[2]
 
 
 # -- mirrored from the JAX package's autotune tests -------------------------

@@ -26,6 +26,7 @@ from repro_torch.core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_THREADS,
                                      staged_window, tc_warp_tile)
 from repro_torch.kernels.autotune import (MAX_SPLIT, SMS, ci_split,
                                           grid_blocks, hopper_tiles)
+from repro_torch.kernels.autotune import BUCKET1_MIN_CTAS
 from repro_torch.kernels.deconv2d.kernel import (deconv2d_launch_plain,
                                                  launch_split)
 from repro_torch.kernels.deconv2d.ops import launch_args
@@ -221,13 +222,15 @@ def _tc_takes(g, batch, t):
 def test_hopper_tiles_are_taken_by_the_tc_kernel(cfg):
     """fp32 tiles for every layer of both nets at buckets 1 .. 64 pass the
     kernel's launch checks; CelebA's wide layers at bucket 1 split their
-    CI chunks over clusters until blocks x split fills the 132 SMs."""
+    CI chunks over clusters and run in one wave of at least
+    BUCKET1_MIN_CTAS blocks, at most one per SM (`autotune._bucket1_tiles`)."""
     for i, g in enumerate(cfg.geometries()):
         for batch in BUCKETS:
             t = hopper_tiles(g, batch)
             blocks, split = _tc_takes(g, batch, t)
             if cfg is dcnn.CELEBA_DCNN and i in (1, 2, 3) and batch == 1:
-                assert split > 1 and blocks * split >= SMS
+                assert split > 1
+                assert BUCKET1_MIN_CTAS <= blocks * split <= SMS
 
 
 def test_staged_window_is_the_largest_block_span():

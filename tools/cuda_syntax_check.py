@@ -6,12 +6,16 @@ Usage, from the root of a checkout:  python3 tools/cuda_syntax_check.py
 
 Each ``src/repro_torch/csrc/*.cu`` is copied into a temporary directory
 with its CUDA headers replaced by the stand-in declarations below
-(qualifiers, thread indices, the runtime calls the sources make,
-``cudaLaunchKernelEx`` and its launch attributes, the device intrinsics,
-bf16, and cooperative_groups' cluster), the ``<<<...>>>`` launch rewritten
-as a call, and every inline ``asm`` statement (mma, cvt, cp.async,
-mbarrier) replaced by an expression that reads its inputs and assigns its
-outputs.  g++ then parses every template instance the C entry points reach.
+(qualifiers, ``__grid_constant__`` included, thread indices, the runtime
+calls the sources make, ``cudaLaunchKernelEx`` and its launch attributes,
+``cudaFuncGetAttributes``, the driver entry point through which the host
+reaches ``cuTensorMapEncodeTiled``, ``CUtensorMap`` and its encoding's
+enums from ``cuda.h``, the device intrinsics, bf16, and
+cooperative_groups' cluster), the ``<<<...>>>`` launch rewritten as a
+call, and every inline ``asm`` statement (mma, wgmma and its fence,
+commit and wait, setmaxnreg, cvt, cp.async, the bulk and TMA tensor
+copies, mbarrier, the proxy fence) replaced by an expression that reads
+its inputs and assigns its outputs.  g++ then parses every template instance the C entry points reach.
 This catches C++ syntax and type errors; it cannot check PTX, register
 constraints or anything nvcc alone refuses, which only the card's build
 shows.  Exits non-zero if g++ reports an error.
@@ -40,6 +44,8 @@ STUB = r"""
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __restrict__
+#define __grid_constant__
+#define CUDART_VERSION 12080
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 extern uint3 threadIdx, blockIdx;
@@ -59,6 +65,24 @@ struct cudaLaunchConfig_t {
 };
 template <class... E, class... A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t*, void (*)(E...), A&&...);
+struct cudaFuncAttributes { int numRegs; };
+template <class T> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, T);
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0 };
+enum { cudaEnableDefault = 0 };
+cudaError_t cudaGetDriverEntryPointByVersion(const char*, void**, unsigned, unsigned long long,
+                                             cudaDriverEntryPointQueryResult*);
+typedef unsigned cuuint32_t;
+typedef unsigned long long cuuint64_t;
+enum CUresult { CUDA_SUCCESS = 0 };
+struct alignas(64) CUtensorMap { unsigned long long opaque[16]; };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_SWIZZLE_128B };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_128B };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE };
+long long clock64();
+void __trap();
+void __syncwarp(unsigned = 0xffffffffu);
 void __syncthreads();
 int __popc(unsigned);
 int __clz(unsigned);
@@ -115,7 +139,8 @@ def _replace_asm(src: str) -> str:
 
 def check(path: pathlib.Path, tmp: pathlib.Path) -> int:
     src = path.read_text()
-    for header in ("cuda_runtime.h", "cuda_bf16.h", "cooperative_groups.h"):
+    for header in ("cuda.h", "cuda_runtime.h", "cuda_bf16.h",
+                   "cooperative_groups.h"):
         src = src.replace(f"#include <{header}>", "#include \"cuda_stub.h\"")
     src = re.sub(r"(\w+)<<<[^>]*>>>\(", r"\1(", src)
     cpp = tmp / (path.stem + ".cpp")
