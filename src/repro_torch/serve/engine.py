@@ -71,14 +71,21 @@ elastic mesh (`_remesh`; else `EngineDegraded`), and a per-bucket
 is *tainted*: counted beside, never inside, the Table II mean/std/CV.  The
 engine dual-writes an `obs.MetricsRegistry` (``engine.*`` series labelled
 ``net``, ``workload``, ``precision`` and ``bucket``) and records spans
-into the process tracer (`obs.trace`; no-ops unless enabled).  A
-dispatch span ends when the stream has synchronised on the images.
+into the process tracer (`obs.trace`; one attribute read a site unless
+enabled).  One ``generate`` records, on its thread and under its request
+number, the tree ``generate`` > (``lock``, ``sync``, ``dispatch b{n}`` >
+(``stage``, ``enqueue``, ``wait``, ``copy_out``), ``account``) per
+dispatch, then ``account`` and, for a request of several chunks,
+``concat``: the wait for the locks, the device-wide synchronise, the
+timed window and its phases, the bookkeeping and the images put
+together.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import gc
+import itertools
 import threading
 import time
 import weakref
@@ -183,6 +190,9 @@ class _PinnedBudget:
 
 PINNED_RESULTS = _PinnedBudget(PINNED_RESULT_BYTES)
 
+# request numbers of the traced ``generate`` calls, unique in the process
+_REQUESTS = itertools.count(1)
+
 
 def pinned_result(shape, dtype):
     """``(tensor, its numpy view)``: new pinned memory for a dispatch's
@@ -250,11 +260,15 @@ class ShardedExecutable:
     (the result is its numpy view), else into the shard's ``out_host``,
     copied out on the host (the next dispatch reuses the staging buffers,
     so no result aliases them).  On the CPU each shard's body runs
-    eagerly.  ``launches`` sums the shards'."""
+    eagerly.  ``launches`` sums the shards'.  A call records its phases
+    as spans of the process tracer (`obs.trace`): ``stage``, ``enqueue``
+    (on the CPU the eager bodies take its place), ``wait`` and, where the
+    images come back through ``out_host``, ``copy_out``."""
 
     def __init__(self, bucket, shards: List[BucketExecutable]):
         self.bucket = bucket
         self.shards = shards
+        self._tracer = obstrace.get_tracer()
         self.slices = batch_slices(len(shards), bucket)
         self.graph = shards[0].graph
         self.launches = (None if shards[0].launches is None
@@ -306,16 +320,24 @@ class ShardedExecutable:
     def __call__(self, rows: np.ndarray) -> np.ndarray:
         """Images of ``rows`` (at most ``bucket`` of them), in memory of
         their own."""
+        tracer = self._tracer
         take = rows.shape[0]
-        self.stage(rows)
+        with tracer.span("stage"):
+            self.stage(rows)
         if self.graph is None:
-            for s in self.shards:
-                s.body()
-            return np.concatenate([s.out_dev[:n].numpy()
-                                   for s, _, n in self._takes(take)])
-        got = self.enqueue(take)
-        self.wait()
-        return self.images(got, take)
+            with tracer.span("enqueue"):
+                for s in self.shards:
+                    s.body()
+                return np.concatenate([s.out_dev[:n].numpy()
+                                       for s, _, n in self._takes(take)])
+        with tracer.span("enqueue"):
+            got = self.enqueue(take)
+        with tracer.span("wait"):
+            self.wait()
+        if got is not None:
+            return got[1]
+        with tracer.span("copy_out"):
+            return self.images(got, take)
 
 
 @dataclasses.dataclass
@@ -733,9 +755,10 @@ class DcnnServeEngine:
             self.plan_stats["builds"] += 1
             self.plan_stats["build_seconds"] += dt
             self._m_plan_build.observe(dt, bucket=bucket, **self._mlabels)
-            self._tracer.complete(f"plan_build b{bucket}", t0, t0 + dt,
-                                  cat="engine", bucket=bucket,
-                                  **self._mlabels)
+            if self._tracer.enabled:
+                self._tracer.complete(f"plan_build b{bucket}", t0, t0 + dt,
+                                      cat="engine", bucket=bucket,
+                                      **self._mlabels)
         return self.plans[bucket]
 
     def _apply(self, bucket: int, plan, z: torch.Tensor,
@@ -867,7 +890,9 @@ class DcnnServeEngine:
         z = np.zeros((bucket,) + self.cfg.input_shape, np.float32)
         with self._dispatch_lock:
             ex = self._get_fn(bucket)
-        self._call(bucket, ex, z, inject=False)
+        made = self._call(bucket, ex, z, inject=False)[3]
+        with self._qlock:
+            self._add_launches_locked(bucket, made)
 
     def _sync(self) -> None:
         for device in set(self._shard_devices()):
@@ -880,7 +905,9 @@ class DcnnServeEngine:
         # been silent past the timeout.  It only counts: no CUDA call may
         # run here (a synchronise would break another thread's capture).
         self._count_fault("heartbeat_fires")
-        self._tracer.instant("heartbeat_fire", cat="fault", **self._mlabels)
+        if self._tracer.enabled:
+            self._tracer.instant("heartbeat_fire", cat="fault",
+                                 **self._mlabels)
 
     def _count_fault(self, event: str) -> None:
         with self._qlock:
@@ -893,89 +920,133 @@ class DcnnServeEngine:
             self._heartbeat.close()
 
     def _call(self, bucket: int, ex: ShardedExecutable, rows: np.ndarray,
-              inject: bool = True):
+              inject: bool = True, retried: bool = False):
         """One attempt of a bucket call on ``rows`` (at most ``bucket`` of
-        them): ``(images, t0, seconds, steady)``.  The clock starts after
-        the stream has synchronised and runs over the injector's hook,
-        staging the rows (padded with zeros to the bucket), the
+        them): ``(images, seconds, steady, launches)``.  The clock starts
+        after the stream has synchronised and runs over the injector's
+        hook, staging the rows (padded with zeros to the bucket), the
         host-to-device copy, the replay (on the CPU the eager run) and the
         device-to-host copy of the images; the heartbeat is armed over the
-        same window.  The first call of a bucket is not steady and stays
-        out of the timing stats.  ``images`` is a new array each call."""
+        same window, and the ``dispatch b{n}`` span covers it (every
+        attempt, the warm-up's too; ``retried`` is its argument).  Before
+        it, ``lock`` spans the wait for the dispatch lock and
+        `CAPTURE_GATE`, and ``sync`` the device-wide synchronise.  The
+        first call of a bucket is not steady and stays out of the timing
+        stats.  ``images`` is a new array each call; ``launches`` counts
+        the path's kernel launches it made (`_account` adds them up)."""
+        tracer = self._tracer
+        waiting = tracer.span("lock").__enter__()
         with self._dispatch_lock:
             with CAPTURE_GATE.shared():
+                waiting.__exit__(None, None, None)
                 launches0 = self._launches()
-                self._sync()
+                with tracer.span("sync"):
+                    self._sync()
+                steady = bucket in self._warm
+                window = (tracer.span(f"dispatch b{bucket}", cat="engine",
+                                      bucket=bucket, steady=steady,
+                                      retried=retried, **self._mlabels)
+                          if tracer.enabled else obstrace.NULL)
                 if self._heartbeat is not None:
                     self._heartbeat.arm()
                 try:
-                    t0 = obsclock.now()
-                    if inject and self.fault_injector is not None:
-                        self.fault_injector.before_call(bucket)
-                    images = ex(rows)
-                    dt = obsclock.now() - t0
+                    with window:
+                        t0 = obsclock.now()
+                        if inject and self.fault_injector is not None:
+                            self.fault_injector.before_call(bucket)
+                        images = ex(rows)
+                        dt = obsclock.now() - t0
                 finally:
                     if self._heartbeat is not None:
                         self._heartbeat.disarm()
                 made = (ex.launches if ex.launches is not None
                         else self._launches() - launches0)
-            self.launch_counts[bucket] = self.launch_counts.get(bucket,
-                                                                0) + made
-            steady = bucket in self._warm
             self._warm.add(bucket)
-        return images, t0, dt, steady
+        return images, dt, steady, made
 
     def _dispatch(self, bucket: int, rows: np.ndarray):
         """One guarded bucket dispatch: ``(images, seconds, steady,
-        retried)``.  The executable is built first, once; each attempt
-        replays it (`_call`).  `TransientCallError` is retried up to
-        ``max_retries`` times with exponential backoff, slept outside the
-        dispatch lock and `CAPTURE_GATE`, then raised as `EngineDegraded`;
-        ``retried`` says a retry preceded the success.  Only steady,
-        unretried samples feed the straggler monitor.  `DeviceLossError`
-        escapes to `generate`."""
+        retried, launches)``.  The executable is built first, once; each
+        attempt replays it (`_call`).  `TransientCallError` is retried up
+        to ``max_retries`` times with exponential backoff, slept outside
+        the dispatch lock and `CAPTURE_GATE`, then raised as
+        `EngineDegraded`; ``retried`` says a retry preceded the success.
+        `DeviceLossError` escapes to `generate`."""
         with self._dispatch_lock:
             ex = self._get_fn(bucket)
+        tracer = self._tracer
         attempts = self.config.max_retries + 1
         for attempt in range(attempts):
             try:
-                images, t0, dt, steady = self._call(bucket, ex, rows)
+                images, dt, steady, made = self._call(
+                    bucket, ex, rows, retried=attempt > 0)
             except TransientCallError as e:
                 self._count_fault("transient_failures")
-                self._tracer.instant("transient_failure", cat="fault",
-                                     bucket=bucket, attempt=attempt,
-                                     **self._mlabels)
+                if tracer.enabled:
+                    tracer.instant("transient_failure", cat="fault",
+                                   bucket=bucket, attempt=attempt,
+                                   **self._mlabels)
                 if attempt + 1 >= attempts:
                     raise EngineDegraded(
                         f"bucket-{bucket} call failed {attempts} "
                         "time(s); retries exhausted") from e
                 self._count_fault("retries")
-                self._tracer.instant("retry", cat="fault", bucket=bucket,
-                                     attempt=attempt, **self._mlabels)
+                if tracer.enabled:
+                    tracer.instant("retry", cat="fault", bucket=bucket,
+                                   attempt=attempt, **self._mlabels)
                 time.sleep(self.config.retry_backoff_s * (2 ** attempt))
                 continue
-            retried = attempt > 0
-            flagged = False
-            with self._qlock:
-                self._dispatches += 1
-                if steady and not retried:
-                    # a retried dispatch must not seed the straggler
-                    # baseline either
-                    mon = self._stragglers.get(bucket)
-                    if mon is None:
-                        mon = self._stragglers[bucket] = StragglerMonitor(
-                            factor=self.config.straggler_factor,
-                            warmup_steps=self.config.straggler_warmup)
-                    flagged = mon.observe(self._dispatches, dt)
-            if flagged:
-                self._count_fault("stragglers")
+            return images, dt, steady, attempt > 0, made
+
+    def _add_launches_locked(self, bucket: int, made: int) -> None:
+        self.launch_counts[bucket] = (self.launch_counts.get(bucket, 0)
+                                      + made)
+
+    def _account(self, bucket: int, take: int, dt: float, steady: bool,
+                 retried: bool, made: int) -> None:
+        """A served dispatch's bookkeeping: its launches, the straggler
+        monitor (fed only steady, unretried samples), the padded rows and
+        the Table II samples, in the dicts and the registry."""
+        flagged = False
+        with self._qlock:
+            self._add_launches_locked(bucket, made)
+            self._dispatches += 1
+            if steady and not retried:
+                # a retried dispatch must not seed the straggler baseline
+                mon = self._stragglers.get(bucket)
+                if mon is None:
+                    mon = self._stragglers[bucket] = StragglerMonitor(
+                        factor=self.config.straggler_factor,
+                        warmup_steps=self.config.straggler_warmup)
+                flagged = mon.observe(self._dispatches, dt)
+        if flagged:
+            self._count_fault("stragglers")
+            if self._tracer.enabled:
                 self._tracer.instant("straggler", cat="fault",
                                      bucket=bucket, seconds=dt,
                                      **self._mlabels)
-            self._tracer.complete(f"dispatch b{bucket}", t0, t0 + dt,
-                                  cat="engine", bucket=bucket, steady=steady,
-                                  retried=retried, **self._mlabels)
-            return images, dt, steady, retried
+        pad = bucket - take
+        if pad:
+            self.stats["padded_images"] += pad
+            self._m_padded.inc(pad, **self._mlabels)
+        if not steady:
+            return
+        bs = self.bucket_stats.setdefault(
+            bucket, {"calls": 0, "images": 0, "seconds": 0.0,
+                     "sumsq_seconds": 0.0, "tainted_calls": 0,
+                     "tainted_seconds": 0.0})
+        if retried:
+            # real work, but not a healthy run: out of the Table II
+            # mean/std/CV samples
+            bs["tainted_calls"] += 1
+            bs["tainted_seconds"] += dt
+            self._m_tainted.inc(bucket=bucket, **self._mlabels)
+        else:
+            bs["calls"] += 1
+            bs["images"] += take
+            bs["seconds"] += dt
+            bs["sumsq_seconds"] += dt * dt
+            self._m_dispatch.observe(dt, bucket=bucket, **self._mlabels)
 
     def _remesh(self, keep: int) -> None:
         """Elastic recovery from a device loss, as the JAX engine's: shrink
@@ -1049,10 +1120,11 @@ class DcnnServeEngine:
             self.fault_stats["remesh_events"].append(event)
         self._m_fault.inc(event="remesh_events", **self._mlabels)
         self._m_devices.set(self.n_devices, **self._mlabels)
-        self._tracer.instant("remesh", cat="fault",
-                             devices_before=devices_before,
-                             devices_after=self.n_devices,
-                             seconds=event["seconds"], **self._mlabels)
+        if self._tracer.enabled:
+            self._tracer.instant("remesh", cat="fault",
+                                 devices_before=devices_before,
+                                 devices_after=self.n_devices,
+                                 seconds=event["seconds"], **self._mlabels)
         if not all(matches.values()):
             raise EngineDegraded(
                 f"post-remesh plan hash mismatch {matches}: the shrunken "
@@ -1125,56 +1197,41 @@ class DcnnServeEngine:
         `EngineDegraded`."""
         z = np.asarray(z, dtype=np.float32)
         n = z.shape[0]
-        t_gen = obsclock.now()
-        outs: List[np.ndarray] = []
-        i = 0
-        chunks = self.plan_chunks(n)
-        while chunks:
-            take, bucket = chunks[0]
-            try:
-                y, dt, steady, retried = self._dispatch(bucket,
-                                                        z[i:i + take])
-            except DeviceLossError as e:
+        tracer = self._tracer
+        with (tracer.span("generate", cat="engine", req=next(_REQUESTS),
+                          rows=n, **self._mlabels)
+              if tracer.enabled else obstrace.NULL):
+            outs: List[np.ndarray] = []
+            i = 0
+            chunks = self.plan_chunks(n)
+            while chunks:
+                take, bucket = chunks[0]
                 try:
-                    self._remesh(e.keep)
-                except EngineDegraded as err:
-                    raise err from e
-                chunks = self.plan_chunks(n - i)
-                continue
-            chunks.pop(0)
-            pad = bucket - take
-            if pad:
-                self.stats["padded_images"] += pad
-                self._m_padded.inc(pad, **self._mlabels)
-            if steady:
-                bs = self.bucket_stats.setdefault(
-                    bucket, {"calls": 0, "images": 0, "seconds": 0.0,
-                             "sumsq_seconds": 0.0, "tainted_calls": 0,
-                             "tainted_seconds": 0.0})
-                if retried:
-                    # real work, but not a healthy run: out of the Table II
-                    # mean/std/CV samples
-                    bs["tainted_calls"] += 1
-                    bs["tainted_seconds"] += dt
-                    self._m_tainted.inc(bucket=bucket, **self._mlabels)
-                else:
-                    bs["calls"] += 1
-                    bs["images"] += take
-                    bs["seconds"] += dt
-                    bs["sumsq_seconds"] += dt * dt
-                    self._m_dispatch.observe(dt, bucket=bucket,
-                                             **self._mlabels)
-            outs.append(y)
-            i += take
-        self.stats["generate_calls"] += 1
-        self.stats["images"] += n
-        self._m_generate_calls.inc(**self._mlabels)
-        self._m_images.inc(n, **self._mlabels)
-        self._tracer.complete("generate", t_gen, obsclock.now(),
-                              cat="engine", rows=n, **self._mlabels)
-        if not outs:
-            return np.zeros((0,) + self.output_shape, np.float32)
-        return np.concatenate(outs, axis=0) if len(outs) != 1 else outs[0]
+                    y, dt, steady, retried, made = self._dispatch(
+                        bucket, z[i:i + take])
+                except DeviceLossError as e:
+                    try:
+                        self._remesh(e.keep)
+                    except EngineDegraded as err:
+                        raise err from e
+                    chunks = self.plan_chunks(n - i)
+                    continue
+                chunks.pop(0)
+                with tracer.span("account"):
+                    self._account(bucket, take, dt, steady, retried, made)
+                outs.append(y)
+                i += take
+            with tracer.span("account"):
+                self.stats["generate_calls"] += 1
+                self.stats["images"] += n
+                self._m_generate_calls.inc(**self._mlabels)
+                self._m_images.inc(n, **self._mlabels)
+            if not outs:
+                return np.zeros((0,) + self.output_shape, np.float32)
+            if len(outs) == 1:
+                return outs[0]
+            with tracer.span("concat"):
+                return np.concatenate(outs, axis=0)
 
     @property
     def output_shape(self) -> Tuple[int, int, int]:
@@ -1255,8 +1312,9 @@ class DcnnServeEngine:
                         reason or f"ticket {rid} shed before execution",
                         stage="shed")
                     self._m_fault.inc(event="shed", **self._mlabels)
-                    self._tracer.instant("shed", cat="fault", rid=rid,
-                                         **self._mlabels)
+                    if self._tracer.enabled:
+                        self._tracer.instant("shed", cat="fault", rid=rid,
+                                             **self._mlabels)
                     return True
         return False
 
@@ -1283,8 +1341,10 @@ class DcnnServeEngine:
                         f"{now - deadline:.3f}s before execution")
                     self._m_fault.inc(event="deadline_expired",
                                       **self._mlabels)
-                    self._tracer.instant("deadline_expired", cat="fault",
-                                         rid=rid, **self._mlabels)
+                    if self._tracer.enabled:
+                        self._tracer.instant("deadline_expired",
+                                             cat="fault", rid=rid,
+                                             **self._mlabels)
                 else:
                     live.append((rid, z, deadline))
                     self._inflight.add(rid)

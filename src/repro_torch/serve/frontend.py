@@ -279,9 +279,10 @@ class AsyncServeFrontend:
                 with self._slock:
                     self._tenant_stats[t.name]["shed_admission"] += 1
                 self._m_req.inc(tenant=t.name, outcome="shed_admission")
-                self._tracer.instant("admission_rejected", cat="frontend",
-                                     tenant=t.name, stage=e.stage,
-                                     rows=req.rows)
+                if self._tracer.enabled:
+                    self._tracer.instant("admission_rejected", cat="frontend",
+                                         tenant=t.name, stage=e.stage,
+                                         rows=req.rows)
                 raise
             req.rid = self._next_rid
             self._next_rid += 1
@@ -291,13 +292,16 @@ class AsyncServeFrontend:
                 self._tenant_stats[t.name]["admitted"] += 1
             self._m_req.inc(tenant=t.name, outcome="admitted")
             self._m_qrows.set(queued_rows + req.rows)
-            req.qspan = self._tracer.begin("queue_wait", cat="frontend",
-                                           rid=req.rid, tenant=t.name,
-                                           rows=req.rows)
+            if self._tracer.enabled:
+                req.qspan = self._tracer.begin("queue_wait", cat="frontend",
+                                               rid=req.rid, tenant=t.name,
+                                               rows=req.rows)
             self._cond.notify()
-        self._tracer.complete("submit", now, obsclock.now(), cat="frontend",
-                              rid=req.rid, tenant=t.name, rows=req.rows,
-                              precision_hint=req.precision_hint)
+        if self._tracer.enabled:
+            self._tracer.complete("submit", now, obsclock.now(),
+                                  cat="frontend", rid=req.rid, tenant=t.name,
+                                  rows=req.rows,
+                                  precision_hint=req.precision_hint)
         return req.rid
 
     def result(self, rid: int,
@@ -317,9 +321,11 @@ class AsyncServeFrontend:
                 f"request {rid} unresolved after {timeout_s:.3f}s")
         with self._slock:
             self._requests.pop(rid, None)
-        self._tracer.complete("collect", t0, obsclock.now(), cat="frontend",
-                              rid=rid, tenant=req.tenant.name,
-                              failed=req.error is not None)
+        if self._tracer.enabled:
+            self._tracer.complete("collect", t0, obsclock.now(),
+                                  cat="frontend", rid=rid,
+                                  tenant=req.tenant.name,
+                                  failed=req.error is not None)
         if req.error is not None:
             raise req.error
         return req.result
@@ -437,9 +443,10 @@ class AsyncServeFrontend:
             with self._slock:
                 self._tenant_stats[req.tenant.name][counter] += 1
             self._m_req.inc(tenant=req.tenant.name, outcome=counter)
-        self._tracer.instant("request_failed", cat="frontend", rid=req.rid,
-                             tenant=req.tenant.name,
-                             error=type(error).__name__)
+        if self._tracer.enabled:
+            self._tracer.instant("request_failed", cat="frontend", rid=req.rid,
+                                 tenant=req.tenant.name,
+                                 error=type(error).__name__)
         req.event.set()
 
     def _record_completion(self, req: _FrontendRequest, precision: str,
@@ -546,9 +553,10 @@ class AsyncServeFrontend:
             self._requeue_or_shed(wave, err)
             return
         done_t = obsclock.now()
-        self._tracer.complete("wave_dispatch", t0, done_t, cat="frontend",
-                              precision=precision, rows=int(len(z)),
-                              reqs=len(wave))
+        if self._tracer.enabled:
+            self._tracer.complete("wave_dispatch", t0, done_t, cat="frontend",
+                                  precision=precision, rows=int(len(z)),
+                                  reqs=len(wave))
         remeshed = self._check_remesh(eng, remesh_before)
         retried = eng.fault_stats["retries"] != retries_before
         if not remeshed and not retried and len(z) <= self._max_bucket:
@@ -600,10 +608,11 @@ class AsyncServeFrontend:
                     self._tenant_stats[req.tenant.name]["requeued"] += 1
             for req in requeue:
                 self._m_req.inc(tenant=req.tenant.name, outcome="requeued")
-                req.qspan = self._tracer.begin(
-                    "queue_wait", cat="frontend", rid=req.rid,
-                    tenant=req.tenant.name, rows=req.rows,
-                    requeue=req.requeues)
+                if self._tracer.enabled:
+                    req.qspan = self._tracer.begin(
+                        "queue_wait", cat="frontend", rid=req.rid,
+                        tenant=req.tenant.name, rows=req.rows,
+                        requeue=req.requeues)
             with self._cond:
                 self._queue[:0] = requeue
                 self._cond.notify()

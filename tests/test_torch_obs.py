@@ -471,3 +471,164 @@ def test_plan_build_span_recorded(tiny):
         trace.disable()
     names = [e["name"] for e in trace.get_tracer().events()]
     assert "plan_build b2" in names
+
+
+# ---------------------------------------------------------------------------
+# the engine's span tree, parents and requests, drops, the profiler mirror
+# ---------------------------------------------------------------------------
+def _traced(fn, profiler=False):
+    """``fn()`` with the process tracer on (mirroring when ``profiler``),
+    then its complete events."""
+    trace.enable(clear=True, profiler=profiler)
+    try:
+        fn()
+    finally:
+        trace.disable()
+    return [e for e in trace.get_tracer().events() if e["ph"] == "X"]
+
+
+def _inside(child, parent):
+    return (parent["ts"] <= child["ts"] and child["ts"] + child["dur"]
+            <= parent["ts"] + parent["dur"])
+
+
+def _check_tree(events):
+    """Every event names an existing parent (or none), lies inside it and
+    carries its request; returns the events by id."""
+    by_id = {e["id"]: e for e in events}
+    assert len(by_id) == len(events)
+    for e in events:
+        if e["parent"] is None:
+            continue
+        parent = by_id[e["parent"]]
+        assert _inside(e, parent), (e["name"], parent["name"])
+        assert e["req"] == parent["req"]
+    return by_id
+
+
+def _children(by_id, parent):
+    return sorted((e for e in by_id.values() if e["parent"] == parent["id"]),
+                  key=lambda e: e["ts"])
+
+
+def test_generate_records_the_span_tree(tiny):
+    params, z = tiny
+    eng = _engine(params, buckets=(4,))
+    events = _traced(lambda: eng.generate(z))
+    by_id = _check_tree(events)
+    gen, = [e for e in events if e["name"] == "generate"]
+    assert gen["parent"] is None and gen["req"] is not None
+    assert gen["args"]["rows"] == 4
+    assert [e["name"] for e in _children(by_id, gen)] == [
+        "lock", "sync", "dispatch b4", "account", "account"]
+    disp = by_id[_children(by_id, gen)[2]["id"]]
+    assert disp["args"]["bucket"] == 4 and disp["args"]["steady"]
+    assert not disp["args"]["retried"]
+    # on the CPU the eager body takes the enqueue's place; no stream wait
+    assert [e["name"] for e in _children(by_id, disp)] == ["stage", "enqueue"]
+    assert all(e["req"] == gen["req"] for e in events)
+    # a second request gets a number of its own
+    again = _traced(lambda: eng.generate(z[:2]))
+    assert {e["req"] for e in again} == {again[-1]["req"]} != {gen["req"]}
+
+
+def test_two_chunk_request_concatenates_inside_generate(tiny):
+    params, z = tiny
+    eng = _engine(params)
+    rows = np.concatenate([z, z[:2]])
+    events = _traced(lambda: eng.generate(rows))
+    by_id = _check_tree(events)
+    gen, = [e for e in events if e["name"] == "generate"]
+    names = [e["name"] for e in _children(by_id, gen)]
+    assert names == ["lock", "sync", "dispatch b4", "account",
+                     "lock", "sync", "dispatch b2", "account",
+                     "account", "concat"]
+    concat = _children(by_id, gen)[-1]
+    assert _inside(concat, gen)
+
+
+def test_disabled_tracer_records_nothing_and_opens_no_range(tiny):
+    from torch.profiler import ProfilerActivity, profile
+
+    params, z = tiny
+    eng = _engine(params, buckets=(4,))
+    tracer = trace.get_tracer()
+    trace.enable(clear=True, profiler=True)
+    trace.disable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.generate(z)
+    assert len(tracer) == 0 and tracer.dropped == 0
+    spans = {"generate", "lock", "sync", "dispatch b4", "stage", "enqueue",
+             "account"}
+    assert not [e.name for e in prof.events() if e.name in spans]
+
+
+def test_dropped_counts_what_the_ring_pushes_out():
+    t = trace.Tracer(capacity=4, enabled=True)
+    for i in range(10):
+        with t.span(f"s{i}"):
+            pass
+    assert len(t) == 4 and t.dropped == 6
+    assert [e["name"] for e in t.events()] == ["s6", "s7", "s8", "s9"]
+    t.instant("i")
+    assert t.dropped == 7
+    t.clear()
+    assert len(t) == 0 and t.dropped == 0
+
+
+def test_parents_and_requests_across_styles():
+    t = trace.Tracer(enabled=True)
+    with t.span("outer", req=7):
+        with t.span("inner"):
+            t0 = clock.now()
+            t.complete("done", t0, t0)
+        h = t.begin("handed")
+    t.end(h)
+    with t.span("alone"):
+        pass
+    ev = {e["name"]: e for e in t.events()}
+    assert ev["outer"]["parent"] is None and ev["outer"]["req"] == 7
+    assert ev["inner"]["parent"] == ev["outer"]["id"]
+    assert ev["done"]["parent"] == ev["inner"]["id"]
+    assert ev["handed"]["parent"] == ev["outer"]["id"]
+    assert {ev[n]["req"] for n in ("inner", "done", "handed")} == {7}
+    assert ev["alone"]["parent"] is None and ev["alone"]["req"] is None
+    assert len({e["id"] for e in t.events()}) == 5
+
+
+@pytest.mark.parametrize("profiler", [True, False])
+def test_profiler_mirror_of_scoped_spans(tiny, profiler):
+    """With the mirror, a CPU profiler sees a range of each scoped span's
+    name, nested as the spans are; without it, none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, z = tiny
+    eng = _engine(params, buckets=(4,))
+
+    def serve():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eng.generate(z)
+        serve.events = prof.events()
+
+    spans = _traced(serve, profiler=profiler)
+    names = {e["name"] for e in spans}
+    ranges = [e for e in serve.events if e.name in names]
+    if not profiler:
+        assert not ranges
+        return
+    assert sorted(e.name for e in ranges) == sorted(e["name"] for e in spans)
+    parent_of = {e["id"]: e["parent"] for e in spans}
+    name_of = {e["id"]: e["name"] for e in spans}
+    want = sorted((e["name"], name_of.get(parent_of[e["id"]]))
+                  for e in spans)
+    got = sorted((r.name, r.cpu_parent.name if r.cpu_parent else None)
+                 for r in ranges)
+    assert got == want
+    by_name = {r.name: r for r in ranges}
+    gen, disp = by_name["generate"], by_name["dispatch b4"]
+    for child in ("stage", "enqueue"):
+        r = by_name[child]
+        assert (disp.time_range.start <= r.time_range.start
+                and r.time_range.end <= disp.time_range.end)
+    assert (gen.time_range.start <= disp.time_range.start
+            and disp.time_range.end <= gen.time_range.end)
