@@ -380,6 +380,10 @@ PATHS = {
     "bf16_sparse": (("deconv2d_sparse_kernel", "bf16"),
                     {"backend": "cuda_sparse"}, BF16_NETS, True),
 }
+# per serving path, its traced launches on the kernel's wgmma path (the
+# instance's kWg parameter true), held equal to the engines'
+# ``wgmma_launch_counts`` by `check_launches` and printed in the kernels line
+WGMMA_TRACED = {}
 SPLIT_RUNS = 30
 REFINE_BUCKETS = (1, 64)
 # the async frontend phase: CelebA at full width, offered loads as the JAX
@@ -830,13 +834,19 @@ def drive(engines, requests):
         with profiled() as prof:
             zero_launch_counts()
             eng.launch_counts.clear()
+            eng.wgmma_launch_counts.clear()
             tickets = [eng.submit(z) for z in requests[name]]
             outputs[name] = [eng.collect(t) for t in tickets]
             torch.cuda.synchronize()
             engine = sum(eng.launch_counts.values())
+            engine_wgmma = sum(eng.wgmma_launch_counts.values())
             wrappers = launch_counts()
+        device = [demangle(e.name) if e.name.startswith("_Z") else e.name
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
         per_net[name] = {"traced": traced_launches(prof)[0],
-                         "engine": engine, "wrappers": wrappers}
+                         "engine": engine, "wrappers": wrappers,
+                         "engine_wgmma": engine_wgmma, "device": device}
     return outputs, per_net
 
 
@@ -847,16 +857,25 @@ def check_launches(path, engines, per_net):
     dispatch a replay); one executable per bucket.  Returns the traced
     launches of the path's kernel over its towers."""
     want_k = PATHS[path][0]
+    wgmma_pat = TRACE_NAMES[want_k] + r",\s*true"
+    WGMMA_TRACED[path] = 0
     for name, eng in engines.items():
         dispatches = len(eng.plan_chunks(sum(REQUEST_SIZES)))
         want = len(eng.cfg.layers) * dispatches
         got = per_net[name]
         traced = {"/".join(k): v for k, v in got["traced"].items()}
+        wgmma = sum(bool(re.search(wgmma_pat, n)) for n in got["device"])
+        WGMMA_TRACED[path] += wgmma
         print(f"  {name} {path}: {dispatches} dispatches x "
               f"{len(eng.cfg.layers)} layers; traced device launches "
-              f"{traced}, engine launch_counts {got['engine']}, wrapper "
-              f"launches {got['wrappers']}, capture_counts "
+              f"{traced} ({wgmma} on the wgmma path), engine launch_counts "
+              f"{got['engine']} (wgmma_launch_counts {got['engine_wgmma']}), "
+              f"wrapper launches {got['wrappers']}, capture_counts "
               f"{eng.capture_counts}", flush=True)
+        if wgmma != got["engine_wgmma"] and got["traced"][want_k] == want:
+            raise AssertionError(
+                f"{path} {name}: {wgmma} traced launches on the wgmma path, "
+                f"the engine's wgmma_launch_counts {got['engine_wgmma']}")
         exact = got["engine"] == want and not any(got["wrappers"].values())
         if (got["traced"][want_k] != want or not exact
                 or any(v for k, v in got["traced"].items() if k != want_k)):
@@ -1155,9 +1174,9 @@ def split_of(args):
 def kernel_instance(report, template, tiles, stride, flag, info=None):
     """(name, registers, spill bytes) from ``ptxas`` of the instance of
     ``template`` (its first argument ``flag``: kRequant or kSparse) that a
-    launch at ``tiles`` runs (the bf16 template's: the path and (WM, WN)
-    of ``info``, `deconv_kernel.launch_info`); registers and spills None
-    where the report lacks it."""
+    launch at ``tiles`` runs (the fp32 and bf16 templates': the path and
+    (WM, WN) of ``info``, `deconv_kernel.launch_info`); registers and
+    spills None where the report lacks it."""
     pix = tiles.t_n * (tiles.t_oh // stride) * (tiles.t_ow // stride)
     wm, wn = tc_warp_tile(pix, tiles.t_co)
     fl = "true" if flag else "false"
@@ -1193,11 +1212,19 @@ def phase_times(smi, peaks, int8_nets, report):
                 dense = launch_args(x, w, b, g.stride, g.padding,
                                     *t.as_kwargs().values(), l.activation)
                 xp, wp, bp, kw, _ = dense
+                # the weights packed CI-minor as an engine holds them (read
+                # on the wgmma path)
+                wt = deconv_kernel.pack_ci_minor(wp)
+                info = deconv_kernel.launch_info(deconv_kernel.launch_params(
+                    xp, wp, [("b", bp, xp.dtype)], **kw))
+                inst, regs, spill = kernel_instance(
+                    report, "deconv2d_tc_kernel", t, g.stride, False, info)
                 x_nchw = x.permute(0, 3, 1, 2).contiguous()
                 nbytes = 4 * (n_in + n_w + g.c_out + n_out)
                 rows.append(time_row(
                     "deconv2d_kernel", cfg, i, batch, t,
-                    lambda: deconv_kernel.deconv2d_launch(xp, wp, bp, **kw),
+                    lambda: deconv_kernel.deconv2d_launch(xp, wp, bp, wt=wt,
+                                                          **kw),
                     lambda: deconv_kernel.deconv2d_launch_plain(xp, wp, bp,
                                                                 **kw),
                     lambda: F.conv_transpose2d(
@@ -1206,7 +1233,9 @@ def phase_times(smi, peaks, int8_nets, report):
                     ops, tf32x3, nbytes, peaks["bw"], smi,
                     split=split_of(dense), dtype="float32",
                     bound_fp32_fma_ms=max(ops / peaks["fp32"],
-                                          nbytes / peaks["bw"]) * 1e3))
+                                          nbytes / peaks["bw"]) * 1e3,
+                    instance=inst, registers=regs, spill_bytes=spill,
+                    path=info["path"], stages=info["stages"]))
                 # B2: int8 in and weights, f32 scale and bias, int8 out (f32
                 # on the last layer); no PyTorch call computes this
                 xq, lq, out_scale = int8_layer_inputs(
@@ -1231,21 +1260,23 @@ def phase_times(smi, peaks, int8_nets, report):
                     registers=regs, spill_bytes=spill,
                     library_note="no PyTorch call computes an int8 "
                                  "transposed convolution on CUDA"))
-                # B3: fp32 on weights pruned at the serving level; the bound
-                # counts the MACs and weights its schedule keeps
+                # B3: fp32 on weights pruned at the serving level, at the
+                # tiles a zero-skip engine plans; the bound counts the MACs
+                # and weights its schedule keeps
+                t3 = hopper_tiles(g, batch, sparse=True)
                 wq = prune(w, SERVE_SPARSITY)
-                tables = make_sparse_plan(wq, g.stride, g.padding, t.t_ci,
-                                          t.t_co)
+                tables = make_sparse_plan(wq, g.stride, g.padding, t3.t_ci,
+                                          t3.t_co)
                 sched = schedule_tensors(tables, "cuda")
-                macs, kept_w = kept_work(g, tables, t.t_ci, t.t_co)
+                macs, kept_w = kept_work(g, tables, t3.t_ci, t3.t_co)
                 sp = launch_args(x, wq, b, g.stride, g.padding,
-                                 *t.as_kwargs().values(), l.activation)
+                                 *t3.as_kwargs().values(), l.activation)
                 kept_bytes = 4 * (n_in + kept_w + g.c_out + n_out)
                 wq_lib = wq.permute(2, 3, 0, 1).contiguous()
                 skipped, slabs, _, _ = schedule_stats(
-                    tables, sp[1].shape[2] // t.t_ci, g.kernel)
+                    tables, sp[1].shape[2] // t3.t_ci, g.kernel)
                 rows.append(time_row(
-                    "deconv2d_sparse_kernel", cfg, i, batch, t,
+                    "deconv2d_sparse_kernel", cfg, i, batch, t3,
                     lambda: sparse_kernel.deconv2d_sparse_launch(
                         *sp[:3], *sched, **sp[3]),
                     lambda: sparse_kernel.deconv2d_sparse_launch_plain(
@@ -3443,6 +3474,8 @@ def kernel_entries(rows, launches, dense, int8, sparse, smi):
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": launched,
             "launches_by_path": by_path,
+            "wgmma_launches_by_path": {p: n for p, n in WGMMA_TRACED.items()
+                                       if PATHS[p][0][0] == kname},
             "max_abs_err": errs[kname][0], **errs[kname][1],
             **sums("", b64),
             "bound_by": max(by, key=by.get),

@@ -112,12 +112,14 @@ def launch_resources(layer) -> Dict[str, int]:
     cip, cop = launch_channels(layer)
     split = launch_split(np_, cip, cop, ohp, owp, t.t_oh, t.t_ow, t.t_ci,
                          t.t_co, t_n)
+    sparse = layer.backend == "cuda_sparse"
     return {"smem_bytes": kernel_smem_bytes(
                 g, t.t_oh, t.t_ow, t.t_ci, t.t_co, t_n=t_n, split=split,
-                dtype=layer.dtype),
+                dtype=layer.dtype, sparse=sparse),
             "threads": launch_threads(g.stride, t.t_oh, t.t_ow, t.t_co, t_n,
                                       dtype=layer.dtype, k_size=g.kernel,
-                                      t_ci=t.t_ci),
+                                      t_ci=t.t_ci, sparse=sparse,
+                                      split=split),
             "split": split}
 
 

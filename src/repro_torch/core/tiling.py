@@ -518,27 +518,79 @@ def bf16_wgmma_tile(stride: int, pix: int, t_co: int, k_size: int,
     return consumers, wm, n
 
 
-def _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, dtype, k_size, t_ci):
-    if dtype_name(dtype) != "bfloat16":
+def fp32_wgmma_tile(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
+                    k_size: int, t_ci: int, split: int = 1,
+                    sparse: bool = False) -> Optional[Tuple[int, int, int]]:
+    """``(consumers, WM, N)`` of the fp32 dense kernel's wgmma path (3xTF32
+    wgmma, the weights packed CI-minor) at these tiles, or None where the
+    launch takes the mma.sync path (`csrc/deconv2d_tc.cu`'s setup decides
+    the same way).  The bf16 path's m64 tiles (`bf16_wgmma_tile`) at N
+    64: a phase's whole 64-pixel tiles by ``t_co`` (64 or 128) in groups
+    of 64 channels, one or two consumer warpgroups of WM = 1 or 2 tiles
+    each (on the H100 a tap group took about as long at N 32 as at N 64,
+    and every N 32 tile timed lost to the mma.sync path's), and where
+    their sums take 128 floats a thread the A fragments room for one k8
+    step of hi and lo (``t_ci`` 8).  Besides: dense only (zero-skip keeps
+    mma.sync); a cluster split of at most 2 (the blocks of a 4- or 8-way
+    split paid the path's fixed cost for a few chunks each); ``t_ci`` 8
+    or 16 (a row of 32 or 64 bytes, a swizzle's width); phase tiles of
+    more than one pixel an image (a 1x1 root's tiles are one); and two
+    stages of the most a block of these tiles can stage within
+    WG_F32_STAGE_BUDGET: K^2 slots of hi and lo boxes, ``t_ci * t_co``
+    words each, and ``t_n`` windows of (t_oh/S + ceil(K/S)) x (t_ow/S +
+    ceil(K/S)) pixels of ``t_ci`` words, to WG_ALIGN bytes (Eq. 5's
+    extent: a phase plan's deltas span at most ceil(K/S))."""
+    th, tw = t_oh // stride, t_ow // stride
+    pix = t_n * th * tw
+    if sparse or split > 2 or t_ci not in WG_F32_T_CI or th * tw <= 1 \
+            or pix % 64 or t_co not in (64, 128) or k_size ** 2 > WG_TAPS:
+        return None
+    reach = -(-k_size // stride)
+    x = -(-4 * t_n * (th + reach) * (tw + reach) * t_ci
+          // WG_ALIGN) * WG_ALIGN
+    if 2 * (x + 8 * k_size ** 2 * t_co * t_ci) > WG_F32_STAGE_BUDGET:
+        return None
+    wg = bf16_wgmma_tile(stride, pix, t_co, k_size, t_ci)
+    if wg is None or (wg[1] * wg[2] > 64 and t_ci != 8):
+        return None
+    return wg
+
+
+def _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, dtype, k_size, t_ci,
+                sparse=False, split=1):
+    """The wgmma path's ``(consumers, WM, N)`` of a launch of ``dtype``, or
+    None: bf16 dense and zero-skip, fp32 dense (which could not take it
+    unless a phase tile is whole m64 tiles of 64 or 128 channels)."""
+    name = dtype_name(dtype)
+    pix = t_n * (t_oh // stride) * (t_ow // stride)
+    if name == "float32" and (sparse or split > 2 or pix % 64
+                              or t_co not in (64, 128)):
+        return None
+    if name not in ("bfloat16", "float32"):
         return None
     if k_size is None or t_ci is None:
-        raise ValueError("the bf16 kernels' launch depends on the kernel "
+        raise ValueError(f"the {name} kernels' launch depends on the kernel "
                          "size and the CI chunk: pass k_size and t_ci")
-    return bf16_wgmma_tile(stride, t_n * (t_oh // stride) * (t_ow // stride),
-                           t_co, k_size, t_ci)
+    if name == "float32":
+        return fp32_wgmma_tile(stride, t_oh, t_ow, t_co, t_n, k_size, t_ci,
+                               split)
+    return bf16_wgmma_tile(stride, pix, t_co, k_size, t_ci)
 
 
 def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
                   kernel: str = "tc", dtype="float32",
                   k_size: Optional[int] = None,
-                  t_ci: Optional[int] = None) -> int:
+                  t_ci: Optional[int] = None, sparse: bool = False,
+                  split: int = 1) -> int:
     """Threads of one block that compute: one warp per (phase, WM*16
-    rows, WN*8 columns) of the tile, over all S*S output phases; on the
-    bf16 wgmma path (`bf16_wgmma_tile`) the producer warpgroup and the
-    consumer warpgroups (bf16 takes the layer's ``k_size`` and the
-    tile's ``t_ci``)."""
+    rows, WN*8 columns) of the tile, over all S*S output phases; on a
+    wgmma path (`bf16_wgmma_tile`, `fp32_wgmma_tile`) the producer
+    warpgroup and the consumer warpgroups (those take the layer's
+    ``k_size`` and the tile's ``t_ci``; ``sparse`` a zero-skip launch,
+    ``split`` the launch's cluster split)."""
     _check_kernel(kernel)
-    wg = _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, dtype, k_size, t_ci)
+    wg = _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, dtype, k_size, t_ci,
+                     sparse, split)
     if wg is not None:
         return 128 * (wg[0] + 1)
     pix = t_n * (t_oh // stride) * (t_ow // stride)
@@ -550,12 +602,14 @@ def block_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
 def launch_threads(stride: int, t_oh: int, t_ow: int, t_co: int, t_n: int,
                    kernel: str = "tc", dtype="float32",
                    k_size: Optional[int] = None,
-                   t_ci: Optional[int] = None) -> int:
+                   t_ci: Optional[int] = None, sparse: bool = False,
+                   split: int = 1) -> int:
     """Threads a block is launched with: `block_threads`, but at least 128
     and a whole number of warps; the threads past the last phase only
     stage (a small tile's CI chunks are not staged by one warp)."""
     return -(-max(block_threads(stride, t_oh, t_ow, t_co, t_n, kernel,
-                                dtype, k_size, t_ci), 128) // 32) * 32
+                                dtype, k_size, t_ci, sparse, split),
+                  128) // 32) * 32
 
 
 def staged_window(in_size: int, out_padded: int, t_out: int, kernel: int,
@@ -587,12 +641,14 @@ def staged_window(in_size: int, out_padded: int, t_out: int, kernel: int,
 TC_STAGE_BUDGET = 100 * 1024   # the ring holds as many stages (2..4) as fit
 WG_STAGE_BUDGET = 200 * 1024   # the bf16 wgmma path's ring (2..4 stages)
 WG_ALIGN = 1024                # its ring starts at a 128-byte-swizzle atom
+WG_F32_STAGE_BUDGET = KERNEL_MAX_SMEM - WG_ALIGN  # the fp32 wgmma path's ring
+WG_F32_T_CI = (8, 16)         # its CI chunks: 32- or 64-byte rows
 
 
 def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
                    padding: int, ohp: int, owp: int, t_oh: int, t_ow: int,
                    t_ci: int, t_co: int, t_n: int, split: int = 1,
-                   dtype="float32") -> Tuple[int, int]:
+                   dtype="float32", sparse: bool = False) -> Tuple[int, int]:
     """(stages, bytes) of the "tc" kernels' dynamic shared memory.
 
     One stage holds a CI chunk.  fp32: the staged windows of the ``t_n``
@@ -609,19 +665,27 @@ def tc_smem_layout(in_h: int, in_w: int, kernel: int, stride: int,
     the bf16 windows padded to WG_ALIGN bytes, then per valid tap its
     t_co / N TMA boxes of ``t_ci`` k-rows by N channels, unpadded (the
     boxes are swizzled, not strided); its ring has a budget of its own,
-    and the block WG_ALIGN bytes more, to align the ring."""
+    and the block WG_ALIGN bytes more, to align the ring.  The fp32 wgmma
+    path (`fp32_wgmma_tile`, dense only: ``sparse`` says a zero-skip
+    launch): the windows as one TMA box lays them out, ``t_ci`` words a
+    pixel, padded to WG_ALIGN bytes, then per valid tap its boxes of N
+    channels by ``t_ci`` words, then the same boxes' lo planes, in a ring
+    of WG_F32_STAGE_BUDGET bytes."""
     rows_h, taps_h = staged_window(in_h, ohp, t_oh, kernel, stride, padding)
     rows_w, taps_w = staged_window(in_w, owp, t_ow, kernel, stride, padding)
     name = dtype_name(dtype)
     pix = t_n * (t_oh // stride) * (t_ow // stride)
     partial = 4 * stride * stride * pix * t_co if split > 1 else 0
-    if _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, name, kernel,
-                   t_ci) is not None:
-        atom = WG_ALIGN // 2
-        x = -(-t_n * rows_h * rows_w * bf16_row_stride(t_ci) // atom) * atom
-        stage = 2 * (x + taps_h * taps_w * t_ci * t_co)
-        stages = max([n for n in (2, 3, 4) if n * stage <= WG_STAGE_BUDGET],
-                     default=2)
+    if _wgmma_tile(stride, t_oh, t_ow, t_co, t_n, name, kernel, t_ci,
+                   sparse, split) is not None:
+        fp32 = name == "float32"
+        elem = 4 if fp32 else 2
+        atom = WG_ALIGN // elem
+        row = t_ci if fp32 else bf16_row_stride(t_ci)
+        x = -(-t_n * rows_h * rows_w * row // atom) * atom
+        stage = elem * (x + (2 if fp32 else 1) * taps_h * taps_w * t_ci * t_co)
+        budget = WG_F32_STAGE_BUDGET if fp32 else WG_STAGE_BUDGET
+        stages = max([n for n in (2, 3, 4) if n * stage <= budget], default=2)
         return stages, max(stages * stage, partial) + WG_ALIGN
     if name == "int8":
         row = int8_row_stride(t_ci)
@@ -651,11 +715,13 @@ def int8_acc_bound(kernel: int, stride: int, padding: int, cip: int) -> int:
 
 def kernel_smem_bytes(geom: DeconvGeometry, t_oh: int, t_ow: int, t_ci: int,
                       t_co: int, t_n: int = 1, kernel: str = "tc",
-                      split: int = 1, dtype="float32") -> int:
+                      split: int = 1, dtype="float32",
+                      sparse: bool = False) -> int:
     """Dynamic shared memory of one kernel block, in bytes: `tc_smem_layout`
-    for ``dtype`` at the layer's tile-padded output."""
+    for ``dtype`` (``sparse``: a zero-skip launch) at the layer's
+    tile-padded output."""
     _check_kernel(kernel)
     return tc_smem_layout(
         geom.in_h, geom.in_w, geom.kernel, geom.stride, geom.padding,
         -(-geom.out_h // t_oh) * t_oh, -(-geom.out_w // t_ow) * t_ow,
-        t_oh, t_ow, t_ci, t_co, t_n, split, dtype)[1]
+        t_oh, t_ow, t_ci, t_co, t_n, split, dtype, sparse)[1]

@@ -58,9 +58,10 @@
 //     to the accumulators, which start at the bias: the tensor cores round
 //     each mma's sum toward zero, and one chain of 1536 mma into one
 //     accumulator drifted by 3.6e-5 on CelebA's widest layer.
-//     fp32 stays on mma.sync: TF32 wgmma reads K-major core matrices from
-//     shared memory, and the per-tap gather of A breaks that layout except
-//     for phase tiles exactly 8 pixels wide (bf16 takes wgmma, step 8).
+//     Dense fp32 takes wgmma where a block's phase tiles are whole m64
+//     tiles (step 9): A, gathered per tap, comes from registers there, and
+//     only B, the weights, has to be K-major; elsewhere, and for zero-skip,
+//     fp32 stays on mma.sync.
 //  2. Asynchronous staging.  A ring of 2..4 stages of (input window, weight
 //     rows), filled by the copy engine: one cp.async.bulk per staged row (a
 //     pixel's t_ci channels, a tap's and channel's t_co weights), counted
@@ -161,6 +162,44 @@
 //     __grid_constant__ parameter.  The cluster split and its rank-ordered
 //     sum are step 3's.  Phase tiles under 64 pixels (bucket 1 on the
 //     first layers) and thin layers keep the mma.sync path.
+//  9. Dense fp32 on wgmma (the kWg path of the fp32 template, `Geometry::wg`
+//     for D_F32 with P_SPARSE 0): step 8's block, m64 tiles and tap lists,
+//     on 3xTF32 wgmma.mma_async m64nNk8.  TF32 wgmma takes A from registers
+//     in mma.sync m16n8k8's A layout, which the per-tap ldmatrix x4 gives
+//     on fp32 rows as on bf16 ones (a word is two b16 halves: lane l gets
+//     word l % 4 of row l / 4).  B it reads K-major only (no transpose
+//     bit), so the weights come packed CI-minor, (K, K, COp, CIp), once
+//     per engine (as B2's), and a weight box is N output channels by t_ci
+//     input channels.  t_ci is 8 or 16: a row of 32 or 64 bytes, staged in
+//     that swizzle.  The split: per k8 step a consumer warp cuts its A
+//     words as step 1 does (hi = a with its 13 low bits cleared, lo = a -
+//     hi, in registers) and issues a_lo*b_hi, a_hi*b_lo, a_hi*b_hi, step
+//     1's three products in step 1's order.  B's hi plane is the box as
+//     TMA wrote it: the tensor cores read a raw f32 word as TF32 by
+//     ignoring its 13 low bits, which is step 1's cut; the lo plane (v
+//     minus v so cut, exact in f32) is written beside it once the box has
+//     landed, so each weight comes from L2 once a block (the split done in
+//     device memory would double those bytes).  A and B both round toward
+//     zero at the cut, as on mma.sync.  The producer warpgroup's warp 0
+//     only copies, up to `stages` chunks ahead: the block's input window
+//     as one 4-D TMA box (t_n images by win_h x win_w pixels by t_ci
+//     channels of the host-padded input; rows past it read zeros) and the
+//     weight boxes; warps 1-3 write each chunk's lo planes as its copies
+//     land, fence them for the async proxy wgmma reads through, and arrive
+//     on the stage's ready barrier, which the consumers wait on.  A
+//     consumer warpgroup runs its tiles one after another, each tap's
+//     group of t_ci / 8 x 3 wgmma while the next tap's fragments load (two
+//     buffers); the fresh partial per chunk is step 1's.  The ring may
+//     take the whole of shared memory (one block per SM at these
+//     registers).  On the H100 the first design copied the window row by
+//     row (one bulk copy a pixel, 32 bytes each) and that alone took most
+//     of a layer's time; as one box it is cheap, and the consumers bound
+//     the kernel: a group's time is its latency, about the same at N 32 and
+//     64 (so N 64, t_ci 8 wins where it fits).  Alternating two tiles' or
+//     two chunks' groups in flight, or pipelining the groups across tiles,
+//     ran 25-45 % slower than one tile's chain at a time.  A 1x1 root
+//     keeps mma.sync: its phase tiles are one pixel an image, one valid tap
+//     a block, and it reads each weight once.
 //
 // Plain C interface (loaded with ctypes): each `*_forward` launches on the
 // given stream, does not synchronise and allocates nothing.
@@ -173,6 +212,7 @@
 #include <atomic>
 #include <cstring>
 #include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -199,17 +239,21 @@ constexpr int kWgConsumerRegs = 224;
 constexpr int kWgStageBudget = 200 * 1024;  // the wgmma path's ring (2 stages at least)
 constexpr int kWgAlign = 1024;             // a 128-byte-swizzle atom: 8 rows of 128 bytes
 constexpr int kWgTaps = 64;                // valid taps over a block's phases (its tap lists)
+// the fp32 wgmma path's ring: all of a block's shared memory but the
+// alignment (a block takes a whole SM's registers)
+constexpr int kWgF32StageBudget = kMaxDynamicSmem - kWgAlign;
 
 // Layout of the int32 parameter array the host passes (kept in step with
 // repro_torch/kernels/deconv2d/kernel.py::_TC_PARAM_FIELDS).
 enum Param {
   P_N, P_IHP, P_IWP, P_CIP, P_K, P_COP, P_OHP, P_OWP, P_S,
   P_TN, P_TOH, P_TOW, P_TCI, P_TCO, P_TIH, P_TIW, P_BASE_H, P_BASE_W,
-  P_ACT, P_IH, P_IW, P_PAD_L, P_THREADS, P_SPLIT, P_DTYPE, P_TAPS
+  P_ACT, P_IH, P_IW, P_PAD_L, P_THREADS, P_SPLIT, P_DTYPE, P_SPARSE, P_TAPS
 };
 
 // P_DTYPE: the staged type, and so the instance and shared layout (the
-// codes of repro_torch/kernels/deconv2d/kernel.py::_DTYPE_CODE).
+// codes of repro_torch/kernels/deconv2d/kernel.py::_DTYPE_CODE).  P_SPARSE:
+// 1 for a zero-skip launch, whose fp32 instance has no wgmma path.
 enum Dtype { D_F32 = 0, D_BF16 = 1, D_INT8 = 2 };
 
 // Argument errors are reported as negative codes, CUDA errors as positive.
@@ -237,8 +281,8 @@ struct Geometry {
   // the int8 kernel's layout (else fp32); last, so that the fp32 kernels'
   // fields keep their offsets and compiled code
   bool int8;
-  // the bf16 wgmma path (design step 8): consumer warpgroups, m64 tiles a
-  // warpgroup, the wgmma's N and the tile's 64-or-fewer-channel groups
+  // the wgmma path (design steps 8 and 9): consumer warpgroups, m64 tiles
+  // a warpgroup, the wgmma's N and the tile's 64-or-fewer-channel groups
   bool wg;
   int wg_consumers, wg_wm, wg_n, wg_ngroups, wg_mgroups;
 };
@@ -434,6 +478,27 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// One 4-D TMA tensor copy: the box of `map` at (c0, c1, c2, c3), innermost
+// first, into shared memory at `dst` in the map's swizzle, counted on
+// `bar`; coordinates past the tensor read zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, void* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The byte offset `a` of a region laid out in rows of `rowbytes` (32 or 64)
+// bytes as a TMA copy in that many bytes' swizzle places it (the region
+// aligned to 1024 bytes): bits 4.. XORed with bits 7.. (1 or 2 bits), so
+// that 8 consecutive rows' 16-byte pieces fall in distinct bank groups.
+__device__ __forceinline__ unsigned swizzled(unsigned a, int rowbytes) {
+  return a ^ (((a >> 7) & (unsigned)((rowbytes >> 4) - 1)) << 4);
+}
+
 // The shared-memory matrix descriptor of a B operand (16 k-rows of one
 // staged box): MN-major, the output channels contiguous, `rowbytes` (64 or
 // 128) bytes a k-row in that many bytes' swizzle, so that 8 k-rows make
@@ -515,6 +580,74 @@ __device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// The shared-memory matrix descriptor of a B operand on the fp32 wgmma path
+// (design step 9): K-major, each output channel's k8 step 32 contiguous
+// bytes of a `rowbytes` (32 or 64) byte row in that many bytes' swizzle,
+// 8 rows a swizzle atom, so that the stride byte offset between 8-row
+// groups is 8 * rowbytes; the leading byte offset is unused (one
+// instruction's 32 bytes never cross an atom).  A k8 step inside a wider
+// row starts 32 bytes further on.
+__device__ __forceinline__ uint64_t wg_desc_k(unsigned addr, int rowbytes) {
+  const uint64_t layout = rowbytes == 64 ? 2 : 3;
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * rowbytes) >> 4) << 32) | (layout << 62);
+}
+
+// d = a * B + (scale_d ? d : 0) over one k8 step, TF32 operands, f32 sums:
+// a is the warp's 16 rows of the warpgroup's 64 in registers (the layout
+// of mma.sync m16n8k8's tf32 A: rows lane/4 (a0, a2) and lane/4 + 8 (a1,
+// a3), k words lane%4 (a0, a1) and lane%4 + 4 (a2, a3)), B (8 x N) from
+// shared memory through `desc`, K-major; d as for wgmma_bf16.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// v - (v with its 13 low bits cleared): the lo half of split_tf32, exact in
+// f32, for a B word whose hi half the tensor cores take from v itself
+__device__ __forceinline__ float tf32_lo(float v) {
+  return v - __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+}
+
 // n / d and n % d for a divisor fixed per block, with a multiply-high
 // (Granlund and Montgomery's round-up method, for n < 2^31).
 struct FastDiv {
@@ -591,10 +724,39 @@ __device__ __forceinline__ void block_taps(const Geometry& g, const int* s_taps,
   }
 }
 
-template <bool kSparse, int WM, int WN>
-__global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
+template <int WM, int WN>
+__device__ __forceinline__ void f32_wgmma_block(const float* __restrict__ b,
+                                                float* __restrict__ y, const Geometry& g,
+                                                const TapTable& taps, const CUtensorMap* tmap,
+                                                const CUtensorMap* xmap);
+
+// The fp32 wgmma path's tensor maps (the weights', the input's), passed in
+// the kernel's parameter space; the mma.sync instances take an empty struct
+// in their place, so that their parameters stay what steps 1-5 pass.  (With
+// the two maps in every instance's parameters, the profiler mirror's card
+// test, tests/test_torch_obs_cuda.py, saw a dispatch's input copy start
+// before its host range in 4 of 6 runs on the H100; without, in none of 6.)
+struct TensorMaps {
+  CUtensorMap w, x;
+};
+struct NoMaps {};
+template <bool kWg>
+using MapsOf = std::conditional_t<kWg, TensorMaps, NoMaps>;
+
+// The fp32 dense and zero-skip kernels: two paths of one template.  kWg
+// (design step 9, dense only): a producer warpgroup and 3xTF32 wgmma
+// consumer warpgroups, where every phase tile is whole m64 tiles of 64
+// channels (`Geometry::wg`, tiling.py's `fp32_wgmma_tile`); w is then
+// packed CI-minor and reached through `maps.w`, x through `maps.x`.  Else
+// (design steps 1-5): warps of mma.sync m16n8k8 over the block's phases.
+template <bool kSparse, bool kWg, int WM, int WN>
+__global__ void __launch_bounds__(kWg ? kWgThreads : kMaxThreads, 1) deconv2d_tc_kernel(
     const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
-    float* __restrict__ y, Geometry g, TapTable taps, Schedule sched) {
+    float* __restrict__ y, Geometry g, TapTable taps, Schedule sched,
+    const __grid_constant__ MapsOf<kWg> maps) {
+  if constexpr (kWg) {
+    f32_wgmma_block<WM, WN>(b, y, g, taps, &maps.w, &maps.x);
+  } else {
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_taps[kTapWords];
   // per dim (0: rows, 1: cols): which phase taps read any real input for
@@ -997,6 +1159,7 @@ __global__ void __launch_bounds__(kMaxThreads) deconv2d_tc_kernel(
     out_row(r, phs / s, phs % s)[col] = activate(v + b[co0 + col], g.act);
   }
   cluster.sync();
+  }
 }
 
 // The int8 kernel (design step 6): the fp32 kernel's block, warp grid,
@@ -1671,6 +1834,352 @@ __device__ __forceinline__ void bf16_wgmma_block(const uint16_t* __restrict__ x,
   cluster.sync();
 }
 
+// One tap's k8 steps on the fp32 wgmma path (design step 9): per step the
+// warp's 16 rows of A by ldmatrix x4 from the window at `xs` (the byte
+// offset `xt` of this lane's row at the tap, 32 bytes a step, under the
+// window's swizzle), cut into hi and lo in registers as split_tf32 cuts
+// them, then a_lo*b_hi, a_hi*b_lo and a_hi*b_hi on the tap's box at `wt`
+// (its lo plane `lo` bytes on; a step 32 bytes along each K-major row of
+// `rowbytes`), committed as one group.  As wg_tap: the caller alternates
+// two fragment buffers, and one group stays in flight.
+template <int N, int KS>
+__device__ __forceinline__ void wg_tap_tf32(float (&part)[N / 2], uint32_t (&fh)[KS][4],
+                                            uint32_t (&fl)[KS][4], bool& fresh, unsigned xs,
+                                            unsigned xt, unsigned wt, unsigned lo, int rowbytes,
+                                            int ksteps) {
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    if (k < ksteps) {
+      uint32_t r[4];
+      ldsm_x4(r, xs + swizzled(xt + 32u * (unsigned)k, rowbytes));
+#pragma unroll
+      for (int c = 0; c < 4; ++c) split_tf32(__uint_as_float(r[c]), fh[k][c], fl[k][c]);
+    }
+  }
+  wg_fence();
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    if (k < ksteps) {
+      const uint64_t bh = wg_desc_k(wt + 32u * (unsigned)k, rowbytes);
+      const uint64_t bl = wg_desc_k(wt + lo + 32u * (unsigned)k, rowbytes);
+      wgmma_tf32<N>(part, fl[k], bh, fresh ? 0 : 1);
+      fresh = false;
+      wgmma_tf32<N>(part, fh[k], bl, 1);
+      wgmma_tf32<N>(part, fh[k], bh, 1);
+    }
+  }
+  wg_commit();
+  wg_wait<1>();
+}
+
+// The fp32 dense kernel's wgmma path (design step 9): bf16_wgmma_block's
+// block on f32 and 3xTF32 wgmma.  Per CI chunk the producer's warp 0 waits
+// for the stage to be released, then issues the block's input window as
+// one 4-D TMA tensor copy (t_n images by win_h x win_w pixels by t_ci
+// channels of the host-padded input, from the span's first row and column;
+// rows past the input read zeros) and each weight slot's boxes (N output
+// channels by t_ci input channels of the CI-minor weights) as 2-D ones,
+// counted on the stage's full barrier; warps 1-3 wait for them, write the
+// boxes' lo plane and arrive on the stage's ready barrier.  A consumer
+// warpgroup owns WM m64 tiles of the block and, per tap, issues
+// wg_tap_tf32's groups on the ready stage, then adds the chunk's fresh
+// partial to the bias-initialised sums and releases the stage.
+template <int WM, int WN>
+__device__ __forceinline__ void f32_wgmma_block(const float* __restrict__ b,
+                                                float* __restrict__ y, const Geometry& g,
+                                                const TapTable& taps, const CUtensorMap* tmap,
+                                                const CUtensorMap* xmap) {
+  constexpr int N = WN * 8;
+  // k8 steps a fragment buffer holds (hi and lo, 8 registers a step): a
+  // warpgroup whose sums take 128 floats a thread takes t_ci 8
+  constexpr int KS = WM * N > 64 ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  __shared__ int s_taps[kTapWords];
+  __shared__ unsigned char s_tap_ok[2][kMaxStride * kMaxTaps];
+  __shared__ unsigned s_kok[2];
+  __shared__ int s_span[4];
+  __shared__ int s_real[4];
+  __shared__ short s_wtap[kMaxK * kMaxK];
+  // per stage: full when its copies have landed, ready when its lo plane
+  // is written, empty when every consumer warp is done with it
+  __shared__ __align__(8) unsigned long long s_full[kMaxStages];
+  __shared__ __align__(8) unsigned long long s_ready[kMaxStages];
+  __shared__ __align__(8) unsigned long long s_empty[kMaxStages];
+  // per phase p, its valid taps s_pl_n[p] .. s_pl_n[p + 1] - 1: the tap's
+  // input-window offset in pixels and (weight slot | flat tap << 8)
+  __shared__ int s_pl_n[kMaxStride * kMaxStride + 1];
+  __shared__ int s_pl_x[kWgTaps];
+  __shared__ int s_pl_st[kWgTaps];
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kTapWords; i += blockDim.x) s_taps[i] = taps.words[i];
+
+  const int s = g.s;
+  const int th = g.t_oh / s, tw = g.t_ow / s;
+  const int pix = g.pix;
+  const int split = g.split;
+  const int rank = blockIdx.x % split;
+  int tile = blockIdx.x / split;
+  const int co_t = tile % g.tiles_co;
+  tile /= g.tiles_co;
+  const int ow_t = tile % g.tiles_w;
+  const int oh_t = tile / g.tiles_w;
+  const int n0 = blockIdx.y * g.t_n;
+  const int co0 = co_t * g.t_co;
+  const int h0 = oh_t * th + g.base_h;
+  const int w0 = ow_t * tw + g.base_w;
+  // the ring starts at a swizzle atom (the host adds kWgAlign bytes); a
+  // stage is the input window (a pixel's t_ci channels a swizzled row),
+  // each weight slot's boxes, then their lo planes in the same order
+  const unsigned raw = smem_addr(smem_wg);
+  const unsigned base = (raw + kWgAlign - 1) & ~(unsigned)(kWgAlign - 1);
+  unsigned char* ring = smem_wg + (base - raw);
+  const int stage_bytes = 4 * g.stage_elems;
+  const int x_region = 4 * g.x_elems;
+  const int rowbytes = 4 * g.t_ci;
+  const int box_bytes = rowbytes * N;
+  const int lo_off = g.slots * g.wg_ngroups * box_bytes;
+
+  if (tid == 0) {
+    for (int st = 0; st < g.stages; ++st) {
+      mbar_init(&s_full[st], 1);
+      mbar_init(&s_ready[st], 3);
+      mbar_init(&s_empty[st], 4 * g.wg_consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    block_taps(g, s_taps, h0, w0, s_tap_ok, s_kok, s_span, s_real, s_wtap);
+    const unsigned kh_ok = s_kok[0], kw_ok = s_kok[1];
+    const int nw = __popc(kw_ok);
+    int n = 0;
+    for (int p = 0; p < s * s; ++p) {
+      const int ph = p / s, pw = p % s;
+      s_pl_n[p] = n;
+      for (int a = 0; a < s_taps[ph]; ++a) {
+        if (!s_tap_ok[0][ph * kMaxTaps + a]) continue;
+        const int kh = s_taps[kMaxStride + ph * kMaxTaps + a];
+        const int dh = s_taps[kMaxStride + kMaxStride * kMaxTaps + ph * kMaxTaps + a];
+        const int sh = __popc(kh_ok & ((1u << kh) - 1u));
+        for (int bb = 0; bb < s_taps[pw]; ++bb) {
+          if (!s_tap_ok[1][pw * kMaxTaps + bb]) continue;
+          const int kw = s_taps[kMaxStride + pw * kMaxTaps + bb];
+          const int dw = s_taps[kMaxStride + kMaxStride * kMaxTaps + pw * kMaxTaps + bb];
+          s_pl_x[n] = (dh - s_span[0]) * g.win_w + (dw - s_span[2]);
+          s_pl_st[n] = (sh * nw + __popc(kw_ok & ((1u << kw) - 1u))) | ((kh * g.k + kw) << 8);
+          ++n;
+        }
+      }
+    }
+    s_pl_n[s * s] = n;
+  }
+  __syncthreads();
+
+  const int n_slots = __popc(s_kok[0]) * __popc(s_kok[1]);
+  // this rank's range of chunks
+  const int n_ci = g.cip / g.t_ci;
+  const int it0 = rank * n_ci / split;
+  const int n_it = (rank + 1) * n_ci / split - it0;
+  const int ns = g.stages;
+
+  if (tid < 128) {
+    // ---- the producer warpgroup: warp 0 copies, warps 1-3 write lo ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProducerRegs) : "memory");
+    const int nboxes = n_slots * g.wg_ngroups;
+    if (tid < 32) {
+      // the copies, up to `stages` chunks ahead of the consumers
+      const int bytes = g.t_n * g.win_h * g.win_w * rowbytes + nboxes * box_bytes;
+      const int wh0 = h0 + s_span[0], ww0 = w0 + s_span[2];
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % ns;
+        mbar_wait_bounded(&s_empty[st], ((it / ns) & 1) ^ 1);  // round 0 passes at once
+        const int c0 = (it0 + it) * g.t_ci;
+        unsigned char* xs = ring + st * stage_bytes;
+        if (tid == 0) {
+          mbar_arrive_expect(&s_full[st], bytes);
+          tma_load_4d(xs, xmap, c0, ww0, wh0, n0, &s_full[st]);
+        }
+        __syncwarp();
+        // the boxes of the block's valid taps: the CI-minor weights as
+        // rows (tap, output channel) of CIp channels
+        for (int k = tid; k < nboxes; k += 32) {
+          const int slot = k / g.wg_ngroups, ngr = k - slot * g.wg_ngroups;
+          tma_load_2d(xs + x_region + k * box_bytes, tmap, c0,
+                      s_wtap[slot] * g.cop + co0 + ngr * N, &s_full[st]);
+        }
+      }
+    } else {
+      // each chunk's lo plane, once its copies have landed: v - (v cut to
+      // TF32) per staged weight, fenced for the async proxy, then the
+      // stage is ready
+      const int nvec = nboxes * box_bytes / 16;
+      for (int j = 0; j < n_it; ++j) {
+        const int st = j % ns;
+        mbar_wait_bounded(&s_full[st], (j / ns) & 1);
+        const float4* hi = reinterpret_cast<const float4*>(ring + st * stage_bytes + x_region);
+        float4* lo = reinterpret_cast<float4*>(ring + st * stage_bytes + x_region + lo_off);
+#pragma unroll 4
+        for (int v = tid - 32; v < nvec; v += 96) {
+          const float4 a = hi[v];
+          lo[v] = make_float4(tf32_lo(a.x), tf32_lo(a.y), tf32_lo(a.z), tf32_lo(a.w));
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(&s_ready[st]);
+      }
+    }
+    if (split > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups ----
+  // (the memory clobbers keep the sums' bias loads after the increase)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs) : "memory");
+  const int ctid = tid - 128;
+  const int cw = ctid >> 7;
+  const int lane = tid & 31, wwg = (ctid >> 5) & 3;
+  const int gid = lane >> 2, tig = lane & 3;
+  // the A rows this lane addresses for ldmatrix, per m64 tile: row 16 *
+  // wwg + (lane % 8) + 8 * (lane / 8 % 2) of the tile, words 4 * (lane /
+  // 16) on (a word is two b16 halves to ldmatrix): its window pixel and
+  // the byte in that pixel's row
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lbyte = 16 * (lane >> 4);
+  int t_ph[WM], t_mg[WM], t_ng[WM], apix[WM];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+    const int ti = cw * WM + i;
+    t_ng[i] = ti % g.wg_ngroups;
+    const int r = ti / g.wg_ngroups;
+    t_mg[i] = r % g.wg_mgroups;
+    t_ph[i] = r / g.wg_mgroups;
+    const int row = t_mg[i] * 64 + wwg * 16 + lrow;
+    const int nn = row / (th * tw);
+    const int rr = (row / tw) % th;
+    const int cc = row % tw;
+    apix[i] = (nn * g.win_h + rr) * g.win_w + cc;
+  }
+  const int ksteps = g.t_ci / 8;
+  float acc[WM][N / 2], part[WM][N / 2];
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      const int col = t_ng[i] * N + 8 * j + 2 * tig;
+      const float b0 = split == 1 ? b[co0 + col] : 0.0f;
+      const float b1 = split == 1 ? b[co0 + col + 1] : 0.0f;
+      acc[i][4 * j] = b0;
+      acc[i][4 * j + 1] = b1;
+      acc[i][4 * j + 2] = b0;
+      acc[i][4 * j + 3] = b1;
+    }
+  }
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % ns;
+    mbar_wait_bounded(&s_ready[st], (it / ns) & 1);
+    const unsigned xs = base + (unsigned)(st * stage_bytes);
+    const unsigned ws = xs + (unsigned)x_region;
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+      const int e0 = s_pl_n[t_ph[i]], e1 = s_pl_n[t_ph[i] + 1];
+      const unsigned wb = ws + (unsigned)(t_ng[i] * box_bytes);
+      bool fresh = true;  // the next wgmma starts the chunk's partial
+      uint32_t fah[KS][4], fal[KS][4], fbh[KS][4], fbl[KS][4];
+      auto xrow = [&](int e) { return (unsigned)((apix[i] + s_pl_x[e]) * rowbytes + lbyte); };
+      auto box = [&](int e) {
+        return wb + (unsigned)((s_pl_st[e] & 255) * g.wg_ngroups * box_bytes);
+      };
+      for (int e = e0; e < e1; e += 2) {
+        wg_tap_tf32<N, KS>(part[i], fah, fal, fresh, xs, xrow(e), box(e), (unsigned)lo_off,
+                           rowbytes, ksteps);
+        if (e + 1 < e1)
+          wg_tap_tf32<N, KS>(part[i], fbh, fbl, fresh, xs, xrow(e + 1), box(e + 1),
+                             (unsigned)lo_off, rowbytes, ksteps);
+      }
+      wg_wait<0>();
+      fence_regs(part[i]);
+      if (!fresh) {
+#pragma unroll
+        for (int c = 0; c < N / 2; ++c) acc[i][c] += part[i][c];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s_empty[st]);
+  }
+
+  // output pixel of row r of a phase -> y row pointer
+  auto out_row = [&](int r, int ph_, int pw_) {
+    const int nn = r / (th * tw);
+    const int rr = (r / tw) % th;
+    const int cc = r % tw;
+    const int oh = oh_t * g.t_oh + rr * s + ph_;
+    const int ow = ow_t * g.t_ow + cc * s + pw_;
+    return y + (((size_t)(n0 + nn) * g.ohp + oh) * g.owp + ow) * g.cop + co0;
+  };
+
+  if (split == 1) {
+    // neighbouring channels leave as one 8-byte store (t_co and COp even)
+#pragma unroll
+    for (int i = 0; i < WM; ++i) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = t_mg[i] * 64 + wwg * 16 + gid + 8 * hf;
+        float* row = out_row(r, t_ph[i] / s, t_ph[i] % s);
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int col = t_ng[i] * N + 8 * j + 2 * tig;
+          *reinterpret_cast<float2*>(row + col) =
+              make_float2(activate(acc[i][4 * j + 2 * hf], g.act),
+                          activate(acc[i][4 * j + 2 * hf + 1], g.act));
+        }
+      }
+    }
+    return;
+  }
+
+  // Cluster split: every consumer is done with the ring (the producer's
+  // copies have all landed), then the partial tile, [phase][row][channel],
+  // in this block's ring, then the rank-ordered sum of slice `rank`
+  // through distributed shared memory, as the mma.sync path's.
+  asm volatile("bar.sync 1, %0;\n" ::"r"(128 * g.wg_consumers) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  float* partt = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < WM; ++i) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = t_mg[i] * 64 + wwg * 16 + gid + 8 * hf;
+      float* prow = partt + (t_ph[i] * pix + r) * g.t_co;
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const int col = t_ng[i] * N + 8 * j + 2 * tig;
+        prow[col] = acc[i][4 * j + 2 * hf];
+        prow[col + 1] = acc[i][4 * j + 2 * hf + 1];
+      }
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_el = s * s * pix * g.t_co;
+  const int e_end = (rank + 1) * n_el / split;
+  for (int e = rank * n_el / split + ctid; e < e_end; e += 128 * g.wg_consumers) {
+    float v = 0.0f;
+    for (int qr = 0; qr < split; ++qr) v += cluster.map_shared_rank(partt, qr)[e];
+    const int col = e % g.t_co;
+    const int rest = e / g.t_co;
+    const int r = rest % pix;
+    const int phs = rest / pix;
+    out_row(r, phs / s, phs % s)[col] = activate(v + b[co0 + col], g.act);
+  }
+  cluster.sync();
+}
+
 // The bf16 dense and zero-skip kernels: two paths of one template.  kWg
 // (design step 8): a producer warpgroup and wgmma consumer warpgroups,
 // where every phase tile is whole m64 tiles and t_co 32, 64 or 128
@@ -2083,19 +2592,53 @@ int launch_clusters(void (*kern)(P...), std::atomic<unsigned>& allowed, const Ge
   return (int)cudaGetLastError();
 }
 
-template <bool kSparse, int WM, int WN>
+// Refuses a wgmma instance (E_REGS) not compiled at kWgRegs a thread:
+// setmaxnreg moves registers between the warpgroups of a block that holds
+// kWgRegs a thread, and an instance compiled at fewer would wait forever
+// for them.  `regs` caches the count, one variable per instance.
+template <class K>
+int check_wg_regs(K kern, std::atomic<int>& regs) {
+  if (regs.load() < 0) {
+    cudaFuncAttributes fa;
+    const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return (int)e;
+    regs.store(fa.numRegs);
+  }
+  return regs.load() == kWgRegs ? 0 : E_REGS;
+}
+
+template <bool kSparse, bool kWg, int WM, int WN>
 int launch(const Launch& a, const Geometry& g, const TapTable& taps, int threads, size_t smem,
-           cudaStream_t stream) {
+           cudaStream_t stream, const CUtensorMap& tmap, const CUtensorMap& xmap) {
   static std::atomic<unsigned> allowed{0};
-  return launch_clusters(deconv2d_tc_kernel<kSparse, WM, WN>, allowed, g, threads, smem, stream,
-                         a.x, a.w, a.b, a.y, g, taps, a.sched);
+  auto kern = deconv2d_tc_kernel<kSparse, kWg, WM, WN>;
+  if constexpr (kWg) {
+    static std::atomic<int> regs{-1};
+    if (const int e = check_wg_regs(kern, regs)) return e;
+  }
+  MapsOf<kWg> maps;
+  if constexpr (kWg) maps = TensorMaps{tmap, xmap};
+  return launch_clusters(kern, allowed, g, threads, smem, stream, a.x, a.w, a.b, a.y, g, taps,
+                         a.sched, maps);
 }
 
 template <bool kSparse>
 int dispatch(const Launch& a, const Geometry& g, const TapTable& taps, int threads, size_t smem,
-             cudaStream_t stream) {
+             cudaStream_t stream, const CUtensorMap& tmap, const CUtensorMap& xmap) {
+  if constexpr (!kSparse) {
+    if (g.wg) {
+#define DECONV_TC_WG_CASE(WM_, WN_)           \
+  if (g.wg_wm == WM_ && g.wg_n == 8 * (WN_)) \
+    return launch<false, true, WM_, WN_>(a, g, taps, threads, smem, stream, tmap, xmap);
+      DECONV_TC_WG_CASE(1, 8)
+      DECONV_TC_WG_CASE(2, 8)
+#undef DECONV_TC_WG_CASE
+      return E_REGTILE;
+    }
+  }
 #define DECONV_TC_CASE(WM_, WN_) \
-  if (g.wm == WM_ && g.wn == WN_) return launch<kSparse, WM_, WN_>(a, g, taps, threads, smem, stream);
+  if (g.wm == WM_ && g.wn == WN_)  \
+    return launch<kSparse, false, WM_, WN_>(a, g, taps, threads, smem, stream, tmap, xmap);
   DECONV_TC_CASE(2, 4)
   DECONV_TC_CASE(2, 2)
   DECONV_TC_CASE(2, 1)
@@ -2120,17 +2663,8 @@ int launch_bf16(const LaunchBf16& a, const Geometry& g, const TapTable& taps, in
   static std::atomic<unsigned> allowed{0};
   auto kern = deconv2d_tc_bf16_kernel<kSparse, kWg, WM, WN>;
   if constexpr (kWg) {
-    // setmaxnreg moves registers between the warpgroups of a block that
-    // holds kWgRegs a thread: an instance compiled at fewer would wait
-    // forever for them, so it is refused
     static std::atomic<int> regs{-1};
-    if (regs.load() < 0) {
-      cudaFuncAttributes fa;
-      const cudaError_t e = cudaFuncGetAttributes(&fa, kern);
-      if (e != cudaSuccess) return (int)e;
-      regs.store(fa.numRegs);
-    }
-    if (regs.load() != kWgRegs) return E_REGS;
+    if (const int e = check_wg_regs(kern, regs)) return e;
   }
   return launch_clusters(kern, allowed, g, threads, smem, stream, a.x, a.w, a.b, a.y, g, taps,
                          a.sched, tmap);
@@ -2191,16 +2725,18 @@ int encode_tiled(EncodeTiled* out) {
   return err;
 }
 
-// The wgmma path's weight map: the weights (K, K, CIp, COp) as K*K*CIp rows
-// of COp bf16 channels, a box t_ci rows by N channels in N*2 bytes'
-// swizzle (the B descriptor's).  Encoded on the host once per weight
-// (pointer and shape: the map is a function of them alone) and kept, so
-// that a static weight's launches, and a graph that captured one, pass
-// the same map by value.
-int weight_map(const uint16_t* w, const Geometry& g, CUtensorMap* out) {
+// The wgmma paths' weight map.  bf16 (design step 8): the weights (K, K,
+// CIp, COp) as K*K*CIp rows of COp channels, a box t_ci rows by N channels
+// in N*2 bytes' swizzle.  fp32 (step 9): the CI-minor weights (K, K, COp,
+// CIp) as K*K*COp rows of CIp channels, a box N rows by t_ci channels in
+// t_ci*4 bytes' swizzle.  Both are the B descriptor's layouts.  Encoded on
+// the host once per weight (pointer and shape: the map is a function of
+// them alone) and kept, so that a static weight's launches, and a graph
+// that captured one, pass the same map by value.
+int weight_map(const void* w, const Geometry& g, bool f32, CUtensorMap* out) {
   struct Key {
     const void* w;
-    int rows, cols, box_rows, box_cols;
+    int rows, cols, box_rows, box_cols, f32;
   };
   constexpr int kKept = 64;
   static std::mutex mu;
@@ -2210,10 +2746,11 @@ int weight_map(const uint16_t* w, const Geometry& g, CUtensorMap* out) {
   Key k;
   std::memset(&k, 0, sizeof k);
   k.w = w;
-  k.rows = g.k * g.k * g.cip;
-  k.cols = g.cop;
-  k.box_rows = g.t_ci;
-  k.box_cols = g.wg_n;
+  k.f32 = f32;
+  k.rows = g.k * g.k * (f32 ? g.cop : g.cip);
+  k.cols = f32 ? g.cip : g.cop;
+  k.box_rows = f32 ? g.wg_n : g.t_ci;
+  k.box_cols = f32 ? g.t_ci : g.wg_n;
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < kept; ++i) {
     if (std::memcmp(&keys[i], &k, sizeof k) == 0) {
@@ -2223,14 +2760,77 @@ int weight_map(const uint16_t* w, const Geometry& g, CUtensorMap* out) {
   }
   EncodeTiled encode;
   if (const int e = encode_tiled(&encode)) return e;
+  const int elem = f32 ? 4 : 2;
+  const int rowbytes = k.box_cols * elem;
   const cuuint64_t dims[2] = {(cuuint64_t)k.cols, (cuuint64_t)k.rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)k.cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)k.cols * elem};
   const cuuint32_t box[2] = {(cuuint32_t)k.box_cols, (cuuint32_t)k.box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  const cuuint32_t elems[2] = {1, 1};
   CUtensorMap m;
-  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<uint16_t*>(w), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             g.wg_n == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+  if (encode(&m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(w), dims, strides, box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             rowbytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+             : rowbytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return E_TMAP;
+  const int i = kept < kKept ? kept++ : next++ % kKept;
+  keys[i] = k;
+  maps[i] = m;
+  *out = m;
+  return 0;
+}
+
+// The fp32 wgmma path's input map (design step 9): the host-padded input
+// (N, IHp, IWp, CIp) as a 4-D tensor, a box of t_n images by win_h x
+// win_w pixels by t_ci channels, a pixel's channels a row of t_ci * 4
+// bytes in that many bytes' swizzle.  Encoded per input pointer and shape
+// and kept as weight_map keeps its maps (a serving graph's input buffer
+// is static, so its launches find theirs).
+int input_map(const void* x, const Geometry& g, CUtensorMap* out) {
+  struct Key {
+    const void* x;
+    int n, ihp, iwp, cip, t_ci, win_w, win_h, t_n;
+  };
+  constexpr int kKept = 64;
+  static std::mutex mu;
+  static Key keys[kKept];
+  static CUtensorMap maps[kKept];
+  static int kept = 0, next = 0;
+  Key k;
+  std::memset(&k, 0, sizeof k);
+  k.x = x;
+  k.n = g.n;
+  k.ihp = g.ihp;
+  k.iwp = g.iwp;
+  k.cip = g.cip;
+  k.t_ci = g.t_ci;
+  k.win_w = g.win_w;
+  k.win_h = g.win_h;
+  k.t_n = g.t_n;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < kept; ++i) {
+    if (std::memcmp(&keys[i], &k, sizeof k) == 0) {
+      *out = maps[i];
+      return 0;
+    }
+  }
+  EncodeTiled encode;
+  if (const int e = encode_tiled(&encode)) return e;
+  const int rowbytes = 4 * g.t_ci;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.cip, (cuuint64_t)g.iwp, (cuuint64_t)g.ihp,
+                              (cuuint64_t)g.n};
+  const cuuint64_t strides[3] = {(cuuint64_t)g.cip * 4, (cuuint64_t)g.iwp * g.cip * 4,
+                                 (cuuint64_t)g.ihp * g.iwp * g.cip * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)g.t_ci, (cuuint32_t)g.win_w, (cuuint32_t)g.win_h,
+                             (cuuint32_t)g.t_n};
+  const cuuint32_t elems[4] = {1, 1, 1, 1};
+  CUtensorMap m;
+  if (encode(&m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims, strides, box,
+             elems, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             rowbytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+             : rowbytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return E_TMAP;
   const int i = kept < kKept ? kept++ : next++ % kKept;
@@ -2312,8 +2912,10 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
   g.split = p[P_SPLIT];
   const int dtype = p[P_DTYPE];
   if (dtype != D_F32 && dtype != D_BF16 && dtype != D_INT8) return E_ARGS;
+  if (p[P_SPARSE] != 0 && p[P_SPARSE] != 1) return E_ARGS;
   g.int8 = dtype == D_INT8;
   const bool bf16 = dtype == D_BF16;
+  const bool f32 = dtype == D_F32;
   if (g.ih < 1 || g.iw < 1 || g.pad_l < 0 || g.pad_l + g.ih > g.ihp || g.pad_l + g.iw > g.iwp)
     return E_ARGS;
   if (g.s < 1 || g.s > kMaxStride || g.k < 1 || g.k > kMaxK || g.t_n < 1 || g.t_ci < 8 ||
@@ -2351,19 +2953,39 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
   g.wn = nt >= 4 ? 4 : nt >= 2 ? 2 : 1;
   g.mgroups = (mt + g.wm - 1) / g.wm;
   g.ngroups = (nt + g.wn - 1) / g.wn;
-  // the bf16 wgmma path (tiling.py: bf16_wgmma_tile): whole m64 tiles of
-  // a phase by t_co in groups of N = min(t_co, 64) channels, shared by
-  // one or two consumer warpgroups, one or two m64 tiles each (and t_ci
-  // <= 32 where their sums take 128 floats a thread: the A fragments' room)
+  // the wgmma paths (tiling.py: bf16_wgmma_tile, fp32_wgmma_tile): whole
+  // m64 tiles of a phase by t_co in groups of N = min(t_co, 64) channels,
+  // shared by one or two consumer warpgroups, one or two m64 tiles each,
+  // and where their sums take 128 floats a thread, room for the A
+  // fragments: bf16 t_ci <= 32, fp32 t_ci 8 (hi and lo, 8 registers a k8
+  // step).  fp32: N 64 only (a tap group takes about as long at N 32), dense
+  // only, a cluster split of at most 2 (the blocks of a wider split pay
+  // the path's fixed cost for a few chunks each), t_ci * 4 bytes a
+  // whole swizzle row (32 or 64), phase tiles of more than one pixel an
+  // image (a 1x1 root's
+  // only tiles: one valid tap a block, each weight read once), and two stages
+  // of the most any block of these tiles stages fit the ring: K * K
+  // slots of hi and lo boxes, and t_n windows of (t_oh / S + ceil(K / S))
+  // x (t_ow / S + ceil(K / S)) pixels of t_ci words (a phase plan's deltas
+  // span at most ceil(K / S))
   g.wg = false;
   g.wg_consumers = g.wg_wm = g.wg_n = g.wg_ngroups = g.wg_mgroups = 0;
-  if (bf16 && g.pix % 64 == 0 && (g.t_co == 32 || g.t_co == 64 || g.t_co == 128)) {
+  const int reach = (g.k + g.s - 1) / g.s;
+  const long long f32_x = ((long long)g.t_n * (g.t_oh / g.s + reach) * (g.t_ow / g.s + reach) *
+                               g.t_ci * 4 + kWgAlign - 1) / kWgAlign * kWgAlign;
+  const bool f32_wg = f32 && p[P_SPARSE] == 0 && g.split <= 2 &&
+                      (g.t_oh / g.s) * (g.t_ow / g.s) > 1 &&
+                      (g.t_ci == 8 || g.t_ci == 16) &&
+                      2 * (f32_x + 8LL * g.k * g.k * g.t_co * g.t_ci) <= kWgF32StageBudget;
+  if ((bf16 || f32_wg) && g.pix % 64 == 0 &&
+      ((bf16 && g.t_co == 32) || g.t_co == 64 || g.t_co == 128)) {
     const int n = g.t_co < 64 ? g.t_co : 64;
     const int tiles = g.s * g.s * (g.pix / 64) * (g.t_co / n);
     const int consumers = tiles % 2 == 0 ? 2 : 1;
     const int wm = tiles / consumers;
+    const bool room = wm * n <= 64 || (bf16 ? g.t_ci <= 32 : g.t_ci == 8);
     // the block's tap lists hold every phase's taps: K * K of them
-    if ((wm == 1 || wm == 2) && (wm * n <= 64 || g.t_ci <= 32) && g.k * g.k <= kWgTaps) {
+    if ((wm == 1 || wm == 2) && room && g.k * g.k <= kWgTaps) {
       g.wg = true;
       g.wg_consumers = consumers;
       g.wg_wm = wm;
@@ -2402,6 +3024,18 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
     g.ws = cols;
     x_elems = (long long)g.t_n * rows_h * rows_w * g.cs;
     stage = x_elems + (long long)g.slots * cols * g.cs;
+  } else if (g.wg && f32) {
+    // words: the input window as its TMA box lays it out (a pixel's t_ci
+    // words a swizzled row), padded to a swizzle atom; then per weight slot
+    // its wg_ngroups boxes of N rows by t_ci words (t_ci * N * 4 bytes,
+    // whole atoms), then the same boxes' lo planes
+    elem = 4;
+    g.cs = g.t_ci;
+    g.ws = g.wg_n;
+    g.w_vec4 = true;
+    const long long atom = kWgAlign / 4;
+    x_elems = ((long long)g.t_n * rows_h * rows_w * g.cs + atom - 1) / atom * atom;
+    stage = x_elems + 2LL * g.slots * g.wg_ngroups * g.t_ci * g.wg_n;
   } else if (g.wg) {
     // 2-byte elements: the input window as the mma.sync path's, padded to
     // a swizzle atom; then per weight slot its wg_ngroups boxes of t_ci
@@ -2433,7 +3067,7 @@ int setup(const int* p, Geometry* gp, TapTable* taps, int* threads, long long* s
     x_elems = ((long long)g.t_n * rows_h * rows_w * g.cs + 3) / 4 * 4;
     stage = x_elems + (long long)g.slots * g.t_ci * g.ws;
   }
-  const int budget = g.wg ? kWgStageBudget : kStageBudget;
+  const int budget = !g.wg ? kStageBudget : f32 ? kWgF32StageBudget : kWgStageBudget;
   int stages = 2;
   for (int n = 3; n <= kMaxStages; ++n) {
     if (elem * n * stage <= budget) stages = n;
@@ -2467,8 +3101,8 @@ void deconv2d_tc_limits(int* out) {
   out[4] = kMaxSplit;
 }
 
-// What a launch with parameters p runs: out[0] 1 on the bf16 kernels'
-// wgmma path, else 0 (mma.sync); out[1], out[2] the instance's WM and WN;
+// What a launch with parameters p runs: out[0] 1 on a wgmma path (bf16
+// dense and zero-skip, fp32 dense), else 0 (mma.sync); out[1], out[2] the instance's WM and WN;
 // out[3] the stages of its ring; out[4] the threads of a block.  0 or an
 // ArgError.
 int deconv2d_tc_launch_info(const int* p, int* out) {
@@ -2497,8 +3131,11 @@ long long deconv2d_tc_smem_bytes(const int* p) {
 }
 
 // x, w, b, y: f32 or bf16 device pointers, as p's dtype says (x and w
-// 16-byte aligned, y 4-byte); p: host int32 array laid out as `Param`
-// followed by the tap table; stream: a cudaStream_t.  0 on success.
+// 16-byte aligned, y 4-byte; y 8-byte on the fp32 wgmma path); w (K, K,
+// CIp, COp), or on the fp32 wgmma path (`deconv2d_tc_launch_info`) packed
+// CI-minor, (K, K, COp, CIp); p: host int32 array laid out as `Param`
+// followed by the tap table, P_SPARSE 0; stream: a cudaStream_t.  0 on
+// success.
 int deconv2d_tc_forward(const void* x, const void* w, const void* b, void* y, const int* p,
                         void* stream) {
   Geometry g;
@@ -2506,24 +3143,30 @@ int deconv2d_tc_forward(const void* x, const void* w, const void* b, void* y, co
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  if (g.int8) return E_ARGS;
+  if (g.int8 || p[P_SPARSE]) return E_ARGS;
   if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
-  if (p[P_DTYPE] == D_BF16) {
+  const bool f32 = p[P_DTYPE] == D_F32;
+  CUtensorMap map, xmap;
+  std::memset(&map, 0, sizeof map);
+  std::memset(&xmap, 0, sizeof xmap);
+  if (g.wg) {
+    if (const int e = weight_map(w, g, f32, &map)) return e;
+    if (f32) {
+      if (const int e = input_map(x, g, &xmap)) return e;
+    }
+  }
+  if (!f32) {
     const LaunchBf16 a{static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
                        static_cast<const uint16_t*>(b), static_cast<uint16_t*>(y),
                        Schedule{nullptr, nullptr, nullptr, 0, 0}};
-    CUtensorMap map;
-    std::memset(&map, 0, sizeof map);
-    if (g.wg) {
-      if (const int e = weight_map(a.w, g, &map)) return e;
-    }
     return dispatch_bf16<false>(a, g, taps, threads, (size_t)smem,
                                 static_cast<cudaStream_t>(stream), map);
   }
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
                  static_cast<const float*>(b), static_cast<float*>(y),
                  Schedule{nullptr, nullptr, nullptr, 0, 0}};
-  return dispatch<false>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream),
+                         map, xmap);
 }
 
 // The dense kernel's arguments (f32 or bf16) plus the packed zero-skip schedule: count
@@ -2538,8 +3181,8 @@ int deconv2d_tc_sparse_forward(const void* x, const void* w, const void* b, void
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  if (g.int8 || len < 1 || nbw != (g.k * g.k + 31) / 32 || nbw > kMaxBitWords || !count ||
-      !ci || !bits)
+  if (g.int8 || !p[P_SPARSE] || len < 1 || nbw != (g.k * g.k + 31) / 32 || nbw > kMaxBitWords ||
+      !count || !ci || !bits)
     return E_ARGS;
   if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
   const Schedule sched{static_cast<const int*>(count), static_cast<const int*>(ci),
@@ -2550,14 +3193,17 @@ int deconv2d_tc_sparse_forward(const void* x, const void* w, const void* b, void
     CUtensorMap map;
     std::memset(&map, 0, sizeof map);
     if (g.wg) {
-      if (const int e = weight_map(a.w, g, &map)) return e;
+      if (const int e = weight_map(a.w, g, false, &map)) return e;
     }
     return dispatch_bf16<true>(a, g, taps, threads, (size_t)smem,
                                static_cast<cudaStream_t>(stream), map);
   }
   const Launch a{static_cast<const float*>(x), static_cast<const float*>(w),
                  static_cast<const float*>(b), static_cast<float*>(y), sched};
-  return dispatch<true>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream));
+  CUtensorMap map;
+  std::memset(&map, 0, sizeof map);
+  return dispatch<true>(a, g, taps, threads, (size_t)smem, static_cast<cudaStream_t>(stream),
+                        map, map);
 }
 
 // x, w int8 device pointers (16-byte aligned; w packed (K, K, COp, CIp)),
@@ -2571,7 +3217,7 @@ int deconv2d_tc_int8_forward(const void* x, const void* w, const void* scale, co
   int threads;
   long long smem;
   if (const int e = setup(p, &g, &taps, &threads, &smem)) return e;
-  if (!g.int8 || (requant && !(out_scale > 0.0f))) return E_ARGS;
+  if (!g.int8 || p[P_SPARSE] || (requant && !(out_scale > 0.0f))) return E_ARGS;
   if (!aligned16(x) || !aligned16(w)) return E_ALIGN;
   const LaunchInt8 a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
                      static_cast<const float*>(scale), static_cast<const float*>(b), y,

@@ -14,8 +14,9 @@ C_out itself below 8; at most 16 warps and 227 KB) is scored by `tc_cost`,
 a model of one SM's clock, and the cheapest whose grid (cluster split
 included, `ci_split`) fills the 132 SMs wins; where no candidate fills
 them, the cheapest of all.  fp32 at bucket 1 takes a rule of its own
-(`_bucket1_tiles`: one wave of the largest spatial tile), and the bf16
-tiles on the wgmma path are costed by `_wgmma_cost`.  The model counts per block and CI chunk the
+(`_bucket1_tiles`: one wave of the largest spatial tile), and the tiles
+on the wgmma paths are costed by `_wgmma_cost` (bf16) and
+`_wgmma_f32_cost` (fp32).  The model counts per block and CI chunk the
 instructions issued, the tensor-core products (fp32 3xTF32: three ``mma``
 per m16n8k8 tile; bf16: one m16n8k16 ``mma``; int8: one m16n8k32
 ``mma``), the shared-memory wavefronts of the fragment loads, the bytes
@@ -62,8 +63,9 @@ import torch
 
 from ..core.tiling import (KERNEL_MAX_SMEM, KERNEL_MAX_THREADS,
                            DeconvGeometry, bf16_wgmma_tile, block_threads,
-                           dtype_name, launch_threads, staged_window,
-                           tc_columns, tc_smem_layout, tc_warp_tile)
+                           dtype_name, fp32_wgmma_tile, launch_threads,
+                           staged_window, tc_columns, tc_smem_layout,
+                           tc_warp_tile)
 
 SMS = 132                      # streaming multiprocessors of an H100
 MAX_SPLIT = 8                  # blocks of a cluster (the portable limit)
@@ -112,10 +114,11 @@ def ci_split(blocks: int, n_chunks: int) -> int:
 
 
 def hopper_tiles(geom: DeconvGeometry, batch: int = 1,
-                 dtype="float32") -> TileChoice:
+                 dtype="float32", sparse: bool = False) -> TileChoice:
     """Tiles for one layer at the batch its kernel will see, for the
-    tensor-core kernel that runs ``dtype``."""
-    return _tc_tiles(geom, batch, dtype_name(dtype))
+    tensor-core kernel that runs ``dtype`` (``sparse``: its zero-skip
+    launch, which has no fp32 wgmma path)."""
+    return _tc_tiles(geom, batch, dtype_name(dtype), sparse)
 
 
 def fill_tiles(geom: DeconvGeometry, batch: int, dtype="float32",
@@ -154,6 +157,15 @@ WG_CHUNK_CLK = 2500     # per block and chunk of the wgmma path: barriers, laten
 WG_L2_BYTES_PER_CLK = 54  # bytes the wgmma path's producer stages per clock
 WG_SPLIT_CLK = 12000    # the wgmma path's cluster barriers under a split
 WG_REDUCE_CLK = 0.11    # per byte of the partial tile the split's ranks read
+# the fp32 wgmma path, in this model's clocks (about half an SM clock: the
+# fp32 mma.sync picks ran 1.8-2.5 SM clocks a modelled one at bucket 64):
+# a warpgroup's tap groups run one after another, each a fixed latency
+# and one per wgmma; a block pays a fixed cost
+WG_F32_GROUP_CLK = 110  # per tap group (ldmatrix, split, commit, wait)
+WG_F32_MMA_CLK = 44     # per m64n64k8 wgmma of a group
+WG_F32_BLOCK_CLK = 8000  # per block: tap lists, pipeline fill, epilogue
+WG_F32_SPLIT_CLK = 8000  # per rank of a cluster split: barriers, partial tiles
+WG_F32_XROW_CLK = 0.5   # per staged window pixel and chunk (ldmatrix rows, TMA)
 LOAD_INSTR = 8          # instructions per plain 2-byte load and store (bf16)
 TC_T_CO = (8, 16, 32, 64, 128)  # channel tiles of C_out >= 8 (n8 columns)
 COPY_INSTR = 12         # instructions per bulk copy (a staged row)
@@ -168,7 +180,8 @@ REGS_PER_THREAD = 128   # the launch bound's register cap
 WAVE_CLK = 2.0          # SM clocks per shared-memory wavefront of the loads
 
 
-def _tc_candidates(geom: DeconvGeometry, batch: int, dtype="float32"):
+def _tc_candidates(geom: DeconvGeometry, batch: int, dtype="float32",
+                   sparse: bool = False):
     s = geom.stride
     if geom.in_h == geom.in_w == 1:
         spatial = [s]
@@ -183,9 +196,11 @@ def _tc_candidates(geom: DeconvGeometry, batch: int, dtype="float32"):
         t_cos = [c for c in TC_T_CO if c <= _round_up(geom.c_out, 8)]
     # 8-channel chunks pay a barrier and a partial sum per 8 channels and
     # stage 32-byte input rows: on the wide layers they ran slower than 16
-    # or 32 at every tile timed
-    t_cis = [c for c in (8, 16, 32) if c <= _round_up(geom.c_in, 8)
-             and (c > 8 or geom.c_in < 128)]
+    # or 32 at every mma.sync tile timed, so there they are taken on the
+    # fp32 wgmma path alone (whose ring holds two 8-channel stages where
+    # it holds no wider one)
+    fp32 = dtype_name(dtype) == "float32"
+    t_cis = [c for c in (8, 16, 32) if c <= _round_up(geom.c_in, 8)]
     if dtype_name(dtype) == "int8":
         t_cis = [c for c in INT8_T_CI if c <= _round_up(geom.c_in, 32)]
     elif dtype_name(dtype) == "bfloat16":
@@ -194,6 +209,14 @@ def _tc_candidates(geom: DeconvGeometry, batch: int, dtype="float32"):
         for t_n in t_ns:
             for t_co in t_cos:
                 for t_ci in t_cis:
+                    if fp32 and t_ci == 8 and geom.c_in >= 128:
+                        split = ci_split(grid_blocks(geom, batch, t, t_co,
+                                                     t_n),
+                                         _round_up(geom.c_in, 8) // 8)
+                        if fp32_wgmma_tile(geom.stride, t, t, t_co, t_n,
+                                           geom.kernel, 8, split,
+                                           sparse) is None:
+                            continue
                     yield t, t_n, t_co, t_ci
 
 
@@ -208,9 +231,10 @@ def _a_conflicts(tw: int, t_n: int, win_w: int, win_h: int) -> float:
 
 
 def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
-            t_ci: int, dtype="float32"):
+            t_ci: int, dtype="float32", sparse: bool = False):
     """Modelled SM clocks of one "tc" launch of ``dtype`` (fp32, bf16 or
-    int8) at these tiles, or None where the kernel does not take them.
+    int8; ``sparse``: the zero-skip launch) at these tiles, or None where
+    the kernel does not take them.
 
     Per block and CI chunk: the instructions its warps issue (fragment
     loads, fp32's 3xTF32 splits, the mma, one bulk copy per staged input and
@@ -222,19 +246,21 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     bf16 = dtype_name(dtype) == "bfloat16"
     s = geom.stride
     pix = t_n * (t // s) ** 2
-    if block_threads(s, t, t, t_co, t_n, dtype=dtype, k_size=geom.kernel,
-                     t_ci=t_ci) > KERNEL_MAX_THREADS:
-        return None
-    threads = launch_threads(s, t, t, t_co, t_n, dtype=dtype,
-                             k_size=geom.kernel, t_ci=t_ci)
     ohp, owp = _round_up(geom.out_h, t), _round_up(geom.out_w, t)
     cip = _round_up(geom.c_in, t_ci)
     n_chunks = cip // t_ci
     blocks = grid_blocks(geom, batch, t, t_co, t_n)
     split = ci_split(blocks, n_chunks)
+    if block_threads(s, t, t, t_co, t_n, dtype=dtype, k_size=geom.kernel,
+                     t_ci=t_ci, sparse=sparse,
+                     split=split) > KERNEL_MAX_THREADS:
+        return None
+    threads = launch_threads(s, t, t, t_co, t_n, dtype=dtype,
+                             k_size=geom.kernel, t_ci=t_ci, sparse=sparse,
+                             split=split)
     stages, smem = tc_smem_layout(geom.in_h, geom.in_w, geom.kernel, s,
                                   geom.padding, ohp, owp, t, t, t_ci, t_co,
-                                  t_n, split, dtype)
+                                  t_n, split, dtype, sparse)
     if smem > KERNEL_MAX_SMEM:
         return None
     rows_h, taps_h = staged_window(geom.in_h, ohp, t, geom.kernel, s,
@@ -255,6 +281,12 @@ def tc_cost(geom: DeconvGeometry, batch: int, t: int, t_n: int, t_co: int,
     if wg is not None:
         return _wgmma_cost(geom, t_n, t_co, t_ci, pix, wg, blocks, split,
                            n_chunks, rows_h * rows_w, taps_h * taps_w)
+    wg = None if bf16 or int8 else fp32_wgmma_tile(s, t, t, t_co, t_n,
+                                                   geom.kernel, t_ci, split,
+                                                   sparse)
+    if wg is not None:
+        return _wgmma_f32_cost(geom, t_n, t_ci, wg, blocks, split, n_chunks,
+                               rows_h * rows_w, taps_h * taps_w)
     if bf16:
         # one m16n8k16 mma per tile and 16-deep k-step; per k-step one
         # ldmatrix.x4 (4 wavefronts) per m16 tile of A and per pair of n8
@@ -339,15 +371,45 @@ def _wgmma_cost(geom, t_n, t_co, t_ci, pix, wg, blocks, split, n_chunks,
     return clk
 
 
+def _wgmma_f32_cost(geom, t_n, t_ci, wg, blocks, split, n_chunks, window,
+                    slots):
+    """`tc_cost` of the fp32 dense kernel's wgmma path, one block per SM.
+    A consumer warpgroup issues its WM tiles' tap groups one after another
+    (a group: one tap's ``t_ci / 8`` k8 steps of three dependent m64n64k8
+    wgmma), each group waiting on the one before it; on the H100 a group's
+    time was its latency, so the model is per chunk WM x taps groups of
+    WG_F32_GROUP_CLK and WG_F32_MMA_CLK a wgmma, and WG_F32_XROW_CLK per staged
+    window pixel (a small tile's halo: 16x16 tiles of one image ran 2 %
+    faster than 4x4 tiles of 16), plus WG_F32_BLOCK_CLK a block;
+    the producer's copies and lo planes ran faster than that at every
+    timed tile.  A cluster split adds WG_F32_SPLIT_CLK a rank (its
+    barriers and the partial tiles' reads, which cost splits of 4 and 8
+    more than the bf16 path's constant says).  Fitted to
+    `tools/sweep_tiles.py --dtype float32 --wgmma-only` on an H100
+    (CelebA layers 1-3 and MNIST layer 1 at buckets 16, 32 and 64)."""
+    wm = wg[1]
+    s = geom.stride
+    taps = max(1, slots // (s * s))           # valid taps of a phase
+    group = WG_F32_GROUP_CLK + 3 * (t_ci // 8) * WG_F32_MMA_CLK
+    chunks = -(-n_chunks // split)
+    waves = -(-blocks * split // SMS)
+    clk = waves * (WG_F32_BLOCK_CLK + chunks * (wm * taps * group
+                                                + t_n * window * WG_F32_XROW_CLK))
+    if split > 1:
+        clk += waves * WG_F32_SPLIT_CLK * split
+    return clk
+
+
 @functools.lru_cache(maxsize=1024)
-def _tc_scored(geom: DeconvGeometry, batch: int,
-               dtype: str = "float32") -> Tuple[Tuple[bool, float,
-                                                      TileChoice], ...]:
-    """Every tile the tensor-core kernel of ``dtype`` takes, in enumeration
-    order, as ``(fills the SMs, modelled clocks, tiles)``."""
+def _tc_scored(geom: DeconvGeometry, batch: int, dtype: str = "float32",
+               sparse: bool = False) -> Tuple[Tuple[bool, float,
+                                                    TileChoice], ...]:
+    """Every tile the tensor-core kernel of ``dtype`` (``sparse``: its
+    zero-skip launch) takes, in enumeration order, as ``(fills the SMs,
+    modelled clocks, tiles)``."""
     out = []
-    for t, t_n, t_co, t_ci in _tc_candidates(geom, batch, dtype):
-        clk = tc_cost(geom, batch, t, t_n, t_co, t_ci, dtype)
+    for t, t_n, t_co, t_ci in _tc_candidates(geom, batch, dtype, sparse):
+        clk = tc_cost(geom, batch, t, t_n, t_co, t_ci, dtype, sparse)
         if clk is None:
             continue
         blocks = grid_blocks(geom, batch, t, t_co, t_n)
@@ -366,13 +428,13 @@ def _tc_scored(geom: DeconvGeometry, batch: int,
 BUCKET1_MIN_CTAS = 64
 
 
-def _tc_tiles(geom: DeconvGeometry, batch: int,
-              dtype: str = "float32") -> TileChoice:
+def _tc_tiles(geom: DeconvGeometry, batch: int, dtype: str = "float32",
+              sparse: bool = False) -> TileChoice:
     """The cheapest tiles by `tc_cost` among those whose grid, split
     included, fills the card's SMs; the cheapest of all where none does.
     fp32 at bucket 1 (`_bucket1_tiles`) is the exception, but on a 1x1
     root."""
-    scored = _tc_scored(geom, batch, dtype)
+    scored = _tc_scored(geom, batch, dtype, sparse)
     if batch == 1 and dtype == "float32" and (geom.in_h, geom.in_w) != (1, 1):
         return _bucket1_tiles(geom, scored)
     return min(scored, key=lambda s: (not s[0], s[1]))[2]
@@ -409,11 +471,12 @@ REFINE_TOP_K = 3
 
 
 def refine_candidates(geom: DeconvGeometry, batch: int, dtype="float32",
-                      k: int = REFINE_TOP_K) -> List[TileChoice]:
+                      k: int = REFINE_TOP_K,
+                      sparse: bool = False) -> List[TileChoice]:
     """What ``refine=True`` times: the model's pick, then the next ``k - 1``
     tiles by `tc_cost` alone, without the fill-the-SMs preference."""
-    model = hopper_tiles(geom, batch, dtype)
-    ranked = sorted(_tc_scored(geom, batch, dtype_name(dtype)),
+    model = hopper_tiles(geom, batch, dtype, sparse)
+    ranked = sorted(_tc_scored(geom, batch, dtype_name(dtype), sparse),
                     key=lambda s: s[1])
     return [model] + [c for _, _, c in ranked if c != model][:max(0, k - 1)]
 
@@ -471,7 +534,7 @@ def _time_candidate(geom: DeconvGeometry, choice: TileChoice, dtype,
     error raises.  For "cuda_sparse" the dense random weights keep every
     slab in the schedule (the JAX package's own caveat): the time is that
     of the dense walk, not of a pruned network's."""
-    from .deconv2d.kernel import LaunchRefused, deconv2d_launch
+    from .deconv2d.kernel import LaunchRefused, deconv2d_launch, pack_ci_minor
     from .deconv2d.ops import launch_args
 
     dev = torch.device("cuda")
@@ -496,8 +559,10 @@ def _time_candidate(geom: DeconvGeometry, choice: TileChoice, dtype,
             def fn():
                 return deconv2d_sparse_launch(xp, wp, bp, *sched, **kw)
         else:
+            wt = pack_ci_minor(wp)     # a serving engine's, packed once
+
             def fn():
-                return deconv2d_launch(xp, wp, bp, **kw)
+                return deconv2d_launch(xp, wp, bp, wt=wt, **kw)
         fn()
     except (LaunchRefused, ValueError):
         return None
@@ -623,11 +688,12 @@ def choose_tiles(geom: DeconvGeometry, dtype="float32", backend: str = "cuda",
     if hit is not None:
         return TileChoice(**{f: hit[f] for f in _TILE_FIELDS},
                           source="cache")
-    model = hopper_tiles(geom, batch, name)
+    sparse = backend == "cuda_sparse"
+    model = hopper_tiles(geom, batch, name, sparse)
     if not refine:
         return model
     timed = []
-    for c in refine_candidates(geom, batch, name):
+    for c in refine_candidates(geom, batch, name, sparse=sparse):
         ms = _time_candidate(geom, c, name, backend, batch=batch)
         if ms is not None:
             timed.append((ms, c))

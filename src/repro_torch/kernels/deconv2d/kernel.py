@@ -17,8 +17,14 @@ skip taps that read only host padding).  It returns the padded output
 * On a CPU tensor it runs ``deconv2d_launch_plain``, the same function in
   plain torch (vectorised over the whole padded arrays, not a tile loop).
 
+Where a fp32 launch takes the wgmma path (`launch_info`'s ``path``, the
+library's own choice by the tiles' shape: `core.tiling.fp32_wgmma_tile`),
+the kernel reads the weights packed CI-minor, ``(K, K, COp, CIp)``
+(`pack_ci_minor`): a serving engine packs them once (``wt`` of its
+`ops.StaticOperands`), any other caller per launch.
+
 ``LAUNCHES`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+went through the kernel; ``WGMMA_LAUNCHES`` those on a wgmma path.
 """
 from __future__ import annotations
 
@@ -50,19 +56,20 @@ _KERNEL_OF_CODE = {code: (name, short, CI_STEP[name]) for code, name, short
 _TC_PARAM_FIELDS = ("n", "ihp", "iwp", "cip", "k", "cop", "ohp", "owp", "s",
                     "t_n", "t_oh", "t_ow", "t_ci", "t_co", "t_ih", "t_iw",
                     "base_h", "base_w", "act", "ih", "iw", "pad_l", "threads",
-                    "split", "dtype")
+                    "split", "dtype", "sparse")
 _ARG_ERRORS = {
     -1: "arguments the kernel does not take (geometry, tiles or padding)",
     -2: f"more than {KERNEL_MAX_THREADS} threads per block at these tiles",
     -3: "more shared memory than a block can have at these tiles",
     -4: "no kernel instance for this register tile",
     -5: "x or w is not 16-byte aligned",
-    -6: "the bf16 wgmma instance was not compiled at the register count its "
+    -6: "the wgmma instance was not compiled at the register count its "
         "setmaxnreg split needs",
     -7: "the weights' TMA tensor map could not be encoded",
 }
 
 LAUNCHES = 0
+WGMMA_LAUNCHES = 0
 
 
 def apply_activation(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
@@ -167,21 +174,34 @@ def deconv2d_launch(
     xp: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, *,
     plan: PhasePlan, ih: int, iw: int, ohp: int, owp: int, t_oh: int,
     t_ow: int, t_ci: int, t_co: int, t_n: int, activation: Optional[str],
+    wt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One kernel launch on a CUDA tensor; the plain version on a CPU one;
-    on a FakeTensor (a cost count) the output's shape and dtype alone."""
+    on a FakeTensor (a cost count) the output's shape and dtype alone.
+    ``wt`` is ``wp`` packed CI-minor (`pack_ci_minor`), which a fp32 launch
+    on the wgmma path reads (packed here when None); other launches and
+    the plain version ignore it."""
     kw = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
               t_ci=t_ci, t_co=t_co, t_n=t_n, activation=activation)
     if is_fake(xp):
         return xp.new_empty((xp.shape[0], ohp, owp, wp.shape[3]))
     if xp.device.type == "cpu":
         return deconv2d_launch_plain(xp, wp, bp, **kw)
-    return _launch_cuda(xp, wp, bp, **kw)
+    return _launch_cuda(xp, wp, bp, wt=wt, **kw)
+
+
+def pack_ci_minor(wp: torch.Tensor) -> torch.Tensor:
+    """A padded weight ``(K, K, CIp, COp)`` laid out ``(K, K, COp, CIp)``,
+    contiguous: each (tap, output channel) row holds its input channels
+    contiguously, the K-major B operand of the fp32 wgmma path (TF32
+    wgmma has no transpose).  The values are the weights' own: the kernel
+    splits them into TF32 hi and lo itself."""
+    return aligned(wp.permute(0, 1, 3, 2).contiguous())
 
 
 def _launch_cuda(xp, wp, bp, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co,
-                 t_n, activation):
-    global LAUNCHES
+                 t_n, activation, wt=None):
+    global LAUNCHES, WGMMA_LAUNCHES
     if xp.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"deconv2d kernel takes float32 or bfloat16, got "
                         f"{xp.dtype}")
@@ -190,15 +210,29 @@ def _launch_cuda(xp, wp, bp, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co,
                            iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
                            t_ci=t_ci, t_co=t_co, t_n=t_n,
                            activation=activation)
+    wgmma = takes_wgmma(params)
+    if wgmma and xp.dtype == torch.float32:
+        k, _, cip, cop = wp.shape
+        if wt is None:
+            wt = pack_ci_minor(wp)
+        elif tuple(wt.shape) != (k, k, cop, cip) or wt.dtype != wp.dtype \
+                or wt.device != wp.device or not wt.is_contiguous() \
+                or wt.data_ptr() % 16:
+            raise ValueError(f"wt{tuple(wt.shape)} {wt.dtype} is not w"
+                             f"{tuple(wp.shape)} packed CI-minor")
+        w_arg = wt
+    else:
+        w_arg = wp
     y = torch.empty((xp.shape[0], ohp, owp, wp.shape[3]), dtype=xp.dtype,
                     device=xp.device)
-    args = (xp.data_ptr(), wp.data_ptr(), bp.data_ptr(), y.data_ptr(),
+    args = (xp.data_ptr(), w_arg.data_ptr(), bp.data_ptr(), y.data_ptr(),
             params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = tc_library().deconv2d_tc_forward(*args, stream)
     check_rc("deconv2d", rc)
     LAUNCHES += 1
+    WGMMA_LAUNCHES += wgmma
     return y
 
 
@@ -209,9 +243,10 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
-                  t_co, t_n, activation, w_shape=None) -> np.ndarray:
+                  t_co, t_n, activation, w_shape=None,
+                  sparse: bool = False) -> np.ndarray:
     """Check one launch's tensors and return its int32 parameter array, for
-    the tensor-core kernel of x's dtype.
+    the tensor-core kernel of x's dtype (``sparse``: its zero-skip launch).
 
     ``others`` lists ``(name, tensor, dtype)`` of the per-channel vectors
     (bias, scale) that must hold one value per padded output channel.
@@ -238,7 +273,7 @@ def launch_params(xp, wp, others, *, plan, ih, iw, ohp, owp, t_oh, t_ow, t_ci,
     return _tc_launch_params(
         tuple(xp.shape), w_shape, plan.kernel_size, plan.stride, plan.padding,
         ih, iw, ohp, owp, t_oh, t_ow, t_ci, t_co, t_n, _ACT_CODE[activation],
-        _DTYPE_CODE[xp.dtype])
+        _DTYPE_CODE[xp.dtype], int(sparse))
 
 
 class LaunchRefused(RuntimeError):
@@ -274,11 +309,12 @@ def _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
 
 @functools.lru_cache(maxsize=256)
 def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
-                      t_ci, t_co, t_n, act, dtype) -> np.ndarray:
+                      t_ci, t_co, t_n, act, dtype, sparse=0) -> np.ndarray:
     """The int32 parameter array of the fp32, bf16 or int8 tensor-core
-    kernel (``dtype``) for one launch shape (split included), checked once
-    per shape and tiles (a serving engine launches a handful of shapes over
-    and over).  Read-only: every caller shares it."""
+    kernel (``dtype``; ``sparse`` 1 for a zero-skip launch) for one launch
+    shape (split included), checked once per shape and tiles (a serving
+    engine launches a handful of shapes over and over).  Read-only: every
+    caller shares it."""
     fields = _common_fields(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh,
                             t_ow, t_ci, t_co, t_n, act)
     dtype_name, name, step = _KERNEL_OF_CODE[dtype]
@@ -288,15 +324,16 @@ def _tc_launch_params(x_shape, w_shape, k, s, p, ih, iw, ohp, owp, t_oh, t_ow,
     split = launch_split(x_shape[0], x_shape[3], w_shape[3], ohp, owp, t_oh,
                          t_ow, t_ci, t_co, t_n)
     fields.update(threads=launch_threads(s, t_oh, t_ow, t_co, t_n, "tc",
-                                         dtype_name, k, t_ci),
-                  split=split, dtype=dtype)
+                                         dtype_name, k, t_ci, bool(sparse),
+                                         split),
+                  split=split, dtype=dtype, sparse=sparse)
     params = np.array([fields[f] for f in _TC_PARAM_FIELDS]
                       + _tap_words(make_phase_plan(k, s, p)), dtype=np.int32)
     got = tc_library().deconv2d_tc_smem_bytes(
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     check_rc("deconv2d", min(got, 0))
     want = tc_smem_layout(ih, iw, k, s, p, ohp, owp, t_oh, t_ow, t_ci, t_co,
-                          t_n, split, dtype_name)[1]
+                          t_n, split, dtype_name, bool(sparse))[1]
     if got != want:
         raise RuntimeError(f"deconv2d {name} kernel: shared-memory model "
                            f"says {want} bytes, the kernel {got}")
@@ -318,16 +355,27 @@ def launch_report(params: np.ndarray) -> dict:
 
 def launch_info(params: np.ndarray) -> dict:
     """What a launch with the parameter array ``params`` runs, as the
-    library's ``deconv2d_tc_launch_info`` says: ``path`` ("wgmma" on the
-    bf16 kernels' wgmma path, else "mma.sync"), the instance's ``wm`` and
-    ``wn`` (wgmma: m64 tiles a warpgroup and n8 tiles of its N), the
-    ring's ``stages`` and the block's ``threads``."""
+    library's ``deconv2d_tc_launch_info`` says: ``path`` ("wgmma" on a
+    wgmma path: bf16 dense and zero-skip, fp32 dense; else "mma.sync"),
+    the instance's ``wm`` and ``wn`` (wgmma: m64 tiles a warpgroup and n8
+    tiles of its N), the ring's ``stages`` and the block's ``threads``."""
     info = (ctypes.c_int * 5)()
     check_rc("deconv2d", tc_library().deconv2d_tc_launch_info(
         params.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), info))
     return {"path": "wgmma" if info[0] else "mma.sync", "wm": int(info[1]),
             "wn": int(info[2]), "stages": int(info[3]),
             "threads": int(info[4])}
+
+
+@functools.lru_cache(maxsize=256)
+def _path_of(params: bytes) -> bool:
+    return launch_info(np.frombuffer(params, dtype=np.int32))["path"] == "wgmma"
+
+
+def takes_wgmma(params: np.ndarray) -> bool:
+    """Whether a launch with ``params`` takes a wgmma path: `launch_info`,
+    asked once per parameter array."""
+    return _path_of(params.tobytes())
 
 
 _lib: Optional[ctypes.CDLL] = None

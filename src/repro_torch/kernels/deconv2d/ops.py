@@ -9,10 +9,11 @@ CUDA kernel on a CUDA tensor and the plain version on a CPU tensor.
 
 A launch's arguments come in two parts: the static part
 (`prepare_static`: w padded to ``(K, K, CIp, COp)`` and the bias to
-``(1, COp)``, contiguous), which a serving engine prepares once per layer
-and channel tiles and passes as ``static=``, and the per-call part
-(`call_args`: x padded).  Called without ``static``, the op prepares both
-per call.
+``(1, COp)``, contiguous; for a layer whose fp32 tiles take the wgmma
+path, `with_ci_minor` adds w packed CI-minor), which a serving engine
+prepares once per layer and channel tiles and passes as ``static=``, and
+the per-call part (`call_args`: x padded).  Called without ``static``,
+the op prepares both per call.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ...core.offsets import make_phase_plan
-from ...core.tiling import DeconvGeometry, out_size
-from .kernel import aligned, deconv2d_launch
+from ...core.tiling import DeconvGeometry, fp32_wgmma_tile, out_size
+from .kernel import aligned, deconv2d_launch, launch_split, pack_ci_minor
 
 
 def check_layer_plan(plan, x: torch.Tensor, w: torch.Tensor, backend: str,
@@ -93,11 +94,37 @@ def halo_pad_geometry(n: int, ih: int, iw: int, ci: int, co: int,
 class StaticOperands:
     """The operands of a layer's launch that no call changes: ``w`` padded
     to ``(K, K, CIp, COp)`` (for int8 a `int8.PackedInt8Weights`), ``b``
-    and, for int8, ``scale`` padded to ``(1, COp)``; all contiguous."""
+    and, for int8, ``scale`` padded to ``(1, COp)``; for fp32 tiles on the
+    wgmma path ``wt``, w packed CI-minor (`kernel.pack_ci_minor`); all
+    contiguous."""
 
     w: Any
     b: torch.Tensor
     scale: Optional[torch.Tensor] = None
+    wt: Optional[torch.Tensor] = None
+
+
+def takes_fp32_wgmma(layer) -> bool:
+    """Whether a tiled layer plan's launches take the fp32 dense kernel's
+    wgmma path (`core.tiling.fp32_wgmma_tile`, at the batch tile and the
+    cluster split of its launch), and so read w packed CI-minor."""
+    if layer.dtype != "float32" or layer.backend != "cuda" or \
+            layer.tiles is None:
+        return False
+    g, t = layer.geometry, layer.tiles
+    (_, _, ohp, owp, _, _, _, cip, cop, t_n, np_) = layer.padded_geometry()
+    split = launch_split(np_, cip, cop, ohp, owp, t.t_oh, t.t_ow, t.t_ci,
+                         t.t_co, t_n)
+    return fp32_wgmma_tile(g.stride, t.t_oh, t.t_ow, t.t_co, t_n, g.kernel,
+                           t.t_ci, split) is not None
+
+
+def with_ci_minor(st: StaticOperands) -> StaticOperands:
+    """``st`` with ``wt``, its weight packed CI-minor, added (the same ``w``
+    and ``b`` tensors: a graph that captured them keeps its addresses)."""
+    if st.wt is not None:
+        return st
+    return dataclasses.replace(st, wt=pack_ci_minor(st.w))
 
 
 def prepare_static(w: torch.Tensor, b: Optional[torch.Tensor], cip: int,
@@ -251,6 +278,6 @@ def deconv2d(
     xp, kwargs, crop, (cip, cop) = call_args(
         x, w.shape[0], w.shape[3], stride, padding, *tiles, activation)
     st = static_for(static, w, b, cip, cop, x.dtype)
-    y = deconv2d_launch(xp, st.w, st.b, **kwargs)
+    y = deconv2d_launch(xp, st.w, st.b, wt=st.wt, **kwargs)
     report_launch("B1", x, w.shape, stride, padding, (xp, st.w, st.b), y)
     return y[crop]

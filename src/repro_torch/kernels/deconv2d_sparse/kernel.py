@@ -21,7 +21,8 @@ no sum, so the result is the dense result on the pruned weights.
   schedule that drops a nonzero slab changes its result as it changes
   the kernel's.
 
-``LAUNCHES`` counts launches of the zero-skip kernel.
+``LAUNCHES`` counts launches of the zero-skip kernel; ``WGMMA_LAUNCHES``
+those on its wgmma path (bf16 alone: fp32 zero-skip stays on mma.sync).
 """
 from __future__ import annotations
 
@@ -35,9 +36,10 @@ from ...core.counting import is_fake
 from ...core.offsets import PhasePlan
 from ..deconv2d.kernel import (_check_shapes, aligned, check_rc,
                                deconv2d_launch_plain, launch_params,
-                               tc_library)
+                               takes_wgmma, tc_library)
 
 LAUNCHES = 0
+WGMMA_LAUNCHES = 0
 
 
 class Schedule(NamedTuple):
@@ -189,7 +191,7 @@ def deconv2d_sparse_launch(
     CPU one.  ``count``/``ci``/``bits`` are the packed schedule
     (`schedule_tensors`), int32 tensors on x's device built at this
     ``t_ci``/``t_co``."""
-    global LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES
     kw = dict(plan=plan, ih=ih, iw=iw, ohp=ohp, owp=owp, t_oh=t_oh, t_ow=t_ow,
               t_ci=t_ci, t_co=t_co, t_n=t_n, activation=activation)
     if is_fake(xp):     # a cost count: the output's shape and dtype alone
@@ -206,7 +208,7 @@ def deconv2d_sparse_launch(
             raise ValueError(f"{name} must be a contiguous int32 tensor on "
                              f"{xp.device}; got {t.dtype} on {t.device}")
     xp, wp = aligned(xp), aligned(wp)
-    params = launch_params(xp, wp, [("b", bp, xp.dtype)], **kw)
+    params = launch_params(xp, wp, [("b", bp, xp.dtype)], sparse=True, **kw)
     y = torch.empty((xp.shape[0], ohp, owp, wp.shape[3]), dtype=xp.dtype,
                     device=xp.device)
     args = (xp.data_ptr(), wp.data_ptr(), bp.data_ptr(), y.data_ptr(),
@@ -217,4 +219,5 @@ def deconv2d_sparse_launch(
         rc = tc_library().deconv2d_tc_sparse_forward(*args, stream)
     check_rc("deconv2d zero-skip", rc)
     LAUNCHES += 1
+    WGMMA_LAUNCHES += takes_wgmma(params)
     return y

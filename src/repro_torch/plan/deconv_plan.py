@@ -220,7 +220,8 @@ def build_layer_plan(
         tiles = choose_tiles(geom, name, backend, refine=refine,
                              batch=batch, out_dtype_bytes=out_dtype_bytes)
     else:
-        tiles = hopper_tiles(geom, batch=batch, dtype=name)
+        tiles = hopper_tiles(geom, batch=batch, dtype=name,
+                             sparse=backend == "cuda_sparse")
     sparse_tables = digest = None
     if backend == "cuda_sparse" and weights is not None:
         from ..kernels.deconv2d_sparse import make_sparse_plan

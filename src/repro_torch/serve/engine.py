@@ -39,7 +39,9 @@ executable runs eagerly.
 sums them; the counterparts of ``trace_counts`` and ``total_compiles``);
 ``launch_counts`` maps bucket -> launches of the kernel of the engine's
 path made by that bucket's dispatches, so a run can show that serving went
-through it.
+through it; ``wgmma_launch_counts`` those of them on the kernel's wgmma
+path (on a card: per replay, the capture's launches that `launch_info`
+puts there).
 
 A pinned plan passes the plan DRC (`analysis.check.check_network_plan`)
 before anything else happens: a plan that would fail the kernel's launch
@@ -223,16 +225,18 @@ class BucketExecutable:
     ``out_dev`` themselves).  ``graph`` is the captured
     `torch.cuda.CUDAGraph` (None on the CPU, where ``body`` runs eagerly),
     and ``launches`` the launches of the path's kernel one replay makes
-    (counted while capturing; None on the CPU)."""
+    (counted while capturing; None on the CPU), ``wgmma_launches`` those
+    of them on its wgmma path (0 on the CPU)."""
 
     def __init__(self, bucket, body, z_dev, out_dev, z_host, out_host,
-                 graph=None, launches=None):
+                 graph=None, launches=None, wgmma_launches=0):
         self.bucket = bucket
         self.body = body
         self.z_dev, self.out_dev = z_dev, out_dev
         self.z_host, self.out_host = z_host, out_host
         self.graph = graph
         self.launches = launches
+        self.wgmma_launches = wgmma_launches
 
     def stage(self, rows: np.ndarray) -> None:
         """``rows`` into the host staging input, the rows past them zero
@@ -260,7 +264,8 @@ class ShardedExecutable:
     (the result is its numpy view), else into the shard's ``out_host``,
     copied out on the host (the next dispatch reuses the staging buffers,
     so no result aliases them).  On the CPU each shard's body runs
-    eagerly.  ``launches`` sums the shards'.  A call records its phases
+    eagerly.  ``launches`` and ``wgmma_launches`` sum the shards'.  A call
+    records its phases
     as spans of the process tracer (`obs.trace`): ``stage``, ``enqueue``
     (on the CPU the eager bodies take its place), ``wait`` and, where the
     images come back through ``out_host``, ``copy_out``."""
@@ -273,6 +278,7 @@ class ShardedExecutable:
         self.graph = shards[0].graph
         self.launches = (None if shards[0].launches is None
                          else sum(s.launches for s in shards))
+        self.wgmma_launches = sum(s.wgmma_launches for s in shards)
 
     def _takes(self, take: int):
         """Per shard, its slice and how many of the first ``take`` rows
@@ -589,7 +595,10 @@ class DcnnServeEngine:
         # dispatches (on a card: per replay, the launches its capture
         # recorded; on the CPU: the wrapper's count over each eager run).
         # capture_counts: per bucket, executables built (one, ever).
+        # wgmma_launch_counts: per bucket, those launches on the kernel's
+        # wgmma path (a replay's, as its capture recorded them).
         self.launch_counts: Dict[int, int] = {}
+        self.wgmma_launch_counts: Dict[int, int] = {}
         self.capture_counts: Dict[int, int] = {}
         self._fns: Dict[int, ShardedExecutable] = {}
         # per batch shard, the launches' static operands under (layer, CIp,
@@ -788,10 +797,12 @@ class DcnnServeEngine:
     def _prepared(self, plan, shard: int = 0) -> Optional[Dict[int, object]]:
         """Per layer the `StaticOperands` of ``plan``'s tiles on the shard's
         device, prepared at the first plan that needs them and held (None
-        on untiled backends)."""
+        on untiled backends); a layer whose fp32 tiles take the wgmma path
+        gets its weight packed CI-minor once too (`ops.with_ci_minor`)."""
         if self.backend not in ("cuda", "cuda_sparse"):
             return None
-        from ..kernels.deconv2d.ops import _round_up, prepare_static
+        from ..kernels.deconv2d.ops import (_round_up, prepare_static,
+                                            takes_fp32_wgmma, with_ci_minor)
 
         out = {}
         for i, l in enumerate(plan.layers):
@@ -802,6 +813,9 @@ class DcnnServeEngine:
             if st is None:
                 p = self._replicas[shard][f"l{i}"]
                 st = statics[key] = prepare_static(p["w"], p["b"], *key[1:])
+            if st.wt is None and st.w.device.type == "cuda" and \
+                    takes_fp32_wgmma(l):
+                st = statics[key] = with_ci_minor(st)
             out[i] = st
         return out
 
@@ -857,6 +871,7 @@ class DcnnServeEngine:
                 graph = torch.cuda.CUDAGraph()
                 pool, stream = self._capture[device]
                 before = self._launches()
+                wg_before = self._wgmma_launches()
                 # a collection inside the capture could free a dropped
                 # engine's graph or pinned buffers: calls a capture refuses
                 # (torch.cuda.graph collects before it begins)
@@ -870,6 +885,7 @@ class DcnnServeEngine:
                     if gc_on:
                         gc.enable()
                 launches = self._launches() - before
+                wgmma_launches = self._wgmma_launches() - wg_before
         except Exception as e:
             where = f" shard {shard} ({device})" if self.mesh is not None else ""
             raise RuntimeError(f"bucket {bucket}{where}: capturing its CUDA "
@@ -877,7 +893,7 @@ class DcnnServeEngine:
         z_host = torch.zeros(z_dev.shape, dtype=dtype, pin_memory=True)
         out_host = torch.empty(out_dev.shape, dtype=dtype, pin_memory=True)
         return BucketExecutable(rows, body, z_dev, out_dev, z_host,
-                                out_host, graph, launches)
+                                out_host, graph, launches, wgmma_launches)
 
     @property
     def total_captures(self) -> int:
@@ -1001,6 +1017,12 @@ class DcnnServeEngine:
     def _add_launches_locked(self, bucket: int, made: int) -> None:
         self.launch_counts[bucket] = (self.launch_counts.get(bucket, 0)
                                       + made)
+        # one replay a dispatch: its capture's wgmma launches
+        ex = self._fns.get(bucket)
+        wg = ex.wgmma_launches if ex is not None else 0
+        if wg:
+            self.wgmma_launch_counts[bucket] = (
+                self.wgmma_launch_counts.get(bucket, 0) + wg)
 
     def _account(self, bucket: int, take: int, dt: float, steady: bool,
                  retried: bool, made: int) -> None:
@@ -1136,6 +1158,11 @@ class DcnnServeEngine:
         a replay does not pass through it).  0 on the backends without
         one."""
         return self._kernel.LAUNCHES if self._kernel is not None else 0
+
+    def _wgmma_launches(self) -> int:
+        """`_launches` on the kernel's wgmma path (``WGMMA_LAUNCHES``; 0
+        where the kernel has none)."""
+        return getattr(self._kernel, "WGMMA_LAUNCHES", 0)
 
     def bucket_for(self, n: int) -> int:
         """Smallest bucket covering n requests (largest bucket if n exceeds

@@ -348,8 +348,8 @@ def test_chosen_tiles_legal_and_within_the_kernels_limits(tmp_cache, geom,
     c = choose_tiles(geom, "float32", "cuda", batch=batch)
     s = geom.stride
     assert c.t_oh % s == 0 and c.t_ow % s == 0 and 1 <= c.t_n <= batch
-    assert block_threads(s, c.t_oh, c.t_ow, c.t_co, c.t_n) <= \
-        KERNEL_MAX_THREADS
+    assert block_threads(s, c.t_oh, c.t_ow, c.t_co, c.t_n,
+                         k_size=geom.kernel, t_ci=c.t_ci) <= KERNEL_MAX_THREADS
     assert kernel_for("float32") == "tc"
     for cand in refine_candidates(geom, batch, "float32", 5):
         ohp = -(-geom.out_h // cand.t_oh) * cand.t_oh

@@ -115,7 +115,8 @@ def test_hopper_tiles_fit_the_kernel(cfg):
                                          t.t_n, kern, split, dtype) \
                     <= MAX_SMEM <= 227 * 1024
                 assert block_threads(g.stride, t.t_oh, t.t_ow, t.t_co,
-                                     t.t_n, kern) <= MAX_THREADS <= 1024
+                                     t.t_n, kern, dtype, g.kernel,
+                                     t.t_ci) <= MAX_THREADS <= 1024
                 assert 1 <= t.t_n <= batch
                 step = {"int8": 32, "bfloat16": 16}.get(dtype, 8)
                 assert t.t_ci % step == 0

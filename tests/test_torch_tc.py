@@ -204,8 +204,8 @@ def _tc_takes(g, batch, t):
     assert t.t_ci % 8 == 0 and t.t_co >= 1
     assert t.t_co % 8 == 0 or t.t_co == g.c_out < 8
     assert 1 <= split <= min(MAX_SPLIT, cip // t.t_ci)
-    assert block_threads(s, t.t_oh, t.t_ow, t.t_co, t.t_n) <= \
-        KERNEL_MAX_THREADS
+    assert block_threads(s, t.t_oh, t.t_ow, t.t_co, t.t_n, k_size=g.kernel,
+                         t_ci=t.t_ci) <= KERNEL_MAX_THREADS
     assert kernel_smem_bytes(g, t.t_oh, t.t_ow, t.t_ci, t.t_co, t.t_n,
                              split=split) <= KERNEL_MAX_SMEM
     # every halo window lies inside the host-padded input

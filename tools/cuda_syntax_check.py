@@ -75,9 +75,9 @@ typedef unsigned cuuint32_t;
 typedef unsigned long long cuuint64_t;
 enum CUresult { CUDA_SUCCESS = 0 };
 struct alignas(64) CUtensorMap { unsigned long long opaque[16]; };
-enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_DATA_TYPE_FLOAT32 };
 enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE };
-enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_SWIZZLE_128B };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_SWIZZLE_128B };
 enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_128B };
 enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE };
 long long clock64();
@@ -93,8 +93,10 @@ float __uint_as_float(unsigned);
 unsigned __float_as_uint(float);
 float tanhf(float); float fmaxf(float, float); float fminf(float, float); float rintf(float);
 using std::max; using std::min;
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
+float2 make_float2(float, float);
 float4 make_float4(float, float, float, float);
 int4 make_int4(int, int, int, int);
 float __fmul_rn(float, float); float __fadd_rn(float, float); float __fdiv_rn(float, float);

@@ -24,9 +24,11 @@ pick, the best timed tile that fills the SMs, and their ratio) goes to
 standard output, with the card's name and power limit.  The rows are what
 the int8 and bf16 constants of `kernels/autotune.py` are fitted to by
 hand.  float32 runs the fp32 candidates the same way, within 1e-4 (the
-rows the bucket-1 tile rule is set by).  A bf16 row names the path the
-launch takes (``wgmma`` or ``mma.sync``), its instance and its ring's
-stages; ``--wgmma-only`` keeps the wgmma path's tiles.  ``--only NET:LAYER`` keeps those
+rows the bucket-1 tile rule and the fp32 wgmma path's constants are set
+by; a fp32 launch reads the weights packed CI-minor once, as an engine's).
+A bf16 or fp32 row names the path the launch takes (``wgmma`` or
+``mma.sync``), its instance and its ring's stages; ``--wgmma-only`` keeps
+the wgmma path's tiles.  ``--only NET:LAYER`` keeps those
 layers; ``--library`` adds cuDNN's time of the same layer in the same
 dtype; ``--sparse`` runs the zero-skip kernel instead, on the weights
 magnitude-pruned at 0.9; ``--stage-budget`` builds the kernel library from a copy of the
@@ -117,8 +119,9 @@ def bf16_cases(g, l, last, batch, rng, w_data, dtype="bfloat16",
     x = torch.from_numpy(rng.standard_normal(
         (batch, g.in_h, g.in_w, g.c_in)).astype(np.float32)).cuda().to(
             w.dtype)
-    for t, t_n, t_co, t_ci in autotune._tc_candidates(g, batch, dtype):
-        clk = autotune.tc_cost(g, batch, t, t_n, t_co, t_ci, dtype)
+    for t, t_n, t_co, t_ci in autotune._tc_candidates(g, batch, dtype,
+                                                      sparse):
+        clk = autotune.tc_cost(g, batch, t, t_n, t_co, t_ci, dtype, sparse)
         if clk is None:
             continue
         xp, wp, bp, kw, _ = launch_args(x, w, b, g.stride, g.padding, t, t,
@@ -138,14 +141,18 @@ def bf16_cases(g, l, last, batch, rng, w_data, dtype="bfloat16",
             ref = sparse_kernel.deconv2d_sparse_launch_plain(
                 xp, wp, bp, *sched, split=split, **kw)
         else:
-            def launch(xp=xp, wp=wp, bp=bp, kw=kw):
-                return deconv_kernel.deconv2d_launch(xp, wp, bp, **kw)
+            # the weights packed CI-minor once, as an engine holds them
+            # (read by a fp32 launch on the wgmma path)
+            wt = deconv_kernel.pack_ci_minor(wp)
+
+            def launch(xp=xp, wp=wp, bp=bp, kw=kw, wt=wt):
+                return deconv_kernel.deconv2d_launch(xp, wp, bp, wt=wt, **kw)
 
             ref = deconv_kernel.deconv2d_launch_plain(xp, wp, bp,
                                                       split=split, **kw)
         tol = 8e-2 if dtype == "bfloat16" else 1e-4
         info = deconv_kernel.launch_info(deconv_kernel.launch_params(
-            xp, wp, [("b", bp, xp.dtype)], **kw))
+            xp, wp, [("b", bp, xp.dtype)], sparse=sparse, **kw))
         yield t, t_n, t_co, t_ci, clk, split, launch, ref, tol, info
 
 
@@ -205,7 +212,7 @@ def main() -> int:
                     help="bf16/fp32: the zero-skip kernel on weights pruned "
                          "at 0.9")
     ap.add_argument("--wgmma-only", action="store_true",
-                    help="bf16: only the tiles that take the wgmma path")
+                    help="bf16/fp32: only the tiles that take the wgmma path")
     ap.add_argument("--verbose", action="store_true",
                     help="print each tile's row as it is timed")
     a = ap.parse_args()
@@ -272,7 +279,8 @@ def main() -> int:
                             print(json.dumps(row), flush=True)
                     if not rows:
                         continue
-                    pick = autotune.hopper_tiles(g, batch, a.dtype)
+                    pick = autotune.hopper_tiles(g, batch, a.dtype,
+                                                 a.sparse)
                     fill = [r for r in rows
                             if r["blocks"] * r["split"] >= autotune.SMS] or rows
                     best = min(fill, key=lambda r: r["ms"])
