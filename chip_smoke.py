@@ -204,10 +204,27 @@ scratch, and a second loss fails):
     and through cuDNN, timed: the counted FLOPs exactly the layers' ops
     x 256, the images within 1e-4 of cuDNN's, both times beside the
     3xTF32 bound;
-17. the kernels line (launches summed over the serving paths, the
+17. the pix2pix U-Net (`models.unet`) at its published widths served
+    through DcnnServeEngine at bucket 16 (seeded weights and images),
+    three dispatches under torch.profiler with every count at 0 just
+    before: traced launches == 16 of fp32 B1 and 15 of the norm kernel
+    (`norm_act_kernel`) a dispatch and none of B2 or B3, the engine's
+    ``kind_launch_counts`` (b1_enc 8, b1_dec 8, norm 15 a dispatch) and
+    the wrappers' counts 0 (replays only); the images within 1e-4 of the
+    plain reference (`models.unet_reference`, TF32 off); then the bucket
+    once eagerly through the engine's own body, with its norm launch
+    count reset just before: 15 launches, the images bit-identical to the
+    replay's, and each launch's destinations against the plain version
+    (`norm_act_plain`) on the same card inputs (bit-equal without
+    statistics, within 1e-5 of the normalised scale with them); each of
+    the 15 launches timed (CUDA events behind a queued sleep) with its
+    plain version, the library's nearest calls (`F.instance_norm` and
+    `F.leaky_relu`, or the activation alone) and its bytes bound;
+    ``chip_smoke.py --unet-phase`` runs phases 1, 2 and 17 alone;
+18. the kernels line (launches summed over the serving paths, the
     frontend run, the training runs, the mesh phase, the examples and
-    phase 16);
-    18. the result line.
+    phases 16 and 17; the norm kernel's entry from phase 17);
+19. the result line.
 
 Phase 10's rerun after a trace loss runs in a process of its own
 (``chip_smoke.py --mesh-phase``, on CelebA engines built as phase 4
@@ -254,6 +271,7 @@ from repro_torch.core.tiling import DeconvGeometry, tc_warp_tile  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import image_source, lm_source  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.kernels._build import ptxas_report  # noqa: E402
 from repro_torch.kernels.autotune import (SMS, fill_tiles,  # noqa: E402
                                           grid_blocks, hopper_tiles, time_ms)
 from repro_torch.kernels.deconv2d import int8 as int8_kernel  # noqa: E402
@@ -265,6 +283,10 @@ from repro_torch.kernels.deconv2d_sparse import (make_sparse_plan,  # noqa: E402
 from repro_torch.models.dcnn import (CELEBA_DCNN, MNIST_DCNN,  # noqa: E402
                                      generator_apply, generator_init)
 from repro_torch.models.nn import tree_bytes, tree_size  # noqa: E402
+from repro_torch.models import unet  # noqa: E402
+from repro_torch.models.unet_reference import unet_reference  # noqa: E402
+from repro_torch.kernels import norm_act as norm_pkg  # noqa: E402
+from repro_torch.kernels.norm_act import kernel as norm_kernel  # noqa: E402
 from repro_torch.models.ffn import _dispatch_groups  # noqa: E402
 from repro_torch.models.transformer import (ATTN_KINDS,  # noqa: E402
                                             apply_lm, init_block_cache,
@@ -477,6 +499,15 @@ COST_STEP = (4, 128)
 COST_PEAK_TOL = 0.2            # predicted vs measured peak, relative
 H0_ROWS = 256
 H0_TOL = 1e-4                  # B1's images against cuDNN's, fp32
+# phase 17: the pix2pix U-Net at its published widths, one bucket of 16
+# images, three dispatches traced; each norm launch against its plain
+# version on the same card inputs, within NORM_TOL of max(1, its largest
+# value) with statistics (the kernel's merged shares against two passes,
+# float32) and bit-equal without
+UNET_PHASE_ARG = "--unet-phase"
+UNET_BUCKET = 16
+UNET_DISPATCHES = 3
+NORM_TOL = 1e-5
 
 
 @functools.lru_cache(maxsize=None)
@@ -3334,6 +3365,232 @@ def phase_analysis(smi, peaks):
     return launched
 
 
+NORM_SOURCE = "src/repro_torch/csrc/norm_act.cu"
+# the norm kernel in a trace ("(anonymous namespace)::norm_act_kernel(..)")
+NORM_TRACE = r"\bnorm_act_kernel\b"
+
+
+def build_libraries():
+    """Both kernel libraries built now and loaded; ptxas's report per
+    library."""
+    report = deconv_kernel.build()
+    norm_kernel.library()
+    report["norm_act"] = ptxas_report("norm_act")
+    return report
+
+
+def drive_unet(eng, x):
+    """`UNET_DISPATCHES` requests of one bucket under torch.profiler with
+    every count at 0 just before; the images and the counts read just
+    after."""
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        zero_launch_counts()
+        norm_kernel.LAUNCHES = 0
+        eng.launch_counts.clear()
+        eng.kind_launch_counts.clear()
+        ys = [eng.generate(x) for _ in range(UNET_DISPATCHES)]
+        torch.cuda.synchronize()
+        counts = {"engine": dict(eng.kind_launch_counts),
+                  "wrappers": {**launch_counts(),
+                               "norm_act_kernel": norm_kernel.LAUNCHES}}
+    device = [demangle(e.name) if e.name.startswith("_Z") else e.name
+              for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = {k: sum(kernel_of(n) == k for n in device)
+              for k in TRACE_NAMES}
+    traced["norm_act_kernel"] = sum(bool(re.search(NORM_TRACE, n))
+                                    for n in device)
+    return ys, traced, counts
+
+
+def recorded_norm_launches(eng, x):
+    """The bucket once through the engine's own body, eagerly, with the
+    norm kernel's launch count at 0 just before: per launch its card
+    inputs, its destinations before and after, and the images."""
+    real = norm_pkg.norm_act
+    seen = []
+
+    def record(src, dests, gamma=None, beta=None, eps=1e-5):
+        before = [d.t.clone() for d in dests]
+        real(src, dests, gamma, beta, eps)
+        seen.append((src.clone(), gamma, beta, eps, dests, before,
+                     [d.t.clone() for d in dests]))
+
+    plan = eng.plans[UNET_BUCKET]
+    torch.cuda.synchronize()
+    norm_kernel.LAUNCHES = 0
+    norm_pkg.norm_act = record
+    try:
+        with torch.no_grad():
+            y = eng._apply(UNET_BUCKET, plan,
+                           torch.from_numpy(x).cuda()).cpu().numpy()
+    finally:
+        norm_pkg.norm_act = real
+    torch.cuda.synchronize()
+    return seen, norm_kernel.LAUNCHES, y
+
+
+def check_norm_launch(i, launch):
+    """Launch ``i``'s destinations against the plain version on the same
+    card inputs; its largest error."""
+    src, gamma, beta, eps, dests, before, got = launch
+    plain = [norm_pkg.Dest(b.clone(), d.pad, d.off, d.slope, d.s2d)
+             for d, b in zip(dests, before)]
+    norm_pkg.norm_act_plain(src, plain, gamma, beta, eps)
+    err = max(float((g - p.t).abs().max()) for g, p in zip(got, plain))
+    scale = max(1.0, max(float(p.t.abs().max()) for p in plain))
+    if (err > NORM_TOL * scale) if gamma is not None else err != 0.0:
+        raise AssertionError(
+            f"norm launch {i} ({tuple(src.shape)}, stats "
+            f"{gamma is not None}, {len(dests)} destinations): {err} from "
+            f"its plain version (scale {scale})")
+    return err
+
+
+def time_norm_launch(i, launch, smi, mem_bw):
+    """Launch ``i``'s row: the kernel's device time, its plain version's
+    per-call time, the library's nearest calls (instance norm with the
+    affine, then LeakyReLU at the first destination's slope; the
+    activation alone without statistics) and the bytes bound (the map
+    read once, every destination's places written once, gamma and beta
+    read)."""
+    src, gamma, beta, eps, dests, before, _ = launch
+    n, h, w, c = src.shape
+    stats = gamma is not None
+    work = [norm_pkg.Dest(b.clone(), d.pad, d.off, d.slope, d.s2d)
+            for d, b in zip(dests, before)]
+    x = src.permute(0, 3, 1, 2)
+    slope = dests[0].slope
+
+    def library():
+        v = (F.instance_norm(x, weight=gamma, bias=beta, eps=eps) if stats
+             else x)
+        return F.leaky_relu(v, slope)
+
+    ms, held = time_ms(lambda: norm_kernel.norm_act(src, work, gamma, beta,
+                                                    eps))
+    plain_ms, _ = time_ms(lambda: norm_pkg.norm_act_plain(
+        src, work, gamma, beta, eps), backlog=False)
+    lib_ms, lib_held = time_ms(library)
+    nbytes = 4 * (n * h * w * c * (1 + len(dests)) + (2 * c if stats else 0))
+    row = {"kernel": "norm_act_kernel", "net": "pix2pix-unet256",
+           "launch": i, "bucket": n, "map": [h, w, c], "stats": stats,
+           "dests": ["s2d" if d.s2d else f"cat+{d.off}" for d in dests],
+           "ms": ms, "ms_is_device_time": held, "plain_call_ms": plain_ms,
+           "library_ms": lib_ms, "library_is_device_time": lib_held,
+           "bound_ms": nbytes / mem_bw * 1e3, "bound_by": "bytes",
+           "mbytes": nbytes / 1e6, "card": smi}
+    print(json.dumps({"layer_time": row}), flush=True)
+    return row
+
+
+def phase_unet(smi, peaks):
+    """Phase 17: the U-Net served, traced, checked launch by launch and
+    timed.  Returns (B1's traced launches, the norm kernel's entry of the
+    kernels line)."""
+    t0 = time.perf_counter()
+    cfg = unet.PIX2PIX_UNET256
+    params = unet.unet_init(torch.Generator().manual_seed(11), cfg, "cuda",
+                            w_std=0.02, g_std=0.02, b_std=0.1)
+    x = np.random.default_rng(12).standard_normal(
+        (UNET_BUCKET,) + cfg.input_shape).astype(np.float32)
+    eng = DcnnServeEngine.from_config(EngineConfig(
+        model=cfg, backend="cuda", buckets=(UNET_BUCKET,), warmup=True),
+        params)
+    try:
+        ys, traced, counts = drive_unet(eng, x)
+        b1, norm = len(cfg.layers), 2 * cfg.num_downs - 1
+        want = {("deconv2d_kernel", "fp32"): b1 * UNET_DISPATCHES,
+                "norm_act_kernel": norm * UNET_DISPATCHES}
+        kinds = {"b1_enc": cfg.num_downs * UNET_DISPATCHES,
+                 "b1_dec": cfg.num_downs * UNET_DISPATCHES,
+                 "norm": norm * UNET_DISPATCHES}
+        exact = (counts["engine"] == {UNET_BUCKET: kinds}
+                 and not any(counts["wrappers"].values()))
+        shown = {"/".join(k) if isinstance(k, tuple) else k: v
+                 for k, v in traced.items()}
+        print(f"  U-Net bucket {UNET_BUCKET}: {UNET_DISPATCHES} dispatches; "
+              f"traced device launches {shown}, "
+              f"engine kind_launch_counts {counts['engine']}, wrapper "
+              f"launches {counts['wrappers']}, capture_counts "
+              f"{eng.capture_counts}", flush=True)
+        if (any(traced[k] != v for k, v in want.items()) or not exact
+                or any(v for k, v in traced.items() if k not in want)):
+            raise failure(traced, want, exact)(
+                f"U-Net: traced {traced}, counts {counts}; expected {want} "
+                f"traced and {kinds} counted, none of the others and none "
+                "through the wrappers")
+        if eng.capture_counts != {UNET_BUCKET: 1}:
+            raise AssertionError(f"U-Net: capture_counts "
+                                 f"{eng.capture_counts}, expected 1")
+        with torch.no_grad():
+            ref = unet_reference(params, torch.from_numpy(x).cuda(),
+                                 cfg.num_downs, cfg.eps,
+                                 cfg.slope).cpu().numpy()
+        errs = [float(np.abs(y - ref).max()) for y in ys]
+        if max(errs) > SERVE_TOL or not all(np.array_equal(y, ys[0])
+                                            for y in ys):
+            raise AssertionError(f"U-Net images: {errs} from the reference "
+                                 f"(tol {SERVE_TOL}), or replays differ")
+        seen, counted, eager = recorded_norm_launches(eng, x)
+        if counted != norm or len(seen) != norm:
+            raise AssertionError(f"U-Net eager pass: {counted} norm launches "
+                                 f"counted, {len(seen)} recorded, expected "
+                                 f"{norm}")
+        if not np.array_equal(eager, ys[0]):
+            raise AssertionError(
+                f"U-Net: the eager pass differs from the replay by "
+                f"{np.abs(eager - ys[0]).max()}")
+        norm_errs = [check_norm_launch(i, l) for i, l in enumerate(seen)]
+        with_stats = max(e for e, l in zip(norm_errs, seen)
+                         if l[1] is not None)
+        print(f"  U-Net: images {max(errs):.3g} from the reference, eager "
+              f"pass bit-identical to the replay, {norm} norm launches "
+              f"against their plain version: largest error "
+              f"{max(norm_errs):.3g} ({with_stats:.3g} with statistics)",
+              flush=True)
+        rows = [time_norm_launch(i, l, smi, peaks["bw"])
+                for i, l in enumerate(seen)]
+    finally:
+        eng.close()
+    print(f"  phase 17 in {time.perf_counter() - t0:.1f} s", flush=True)
+    lib = [r["library_ms"] for r in rows]
+    entry = {
+        "name": "norm_act_kernel", "route": "cuda", "source": NORM_SOURCE,
+        "replaces": None, "launches": traced["norm_act_kernel"],
+        "launches_by_path": {"unet": traced["norm_act_kernel"]},
+        "max_abs_err": max(norm_errs),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_call_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "library_ms": None if None in lib else sum(lib),
+        "bound_by": "bytes",
+        "times_are": f"sum over the {norm} launches of a bucket-"
+                     f"{UNET_BUCKET} U-Net dispatch",
+        "ms_is_device_time": all(r["ms_is_device_time"] for r in rows),
+        "card": smi,
+    }
+    return {("deconv2d_kernel", "fp32"):
+            traced[("deconv2d_kernel", "fp32")]}, entry
+
+
+def unet_phase_only(smi, peaks) -> int:
+    """Phases 1, 2 and 17 alone, and the norm kernel's kernels line."""
+    print(f"[1] device: {smi}", flush=True)
+    t0 = time.perf_counter()
+    for lib, rows in build_libraries().items():
+        for r in rows:
+            print(f"  {lib}: {demangle(r['kernel'])}: {r['registers']} "
+                  f"registers, spill stores {r['spill_stores']} B, spill "
+                  f"loads {r['spill_loads']} B", flush=True)
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s", flush=True)
+    print("[17] the pix2pix U-Net", flush=True)
+    _, entry = once_more_on_trace_loss("U-Net", phase_unet, smi, peaks)
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    return 0
+
+
 def main() -> int:
     smi, name, peaks = device_info()
     # no run reads another's tile timings
@@ -3343,6 +3600,8 @@ def main() -> int:
     try:
         if sys.argv[1:] == [MESH_PHASE_ARG]:
             return mesh_phase_only(smi)
+        if sys.argv[1:] == [UNET_PHASE_ARG]:
+            return unet_phase_only(smi, peaks)
         return run(smi, name, peaks)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
@@ -3355,10 +3614,11 @@ def run(smi, name, peaks) -> int:
           f"{peaks['bw'] / 1e12} TB/s", flush=True)
 
     t0 = time.perf_counter()
-    report = deconv_kernel.build()
+    report = build_libraries()
     print(f"[2] build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(set(SOURCES.values())))}: "
-          f"{', '.join(k for k, _, _ in KERNELS)})", flush=True)
+          f"{', '.join(k for k, _, _ in KERNELS)}; {NORM_SOURCE}: "
+          "norm_act_kernel)", flush=True)
     for lib, rows in report.items():
         for r in rows:
             print(f"  {lib}: {demangle(r['kernel'])}: {r['registers']} "
@@ -3421,11 +3681,16 @@ def run(smi, name, peaks) -> int:
     print(f"[16] cost analyses (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
     launches["analysis"] = phase_analysis(smi, peaks)
-    print(f"[17] kernels line (at {time.perf_counter() - t0:.1f} s)",
+    print(f"[17] the pix2pix U-Net (at {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    launches["unet"], norm_entry = once_more_on_trace_loss(
+        "U-Net", phase_unet, smi, peaks)
+    print(f"[18] kernels line (at {time.perf_counter() - t0:.1f} s)",
           flush=True)
 
     print(json.dumps({"kernels": kernel_entries(rows, launches, dense, int8,
-                                                sparse, smi)}), flush=True)
+                                                sparse, smi)
+                      + [norm_entry]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

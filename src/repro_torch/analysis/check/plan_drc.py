@@ -21,7 +21,8 @@ renamed, for the card has no VMEM):
   extents tile multiples, and for int8 the channels the engine packs
   weights to (`int8.packed_ci_width`, `packed_width`) split into the
   tiles;
-* ``drc.geometry_chain`` — layer i's output feeds layer i+1's input;
+* ``drc.geometry_chain`` — layer i's output feeds layer i+1's input, or
+  each layer's input is the maps the plan's ``feeds`` declare (a DAG);
 * ``drc.input_root``     — the tower's root and head match the plan's
   declared `repro_torch.workloads` entry;
 * ``drc.scale_chain``    — the int8 requant chain: ``out_scale[i]`` is
@@ -312,17 +313,50 @@ def check_tile_alignment(r, plan) -> List[PlanRuleViolation]:
     return out
 
 
+def _fed_map(plan, i: int, producer: int, s2d: bool):
+    """The ``(h, w, c)`` map an edge of ``plan.feeds`` brings to layer
+    ``i``, or why it brings none."""
+    if not 0 <= producer < i:
+        return f"layer {i} reads layer {producer}, which does not run before it"
+    g = plan.layers[producer].geometry
+    if not s2d:
+        return g.out_h, g.out_w, g.c_out
+    if g.out_h % 2 or g.out_w % 2:
+        return (f"layer {producer}'s {g.out_h}x{g.out_w} map has no 2 x 2 "
+                "space-to-depth")
+    return g.out_h // 2 + 1, g.out_w // 2 + 1, 4 * g.c_out
+
+
 @rule("drc.geometry_chain",
-      "layer i's output feeds layer i+1's input exactly")
+      "each layer's input is exactly the maps that feed it: layer i - 1's "
+      "output, or the plan's declared feeds")
 def check_geometry_chain(r, plan) -> List[PlanRuleViolation]:
     out: List[PlanRuleViolation] = []
-    for i in range(len(plan.layers) - 1):
-        g, nxt = plan.layers[i].geometry, plan.layers[i + 1].geometry
-        if (g.out_h, g.out_w, g.c_out) != (nxt.in_h, nxt.in_w, nxt.c_in):
+    n = len(plan.layers)
+    feeds = plan.feeds
+    if feeds is None:
+        feeds = [((i - 1, False),) for i in range(n)]
+    elif len(feeds) != n:
+        return [r.violation(f"the plan wires {len(feeds)} layers but holds "
+                            f"{n}", fix_hint="re-plan from the network "
+                                             "config")]
+    for i, edges in enumerate(feeds):
+        if any(p == -1 for p, _ in edges):
+            continue                 # the network's input: drc.input_root
+        maps = [(p, _fed_map(plan, i, p, s2d)) for p, s2d in edges]
+        bad = [m for _, m in maps if isinstance(m, str)]
+        if bad:
+            out.extend(r.violation(m, layer=i, fix_hint="re-plan from the "
+                                   "network config") for m in bad)
+            continue
+        g = plan.layers[i].geometry
+        if ({(h, w) for _, (h, w, _) in maps} != {(g.in_h, g.in_w)}
+                or sum(c for _, (_, _, c) in maps) != g.c_in):
+            got = " + ".join(f"layer {p}'s {h}x{w}x{c}"
+                             for p, (h, w, c) in maps)
             out.append(r.violation(
-                f"layer {i} emits {g.out_h}x{g.out_w}x{g.c_out} but "
-                f"layer {i + 1} expects {nxt.in_h}x{nxt.in_w}x{nxt.c_in}",
-                layer=i + 1,
+                f"{got} feed layer {i}, which expects "
+                f"{g.in_h}x{g.in_w}x{g.c_in}", layer=i,
                 fix_hint="the layer list was edited after pinning; "
                          "re-plan from the network config"))
     return out

@@ -93,6 +93,11 @@ class DcnnConfig:
             h, w = g.out_h, g.out_w
         return out
 
+    def feeds(self) -> None:
+        """A tower is a chain: each layer reads the one before
+        (`plan.NetworkPlan.feeds`)."""
+        return None
+
 
 MNIST_DCNN = DcnnConfig(
     name="dcnn-mnist",
@@ -286,6 +291,10 @@ def make_fused_generator(cfg: DcnnConfig, fwd_backend: str = "cuda",
 
     "cuda_sparse" is rejected: its zero-skip schedule is built from frozen
     weights, which training updates each step."""
+    if not isinstance(cfg, DcnnConfig):
+        raise ValueError(f"make_fused_generator trains a DCNN tower, not a "
+                         f"{type(cfg).__name__}: the U-Net does not train "
+                         "here")
     if plan is not None:
         fwd_backend = plan.backend
     if fwd_backend == "cuda_sparse":

@@ -36,6 +36,10 @@ def _check_precision(precision: str) -> None:
                          f"{PRECISIONS}")
 
 
+def _feeds_json(feeds):
+    return [[[p, s2d] for p, s2d in f] for f in feeds]
+
+
 def _weights(params, i: int) -> np.ndarray:
     w = params[f"l{i}"]["w"]
     return (w.detach().float().cpu().numpy() if hasattr(w, "detach")
@@ -47,7 +51,13 @@ class NetworkPlan:
     """Per-layer `DeconvPlan`s plus the network-level choices that bind
     them: backend, precision, the batch every layer's tiles were fitted
     to, and for int8 the calibration strategy the layer scales came
-    from."""
+    from.
+
+    ``feeds`` wires a network that is not a chain (the U-Net's skips):
+    per layer, the maps its input joins along channels in order, each
+    ``(producer, s2d)`` with producer -1 the network's input and ``s2d``
+    the map zero-padded by 1 and cut 2 x 2 into channels.  None (a
+    tower): layer i reads layer i - 1's output."""
 
     name: str
     backend: str
@@ -57,6 +67,7 @@ class NetworkPlan:
     quant_strategy: Optional[str] = None
     workload: Optional[str] = None
     schema_version: int = PLAN_SCHEMA_VERSION
+    feeds: Optional[Tuple[Tuple[Tuple[int, bool], ...], ...]] = None
 
     def __post_init__(self):
         _check_precision(self.precision)
@@ -91,8 +102,12 @@ class NetworkPlan:
                            layers=tuple(l.quant for l in self.layers))
 
     def validate_for(self, cfg) -> None:
-        """Reject a plan built for a different network geometry."""
+        """Reject a plan built for a different network geometry or
+        wiring."""
         geoms = list(cfg.geometries())
+        if self.feeds != cfg.feeds():
+            raise ValueError(f"plan '{self.name}' wires its layers as "
+                             f"{self.feeds}; {cfg.name} as {cfg.feeds()}")
         if len(geoms) != len(self.layers):
             raise ValueError(
                 f"plan '{self.name}' has {len(self.layers)} layers; "
@@ -163,12 +178,14 @@ class NetworkPlan:
         # keyed in only when set, as in the JAX package
         if self.workload is not None:
             d["workload"] = self.workload
+        if self.feeds is not None:
+            d["feeds"] = _feeds_json(self.feeds)
         blob = json.dumps(d, sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()[:24]
 
     def to_json(self, path: Optional[str] = None) -> str:
         """The plan's JSON document (written to ``path`` too when given)."""
-        s = json.dumps({
+        d = {
             "schema": self.schema_version,
             "kind": "repro.NetworkPlan",
             "name": self.name,
@@ -179,7 +196,10 @@ class NetworkPlan:
             "workload": self.workload,
             "stable_hash": self.stable_hash(),
             "layers": [l.to_json_dict() for l in self.layers],
-        }, indent=1, sort_keys=True)
+        }
+        if self.feeds is not None:
+            d["feeds"] = _feeds_json(self.feeds)
+        s = json.dumps(d, indent=1, sort_keys=True)
         if path is not None:
             with open(path, "w") as f:
                 f.write(s)
@@ -207,6 +227,9 @@ class NetworkPlan:
             batch=int(d["batch"]), quant_strategy=d.get("quant_strategy"),
             workload=d.get("workload"),
             layers=tuple(DeconvPlan.from_json_dict(l) for l in d["layers"]),
+            feeds=(None if d.get("feeds") is None else tuple(
+                tuple((int(p), bool(s2d)) for p, s2d in f)
+                for f in d["feeds"])),
         )
         if plan.precision == "int8" and any(l.quant is None
                                             for l in plan.layers):
@@ -291,7 +314,8 @@ def build_network_plan(
     autotune: bool = True,
     refine: bool = False,
 ) -> NetworkPlan:
-    """Plan a whole generator (``cfg`` is a `models.dcnn.DcnnConfig`) at
+    """Plan a whole generator (``cfg`` is a `models.dcnn.DcnnConfig` or a
+    `models.unet.UnetConfig`, whose ``feeds`` the plan keeps) at
     the batch every layer's kernel will see (a serving bucket).  Each
     layer's tiles follow ``autotune`` and ``refine`` (`build_layer_plan`).
 
@@ -342,7 +366,7 @@ def build_network_plan(
     return NetworkPlan(name=cfg.name, backend=backend, precision=precision,
                        batch=batch, layers=layers,
                        quant_strategy=quant_cfg.strategy if int8 else None,
-                       workload=workload_name_for(cfg))
+                       workload=workload_name_for(cfg), feeds=cfg.feeds())
 
 
 def executable_fingerprints(plans) -> Dict[int, str]:

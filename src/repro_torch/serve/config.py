@@ -14,7 +14,10 @@ class EngineConfig:
     """Everything a `DcnnServeEngine` needs besides params and plans.
 
     * ``model``     — the tower being served: a `models.dcnn.DcnnConfig`
-                      (its ``dtype`` "float32" or "bfloat16") or a
+                      (its ``dtype`` "float32" or "bfloat16"), the
+                      pix2pix U-Net's `models.unet.UnetConfig` (fp32 on
+                      one device; int8, "cuda_sparse" and a mesh are
+                      refused), or a
                       registered `repro_torch.workloads` name ("mnist",
                       "celeba", "sr", "denoise", or an alias); unknown
                       names raise a typed `UnknownWorkloadError`.

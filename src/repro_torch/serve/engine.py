@@ -2,7 +2,11 @@
 data-parallel mesh, and the LM's continuous-batching `ServeEngine`.
 
 `DcnnServeEngine` is the paper's serving path: batched z -> image
-generation through a selectable deconvolution backend.  Request batches
+generation through a selectable deconvolution backend.  It serves the
+pix2pix U-Net (`models.unet.UnetConfig`, image -> image) through the same
+buckets, capture, staging and spans, fp32 on one device: its bucket body
+is `models.unet.unet_apply` on the B1 operands rearranged once per engine
+and a zero-kept input buffer per launch and bucket.  Request batches
 are padded to a fixed set of power-of-two *buckets*, each bucket runs a
 pinned `plan.NetworkPlan` whose tiles (including the batch tile ``t_n``)
 were resolved for that bucket's batch, and a ``submit``/``collect`` queue
@@ -103,6 +107,7 @@ from ..kernels.deconv2d import int8 as int8_kernel
 from ..kernels.deconv2d import kernel as deconv_kernel
 from ..kernels.deconv2d_sparse import kernel as sparse_kernel
 from ..core.tree import tree_map
+from ..models import unet
 from ..models.dcnn import generator_apply
 from ..models.transformer import apply_lm, init_cache
 from ..obs import clock as obsclock
@@ -226,10 +231,13 @@ class BucketExecutable:
     `torch.cuda.CUDAGraph` (None on the CPU, where ``body`` runs eagerly),
     and ``launches`` the launches of the path's kernel one replay makes
     (counted while capturing; None on the CPU), ``wgmma_launches`` those
-    of them on its wgmma path (0 on the CPU)."""
+    of them on its wgmma path (0 on the CPU) and ``kind_launches`` a
+    U-Net's launches by kind (`models.unet.LAUNCHES`; empty on the CPU and
+    for a DCNN tower)."""
 
     def __init__(self, bucket, body, z_dev, out_dev, z_host, out_host,
-                 graph=None, launches=None, wgmma_launches=0):
+                 graph=None, launches=None, wgmma_launches=0,
+                 kind_launches=None):
         self.bucket = bucket
         self.body = body
         self.z_dev, self.out_dev = z_dev, out_dev
@@ -237,6 +245,7 @@ class BucketExecutable:
         self.graph = graph
         self.launches = launches
         self.wgmma_launches = wgmma_launches
+        self.kind_launches = dict(kind_launches or {})
 
     def stage(self, rows: np.ndarray) -> None:
         """``rows`` into the host staging input, the rows past them zero
@@ -279,6 +288,9 @@ class ShardedExecutable:
         self.launches = (None if shards[0].launches is None
                          else sum(s.launches for s in shards))
         self.wgmma_launches = sum(s.wgmma_launches for s in shards)
+        self.kind_launches = {k: sum(s.kind_launches.get(k, 0)
+                                     for s in shards)
+                              for k in shards[0].kind_launches}
 
     def _takes(self, take: int):
         """Per shard, its slice and how many of the first ``take`` rows
@@ -567,6 +579,14 @@ class DcnnServeEngine:
         self.mesh = config.mesh
         self.n_devices = self.mesh.data if self.mesh is not None else 1
         self.cfg = resolve_model(config.model)
+        self.is_unet = isinstance(self.cfg, unet.UnetConfig)
+        if self.is_unet:
+            if config.precision != "fp32":
+                raise unet.refuse(f"precision {config.precision!r}")
+            if config.backend not in unet.BACKENDS:
+                raise unet.refuse(f"backend {config.backend!r}")
+            if config.mesh is not None:
+                raise unet.refuse("a mesh")
         self.workload = workload_name_for(self.cfg)
         self.backend = config.backend
         self.precision = config.precision
@@ -599,6 +619,10 @@ class DcnnServeEngine:
         # wgmma path (a replay's, as its capture recorded them).
         self.launch_counts: Dict[int, int] = {}
         self.wgmma_launch_counts: Dict[int, int] = {}
+        # kind_launch_counts: per bucket, a U-Net's launches by kind
+        # (b1_enc, b1_dec, norm), a replay's as its capture recorded them
+        # (on a card only, as wgmma_launch_counts)
+        self.kind_launch_counts: Dict[int, Dict[str, int]] = {}
         self.capture_counts: Dict[int, int] = {}
         self._fns: Dict[int, ShardedExecutable] = {}
         # per batch shard, the launches' static operands under (layer, CIp,
@@ -676,6 +700,12 @@ class DcnnServeEngine:
         # others copies on their devices (even where a device repeats)
         self._replicas = [params] + replicate(
             params, self._shard_devices()[1:])
+        # the U-Net's B1 operands, rearranged once (encoder convs in their
+        # space-to-depth form); per bucket its "cuda" path's input buffers
+        self._b1_params = ([unet.b1_weights(r, self.cfg)
+                            for r in self._replicas] if self.is_unet
+                           else None)
+        self._workspaces: Dict[int, dict] = {}
         # queue entries are (ticket, rows, absolute deadline or None).
         # _qlock guards the queue state; _drain_lock serializes drains;
         # _inflight names tickets a drain has taken off the queue but not
@@ -687,8 +717,13 @@ class DcnnServeEngine:
         self._results: Dict[int, np.ndarray] = {}
         self._failures: Dict[int, Exception] = {}
         self._next_id = 0
+        # the JAX package's keys; a U-Net engine also counts the request
+        # bytes it stages (its rows are images)
         self.stats = {"generate_calls": 0, "images": 0, "padded_images": 0,
                       "device_count": self.n_devices}
+        if self.is_unet:
+            self.stats["input_bytes"] = 0
+            self._row_bytes = 4 * int(np.prod(self.cfg.input_shape))
         self.bucket_stats: Dict[int, Dict[str, float]] = {}
         # the registry's series are written at the same sites as the dicts
         # above (one registry may hold a whole multi-engine deployment)
@@ -715,6 +750,14 @@ class DcnnServeEngine:
             "engine.padded_images", "padded rows burned on bucket alignment")
         self._m_devices = self.metrics.gauge(
             "engine.device_count", "devices serving this engine")
+        if self.is_unet:
+            # series of their own beside the JAX package's
+            self._m_input_bytes = self.metrics.counter(
+                "engine.input_bytes", "request bytes staged")
+            self._m_kind_launches = self.metrics.counter(
+                "engine.kernel_launches",
+                "kernel launches of the dispatches by kind (label: kind: "
+                "b1_enc, b1_dec, norm)")
         self._m_devices.set(self.n_devices, **self._mlabels)
         # fault machinery: injector hook, per-bucket straggler monitors over
         # the healthy steady samples, an optional stall heartbeat (armed
@@ -776,6 +819,11 @@ class DcnnServeEngine:
         mesh: one shard of it, on that shard's device), on the shard's
         params and prepared static operands."""
         params = self._replicas[shard]
+        if self.is_unet:
+            return unet.unet_apply(
+                params, self.cfg, z, plan=plan,
+                prepared=self._prepared(plan, shard),
+                workspace=self._workspaces.setdefault(bucket, {}))
         if self.precision == "int8":
             from ..quant.infer import quantized_generator_apply
 
@@ -811,7 +859,8 @@ class DcnnServeEngine:
             statics = self._statics[shard]
             st = statics.get(key)
             if st is None:
-                p = self._replicas[shard][f"l{i}"]
+                p = (self._b1_params[shard][i] if self.is_unet
+                     else self._replicas[shard][f"l{i}"])
                 st = statics[key] = prepare_static(p["w"], p["b"], *key[1:])
             if st.wt is None and st.w.device.type == "cuda" and \
                     takes_fp32_wgmma(l):
@@ -872,20 +921,27 @@ class DcnnServeEngine:
                 pool, stream = self._capture[device]
                 before = self._launches()
                 wg_before = self._wgmma_launches()
+                kinds_before = dict(unet.LAUNCHES) if self.is_unet else {}
+                capturing = self._tracer.span("capture", cat="engine",
+                                              bucket=bucket, **self._mlabels)
                 # a collection inside the capture could free a dropped
                 # engine's graph or pinned buffers: calls a capture refuses
                 # (torch.cuda.graph collects before it begins)
                 gc_on = gc.isenabled()
                 gc.disable()
                 try:
-                    with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                          capture_error_mode="thread_local"):
+                    with capturing, torch.cuda.graph(
+                            graph, pool=pool, stream=stream,
+                            capture_error_mode="thread_local"):
                         body()
                 finally:
                     if gc_on:
                         gc.enable()
                 launches = self._launches() - before
                 wgmma_launches = self._wgmma_launches() - wg_before
+                kinds = {k: unet.LAUNCHES[k] - v
+                         for k, v in kinds_before.items()
+                         if unet.LAUNCHES[k] > v}
         except Exception as e:
             where = f" shard {shard} ({device})" if self.mesh is not None else ""
             raise RuntimeError(f"bucket {bucket}{where}: capturing its CUDA "
@@ -893,7 +949,8 @@ class DcnnServeEngine:
         z_host = torch.zeros(z_dev.shape, dtype=dtype, pin_memory=True)
         out_host = torch.empty(out_dev.shape, dtype=dtype, pin_memory=True)
         return BucketExecutable(rows, body, z_dev, out_dev, z_host,
-                                out_host, graph, launches, wgmma_launches)
+                                out_host, graph, launches, wgmma_launches,
+                                kinds)
 
     @property
     def total_captures(self) -> int:
@@ -961,7 +1018,9 @@ class DcnnServeEngine:
                 steady = bucket in self._warm
                 window = (tracer.span(f"dispatch b{bucket}", cat="engine",
                                       bucket=bucket, steady=steady,
-                                      retried=retried, **self._mlabels)
+                                      retried=retried,
+                                      input_bytes=int(rows.nbytes),
+                                      **self._mlabels)
                           if tracer.enabled else obstrace.NULL)
                 if self._heartbeat is not None:
                     self._heartbeat.arm()
@@ -1023,6 +1082,12 @@ class DcnnServeEngine:
         if wg:
             self.wgmma_launch_counts[bucket] = (
                 self.wgmma_launch_counts.get(bucket, 0) + wg)
+        if ex is not None and ex.kind_launches:
+            counts = self.kind_launch_counts.setdefault(bucket, {})
+            for kind, k in ex.kind_launches.items():
+                counts[kind] = counts.get(kind, 0) + k
+                self._m_kind_launches.inc(k, kind=kind, bucket=bucket,
+                                          **self._mlabels)
 
     def _account(self, bucket: int, take: int, dt: float, steady: bool,
                  retried: bool, made: int) -> None:
@@ -1047,6 +1112,9 @@ class DcnnServeEngine:
                 self._tracer.instant("straggler", cat="fault",
                                      bucket=bucket, seconds=dt,
                                      **self._mlabels)
+        if self.is_unet:
+            self.stats["input_bytes"] += take * self._row_bytes
+            self._m_input_bytes.inc(take * self._row_bytes, **self._mlabels)
         pad = bucket - take
         if pad:
             self.stats["padded_images"] += pad

@@ -180,10 +180,12 @@ def workload_name_for(cfg: DcnnConfig) -> str:
 
 
 def resolve_model(model) -> DcnnConfig:
-    """`EngineConfig.model` resolution: a `DcnnConfig` passes through,
-    a string resolves via the registry, anything else is a typed
-    error."""
-    if isinstance(model, DcnnConfig):
+    """`EngineConfig.model` resolution: a `DcnnConfig` (or the U-Net's
+    `models.unet.UnetConfig`) passes through, a string resolves via the
+    registry, anything else is a typed error."""
+    from ..models.unet import UnetConfig
+
+    if isinstance(model, (DcnnConfig, UnetConfig)):
         return model
     if isinstance(model, str):
         return get(model).cfg
